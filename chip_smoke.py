@@ -5,17 +5,27 @@
 
 Phases, one output line each (plus a few measurement lines):
   1. device:  requires CUDA; prints the card's name and power limit;
-  2. build:   builds the CUDA step kernel (csrc/stepper.cu) with nvcc;
-  3. kernel:  the kernel against its plain PyTorch version on the card,
-              500 steps in two chunks (parity continuation) with
+  2. build:   builds the CUDA kernels (csrc/stepper.cu, csrc/sweep_stack.cu)
+              with one nvcc per source, all started together;
+  3. kernel:  the step kernel against its plain PyTorch version on the
+              card, 500 steps in two chunks (parity continuation) with
               display-77 records, at BASELINE #4 (N=100, M=4000) and at
               N=8 M=64, in f64 and f32;
   4. golden:  impl=cuda display 4 against the reference C solver's
               recorded output (tests/golden/d4_base1_*.txt);
   5. main:    the CLI (slb2d_tpu_torch.cli.main) at BASELINE #4, display 4,
               f32, impl=cuda, with the kernel launch count checked, and
-              the plain path's rate beside the kernel's.
-The last two lines are a JSON record of the kernel and
+              the plain path's rate beside the kernel's;
+  6. sweep kernel: the sweep kernel against its plain version, 300 steps
+              in two chunks, at the 64-point N=40 M=500 sweep shape and at
+              a ragged 6-point shape with a dc-only point and mu swept, in
+              f64 and f32; its time per step beside the plain version's;
+  7. sweep main: the sweep CLI (slb2d_tpu_torch.sweep_cli.main) on the
+              64-point E_dc sweep of bench.py's sweep bench, f32,
+              impl=cuda, with the launch count, the table and every
+              point's norm checked, and the batched torch engine's rate
+              beside the kernel path's.
+The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no ok line.  It needs no network and one card.
 """
@@ -55,6 +65,22 @@ DEVICE = "cuda:0"
 
 KERNEL_SOURCE = "slb2d_tpu_torch/csrc/stepper.cu"
 REPLACES = "slb2d_tpu/ops/stepper_pallas.py:133"
+SWEEP_SOURCE = "slb2d_tpu_torch/csrc/sweep_stack.cu"
+SWEEP_REPLACES = "slb2d_tpu/ops/sweep_stack.py:101"
+
+# the 64-point E_dc sweep of bench.py:177-195 (bench_sweep_stack, BASELINE
+# #2's shape): N=40 M=500 (NHP=48, MP=512), one drive period per point
+SWEEP_FULL = dict(n_harmonics=40, g_grid=500, t_start=0.1)
+SWEEP_POINTS = 64
+SWEEP_ARGV = ["E_dc=1.0", "E_omega=2.0", "omega=1.0", "mu=1.0",
+              "alpha=0.9495", "n-harmonics=40", "PhiYmin=-10", "PhiYmax=10",
+              "B=0.1", "t-max=0.1", "dt=1e-3", "g-grid=500", "dtype=f32",
+              "impl=cuda", "quiet=1", "sweep:E_dc=0.1,3.0,64"]
+# tests/test_sweep_stack.py's ragged grid: 6 points, point 2 dc-only
+# (E_omega=0), mu swept so a0 varies per point
+SWEEP_RAGGED = dict(n_harmonics=8, g_grid=24, t_start=0.2, omega=10.0)
+RAGGED_PARAMS = {"E_omega": [2.0, 2.0, 0.0, 1.5, 2.0, 2.0],
+                 "mu": [1.0, 1.2, 1.0, 0.8, 1.0, 1.1]}
 
 
 class SmokeFailure(RuntimeError):
@@ -184,6 +210,173 @@ def kernel_ms(shape, dtype):
     return k_ms, chunk_ms
 
 
+def sweep_grid(shape):
+    """(config keywords, params) of one sweep-kernel check shape."""
+    import numpy as np
+    if shape == "ragged":
+        params = {"E_dc": np.linspace(0.3, 2.0, 6),
+                  **{k: np.asarray(v) for k, v in RAGGED_PARAMS.items()}}
+        return {**PHYS, **SWEEP_RAGGED}, params
+    return ({**PHYS, **SWEEP_FULL},
+            {"E_dc": np.linspace(0.1, 3.0, SWEEP_POINTS)})
+
+
+def _sweep_setup(shape, dtype):
+    import torch
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.ops import sweep_stack_cuda
+    from slb2d_tpu_torch.parallel.sweep import ParameterSweep
+    kw, params = sweep_grid(shape)
+    cfg = SimConfig(display=4, dtype=dtype, impl="cuda", quiet=True, **kw)
+    sweep = ParameterSweep(cfg, params, device=torch.device(DEVICE))
+    check(sweep.engine == "cuda", f"sweep engine {sweep.engine}, not cuda")
+    return sweep, sweep_stack_cuda.SweepStackRunner(sweep)
+
+
+def check_sweep_kernel_vs_plain(shape, dtype, n_steps=300):
+    """Run the sweep kernel and its plain version from one batched state
+    over the same exact tables, in two chunks (the first odd, so the
+    second starts at parity 1); raise on disagreement.  Returns the
+    largest abs difference of the state arrays."""
+    import torch
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    sweep, runner = _sweep_setup(shape, dtype)
+    state0 = sweep._initial_states()
+    kern, plain = state0.clone(), state0.clone()
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    what = f"sweep {dtype} {shape} B={sweep.B}"
+    dc_only = ~runner.egate
+    err = 0.0
+    n1 = n_steps // 2 + 1
+    for n in (n1, n_steps - n1):
+        xs = runner.chunk_table(n)
+        parity0 = runner.step0 % 2
+        launches0 = runner.launches
+        kern = runner.advance(kern, n)
+        plain = ssc.run_chunk_plain(sweep.consts, plain, xs, parity0,
+                                    runner.egate)
+        torch.cuda.synchronize()
+        want = -(-n // ssc.CHUNK_STEPS) * ssc.LAUNCHES_PER_CHUNK
+        check(runner.launches - launches0 == want,
+              f"{what}: {runner.launches - launches0} launches for {n} "
+              f"steps (expected {want})")
+        for f in ("a", "b", "a_hs", "b_hs"):
+            err = max(err, allclose(getattr(kern, f), getattr(plain, f),
+                                    what=f"{what} {f}", **tol))
+        allclose(kern.av, plain.av, what=f"{what} av", **tol)
+        for f in ("hs_edge_a", "hs_edge_b"):
+            check(torch.equal(getattr(kern, f), getattr(plain, f)),
+                  f"{what} {f} not bit for bit")
+        for st, name in ((kern, "kernel"), (plain, "plain")):
+            check(bool(torch.all(st.av[dc_only] == 0)),
+                  f"{what}: the dc-only point's av is not 0 ({name})")
+        check(torch.equal(kern.step, plain.step), f"{what}: step count")
+        check(torch.equal(kern.t, plain.t), f"{what}: loop t")
+    if shape == "ragged":
+        check(bool(dc_only.any()), "the ragged grid has no dc-only point")
+    return err
+
+
+def sweep_kernel_ms(n_kernel=1000, n_plain=30, n_engine=300):
+    """ms per step of the sweep kernel (CUDA events, one launch for
+    n_kernel steps), of its plain version and of the batched torch engine
+    (host clock to a synchronise), at the 64-point shape in f32."""
+    import torch
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    from slb2d_tpu_torch.parallel import sweep as swmod
+    sweep, runner = _sweep_setup("full", "f32")
+    st = sweep._initial_states()
+    xs = runner.chunk_table(n_plain)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ssc.run_chunk_plain(sweep.consts, st.clone(), xs, 0, runner.egate)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+    k_ms = time_per_step(lambda: runner.advance(st, n_kernel), n_kernel,
+                         reps=2)
+    cap = {k: torch.zeros(sweep.B, dtype=st.a.dtype, device=st.a.device)
+           for k in swmod.CAP_KEYS}
+    weights = sweep._weights()
+    eng = sweep._initial_states()
+    swmod._run_sweep(sweep.consts, eng, cap, weights, 2)    # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swmod._run_sweep(sweep.consts, eng, cap, weights, n_engine)
+    torch.cuda.synchronize()
+    e_ms = (time.perf_counter() - t0) * 1e3 / n_engine
+    return k_ms, p_ms, e_ms, sweep
+
+
+def sweep_main_phase(card):
+    """The sweep CLI on the 64-point sweep; returns (kernel launches, wall
+    seconds, steps per point)."""
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch import sweep_cli
+    from slb2d_tpu_torch.ops import stepper_cuda, sweep_stack_cuda as ssc
+    sweep, _ = _sweep_setup("full", "f32")
+    steps = sweep.n_steps
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sweep.txt")
+        torch.cuda.synchronize()
+        stepper_cuda.launch_count = 0
+        ssc.launch_count = 0
+        t0 = time.perf_counter()
+        rc = sweep_cli.main(SWEEP_ARGV + [f"o={path}"])
+        wall = time.perf_counter() - t0      # ends in the result fetch,
+                                             # which synchronises
+        launches = ssc.launch_count
+        step_launches = stepper_cuda.launch_count
+        check(rc == 0, f"sweep_cli.main returned {rc}")
+        with open(path) as fh:
+            text = fh.read()
+    lines = text.splitlines()
+    check(lines[0] + "\n" == sweep_cli.HEADER,
+          f"sweep header {lines[0]!r}")
+    rows = np.array([l.split() for l in lines[1:]], float)
+    check(rows.shape == (SWEEP_POINTS, 15),
+          f"expected {SWEEP_POINTS} 15-column lines, got {rows.shape}")
+    check(bool(np.all(np.isfinite(rows))), "non-finite sweep output")
+    check(np.allclose(rows[:, 0], np.linspace(0.1, 3.0, SWEEP_POINTS),
+                      rtol=1e-11, atol=0), "the E_dc column")
+    norm_err = float(np.max(np.abs(rows[:, 14] - 1.0)))
+    check(norm_err < 1e-3, f"a point's norm is {norm_err} from 1")
+    want = -(-steps // ssc.CHUNK_STEPS) * ssc.LAUNCHES_PER_CHUNK
+    check(launches == want,
+          f"{launches} sweep kernel launches for {steps} steps (expected "
+          f"{want})")
+    check(step_launches == 0, "the sweep path launched the step kernel")
+    sites = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * steps * sweep.B
+    print(f"sweep main: sweep_cli {SWEEP_POINTS}-point E_dc sweep N=40 "
+          f"M=500 f32 impl=cuda: {steps} steps, {launches} launch(es), "
+          f"max |norm-1| {norm_err:.3e}, wall {wall:.3f} s, "
+          f"{sites / wall:.4e} site-updates/s [{card}]", flush=True)
+    return launches, wall, steps
+
+
+def ptxas_summary(log):
+    """'kernel<type>: N registers[, spills]' for each compiled kernel."""
+    import re
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(half_step|av_step|record_step|sweep_chunk)"
+                          r"I([fd])(?:Lb([01]))?", m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)}"
+                    f"{',' + k.group(3) if k.group(3) else ''}>"
+                    if k else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name and m.group(1) != "0":
+            out.append(f"{name}: {m.group(1)} bytes spill stores")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers")
+    return out
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -298,12 +491,11 @@ def main():
     t0 = time.perf_counter()
     lib = _build.load()
     secs = time.perf_counter() - t0
-    regs = [l.strip() for l in lib.build_log.splitlines()
-            if "registers" in l]
     how = (f"built in {lib.build_seconds:.2f} s" if lib.build_seconds
            else "an earlier build of these sources")
     print(f"build: nvcc sm_90a {os.path.relpath(lib.path, ROOT)}: {how} "
-          f"(load {secs:.2f} s); ptxas: {' | '.join(regs)}", flush=True)
+          f"(load {secs:.2f} s); ptxas: "
+          f"{' | '.join(ptxas_summary(lib.build_log))}", flush=True)
 
     # 3. kernel vs plain on the card
     max_err = {}
@@ -322,7 +514,11 @@ def main():
     golden_phase(card)
 
     # 5. the main path, then the plain path's rate over 2000 steps
+    from slb2d_tpu_torch.ops import sweep_stack_cuda
+    sweep_stack_cuda.launch_count = 0
     launches, wall, steps = main_path_phase(card)
+    check(sweep_stack_cuda.launch_count == 0,
+          "the single-run path launched the sweep kernel")
     model, c, xs = _setup(BASELINE4, "f32", torch.device(DEVICE))
     win = {k: v[:2000] for k, v in xs.items()}
     st = stencil.bootstrap_state(c, model)
@@ -338,12 +534,38 @@ def main():
           f"{per_step * 2000 / plain_wall:.4e} site-updates/s; kernel path "
           f"{per_step * steps / wall:.4e} [{card}]", flush=True)
 
+    # 6. the sweep kernel against its plain version, and its times
+    sweep_err = {}
+    for shape in ("full", "ragged"):
+        for dtype in ("f64", "f32"):
+            sweep_err[shape, dtype] = check_sweep_kernel_vs_plain(shape,
+                                                                  dtype)
+    print("sweep kernel: vs plain, 300 steps in 2 chunks, edges bit for "
+          "bit, dc-only av 0: " +
+          ", ".join(f"{s} {d} max abs err {e:.3e}"
+                    for (s, d), e in sweep_err.items()) + " ok", flush=True)
+    sk_ms, sp_ms, se_ms, sweep = sweep_kernel_ms()
+    per_step = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * sweep.B
+    print(f"sweep kernel time {SWEEP_POINTS}-point N=40 M=500 f32: kernel "
+          f"{sk_ms:.5f} ms/step (1 launch per chunk, CUDA events), plain "
+          f"version {sp_ms:.5f} ms/step, batched torch engine "
+          f"{se_ms:.5f} ms/step = {per_step / (se_ms * 1e-3):.4e} "
+          f"site-updates/s (host clock) [{card}]", flush=True)
+
+    # 7. the sweep main path
+    sweep_launches, sweep_wall, sweep_steps = sweep_main_phase(card)
+
     print(json.dumps({"kernels": [{
         "name": "slb_run_chunk (half_step<MAIN>, half_step<HALF>, av_step)",
         "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": launches,
         "max_abs_err": max_err["BASELINE#4", "f32"],
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+        "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "slb_sweep_chunk (sweep_chunk)",
+        "route": "cuda", "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
+        "launches": sweep_launches,
+        "max_abs_err": sweep_err["full", "f32"],
+        "ms": sk_ms, "plain_ms": sp_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,9 @@
 The port of ``slb2d_tpu`` (JAX) to an NVIDIA H100: the same host schedule,
 model and output formats, the stencil as plain PyTorch (``impl=torch``)
 and the step loop as a hand-written CUDA kernel (``impl=cuda``,
-``csrc/stepper.cu``).  Imports torch and numpy, never jax.
+``csrc/stepper.cu``); parameter sweeps as a batched torch engine and a
+hand-written sweep kernel (``parallel/sweep.py``, ``csrc/sweep_stack.cu``).
+Imports torch and numpy, never jax.
 """
 
 from .config import SimConfig, parse_cmd  # noqa: F401

@@ -40,26 +40,22 @@
 
 #include <cuda_runtime.h>
 
+#include "half_step.cuh"
+
 namespace {
 
-constexpr int XS_LANES = 10;
+using slb::Geometry;
+using slb::Params;
+using slb::XS_LANES;
+
 constexpr int OBS_LANES = 16;
 constexpr int HALF_BLOCK = 256;
 constexpr int SUM_BLOCK = 1024;
 
-template <typename T>
-struct Params {
-  T E_dc, E_omega, omega, B, dt, nu, nu2, nu_tilde, bdt, t_start, t_end;
-};
-
-struct Geometry {
-  int N, M, NHP, MP;
-};
-
-// One stencil application at (n, m).  dst arrays are updated in place:
-// the thread reads dst only at its own (n, m) and every neighbour from
-// the other pair (nb), which no thread of this launch writes, so no
-// thread can see another's update.
+// One stencil application over the whole grid, one thread per cell.  The
+// in-place update is safe across the grid: the cell reads dst only at its
+// own (n, m) and every neighbour from the other pair (nb), which no
+// thread of this launch writes.
 template <typename T, bool MAIN>
 __global__ void half_step(T* __restrict__ a_dst, T* __restrict__ b_dst,
                           const T* __restrict__ a_nb,
@@ -73,86 +69,9 @@ __global__ void half_step(T* __restrict__ a_dst, T* __restrict__ b_dst,
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = blockIdx.y;
   if (m >= g.MP || n >= g.NHP) return;
-  const int MP = g.MP;
-  const size_t idx = (size_t)n * MP + m;
-
-  const T cos_t = xs_row[MAIN ? 0 : 2];
-  const T cos_t_dt = xs_row[MAIN ? 1 : 3];
-
-  // row masks and weights (models/superlattice.py: n_float, n_ge2, w_n,
-  // row_update, b_row_mask); column masks col_main / col_half
-  const T nf = n < g.N ? T(n) : T(0);
-  const T n_ge2 = n >= 2 ? T(1) : T(0);
-  const T w_n = n == 0 ? T(0) : (n == 1 ? T(2) : T(1));
-  const T nu_a = p.nu * (n < g.N ? T(1) : T(0));
-  const T nu_b = nu_a * (n > 0 ? T(1) : T(0));
-  const int m_hi = MAIN ? g.M + 1 : g.M;
-  const T colf = (m >= 1 && m <= m_hi) ? T(1) : T(0);
-
-  // mu_t, mu_t1 fresh every step in the C operand order
-  // (src/boltzmann_c_solver.c:363-365); never carried across steps
-  const T ph = phi[m];
-  const T mu_t = nf * ((p.E_dc + p.E_omega * cos_t + p.B * ph) * p.dt / T(2));
-  const T mu_t1 =
-      nf * ((p.E_dc + p.E_omega * cos_t_dt + p.B * ph) * p.dt / T(2));
-
-  // neighbour indices wrap like roll; wrapped values land only where
-  // n_ge2, w_n or the column masks zero them
-  const int np1 = n + 1 == g.NHP ? 0 : n + 1;
-  const int nm1 = n == 0 ? g.NHP - 1 : n - 1;
-  const int mp1 = m + 1 == MP ? 0 : m + 1;
-  const int mm1 = m == 0 ? MP - 1 : m - 1;
-  const size_t rp = (size_t)np1 * MP, rm = (size_t)nm1 * MP;
-
-  const T dmb_p = b_nb[rp + mp1] - b_nb[rp + mm1];
-  const T dmb_m = b_nb[rm + mp1] - b_nb[rm + mm1];
-  const T dma_p = a_nb[rp + mp1] - a_nb[rp + mm1];
-  const T dma_m = a_nb[rm + mp1] - a_nb[rm + mm1];
-
-  const T a_src = a_dst[idx];
-  const T b_src = b_dst[idx];
-  const T gv = p.dt * a0[idx] + a_src * p.nu_tilde - b_src * mu_t +
-               p.bdt * (dmb_p - n_ge2 * dmb_m);
-  const T hv = b_src * p.nu_tilde + a_src * mu_t +
-               p.bdt * (w_n * dma_m - dma_p);
-  const T xi = p.nu2 + mu_t1 * mu_t1;
-  const T inv_xi = colf / xi;
-  T a_new = (gv * nu_a - hv * mu_t1) * inv_xi;
-  T b_new = (gv * mu_t1 + hv * nu_b) * inv_xi;
-
-  if (MAIN) {
-    a_new = a_new + ghost_gate * a0_ghost[idx];
-  } else if (m == g.M + 1) {
-    // stale column M+1 (4-buffer rotation): restore the carried edge,
-    // retire the pre-step value for the next step
-    a_new = edge_a[n];
-    b_new = edge_b[n];
-    edge_a[n] = a_src;
-    edge_b[n] = b_src;
-  }
-  a_dst[idx] = a_new;
-  b_dst[idx] = b_new;
-}
-
-template <typename T>
-__device__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block-wide sums of K values; the result is valid in thread 0.
-template <typename T, int K>
-__device__ void block_sums(T (&v)[K]) {
-  __shared__ T sh[K][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0)
-    for (int k = 0; k < K; ++k) sh[k][warp] = v[k];
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    for (int k = 0; k < K; ++k) v[k] = warp_sum(lane < nw ? sh[k][lane] : T(0));
-  }
+  slb::half_step_cell<T, MAIN>(a_dst, b_dst, a_nb, b_nb, a0, a0_ghost, phi,
+                               xs_row[MAIN ? 0 : 2], xs_row[MAIN ? 1 : 3],
+                               p, g, ghost_gate, edge_a, edge_b, n, m);
 }
 
 // av() (reference src/boltzmann_c_solver.c:413-437) on the post-step main
@@ -171,25 +90,9 @@ __global__ void av_step(const T* __restrict__ a, const T* __restrict__ b,
       s[1] += a[m] * w_av_phi[m];       // v_y
       s[2] += a[MP + m] * w_av[m];      // m_x
     }
-    block_sums<T, 3>(s);
-    if (threadIdx.x == 0) {
-      const T v_dr = s[0], v_y = s[1], m_x = s[2];
-      const T cos_av = xs_row[4], sin_av = xs_row[5];
-      const T count = av[0] + T(1);
-      av[1] = av[1] + (v_dr - av[1]) / count;
-      av[2] = av[2] + (v_y - av[2]) / count;
-      av[3] = av[3] + (m_x - av[3]) / count;
-      // Kahan-compensated absorption quadratures (compensations in 6/7)
-      const T y4 = cos_av * v_dr * dt - av[6];
-      const T t4 = av[4] + y4;
-      av[6] = (t4 - av[4]) - y4;
-      av[4] = t4;
-      const T y5 = sin_av * v_dr * dt - av[7];
-      const T t5 = av[5] + y5;
-      av[7] = (t5 - av[5]) - y5;
-      av[5] = t5;
-      av[0] = av[0] + T(1);
-    }
+    slb::block_sums<T, 3>(s);
+    if (threadIdx.x == 0)
+      slb::av_chain(av, s[0], s[1], s[2], xs_row[4], xs_row[5], dt);
   }
   if (obs_slot != nullptr && threadIdx.x == 0)
     for (int j = 0; j < 8; ++j) obs_slot[5 + j] = av[j];
@@ -209,7 +112,7 @@ __global__ void record_step(const T* __restrict__ a, const T* __restrict__ b,
     s[2] += a[m] * w_av_phi[m];         // v_y
     s[3] += a[MP + m] * w_av[m];        // m_x
   }
-  block_sums<T, 4>(s);
+  slb::block_sums<T, 4>(s);
   if (threadIdx.x == 0) {
     for (int k = 0; k < 4; ++k) obs_slot[k] = s[k];
     obs_slot[4] = xs_row[7];

@@ -1,10 +1,11 @@
-"""Build and load the CUDA step library (csrc/stepper.cu) at first use.
+"""Build and load the CUDA kernel library (csrc/*.cu) at first use.
 
-``nvcc`` compiles the source into a shared library with a plain C
+One ``nvcc`` per source, all started together, compiles the kernels to
+objects; one more links them into a shared library with a plain C
 interface, ``build/slb2d_tpu_torch/libslbstep_<hash>.so`` beside the
-package, keyed by a hash of the sources and flags so an edited source
-builds anew.  The library is loaded with ctypes.  Nothing here runs at
-import time; a missing ``nvcc`` or a failed build raises.
+package, keyed by a hash of the sources, headers and flags so an edited
+source builds anew.  The library is loaded with ctypes.  Nothing here runs
+at import time; a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import tempfile
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "stepper.cu"),)
+SOURCES = tuple(os.path.join(_PKG, "csrc", f)
+                for f in ("stepper.cu", "sweep_stack.cu"))
+HEADERS = (os.path.join(_PKG, "csrc", "half_step.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "slb2d_tpu_torch")
 # -fmad=false: no multiply-add contraction, so the kernel rounds as the
 # plain version and the float C reference do: it then matches the plain
@@ -27,11 +30,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "slb2d_tpu_torch")
 # at BASELINE #4, outside rtol 1e-4, atol 1e-7 (H100 80GB HBM3, 700 W;
 # PERF.md).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_ENTRY_ARGS = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
-               + [ctypes.c_void_p])
+# ctypes signatures: (pointers, ints, stream) per entry point
+_ENTRY_ARGS = {
+    "slb_run_chunk": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p]),
+    "slb_sweep_chunk": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
+                        + [ctypes.c_void_p]),
+}
 
 
 class BuildError(RuntimeError):
@@ -67,7 +74,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -75,7 +82,8 @@ def library_path() -> str:
 
 
 def load() -> _Lib:
-    """The step library, built first if no build of these sources exists."""
+    """The kernel library, built first if no build of these sources
+    exists."""
     global _LOADED
     if _LOADED is not None:
         return _LOADED
@@ -83,23 +91,44 @@ def load() -> _Lib:
     seconds, log = 0.0, ""
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            log = _compile_and_link(tmpdir, path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise BuildError(f"nvcc failed ({proc.returncode}):\n"
-                             f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)   # atomic: concurrent builders never see
-                                # a half-written library
     cdll = ctypes.CDLL(path)
-    for name in ("slb_run_chunk_f32", "slb_run_chunk_f64"):
-        fn = getattr(cdll, name)
-        fn.argtypes = _ENTRY_ARGS
-        fn.restype = ctypes.c_int
+    for entry, argtypes in _ENTRY_ARGS.items():
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(cdll, entry + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     _LOADED = _Lib(cdll, path, seconds, log)
     return _LOADED
+
+
+def _compile_and_link(tmpdir, path) -> str:
+    """Compile every source in parallel, link, move the library to path;
+    returns the compilers' output (ptxas register counts included)."""
+    nvcc = _nvcc()
+    objs = [os.path.join(tmpdir, os.path.basename(src) + ".o")
+            for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outs)
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise BuildError(f"nvcc failed ({proc.returncode}):\n"
+                             f"{' '.join(cmd)}\n{out}")
+    lib = os.path.join(tmpdir, "lib.so")
+    cmd = [nvcc, "-shared", "-o", lib, *objs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise BuildError(f"nvcc link failed ({proc.returncode}):\n"
+                         f"{' '.join(cmd)}\n{log}")
+    os.replace(lib, path)   # atomic: concurrent builders never see a
+                            # half-written library
+    return log

@@ -6,6 +6,13 @@ n=0 / n=1 special cases are data (mask and weight vectors), shifts
 masked-out ghost rows/columns.  This is the ``impl=torch`` engine and the
 plain reference beside the CUDA kernel (``ops/stepper_cuda.py``).
 
+Every function also takes a leading point axis, where the JAX package
+vmaps over sweep points (parallel/sweep.py): state arrays (B, NHP, MP),
+edges (B, NHP), av (B, 8), t and step (B,), and per-point scalars as
+(B, 1, 1) tensors.  Shifts roll the last two dims and row reads take
+``[..., n, :]``, so one code path serves a single run (no point axis)
+and a batch.
+
 Update scheme per grid point and harmonic (src/boltzmann_c_solver.c:363-378):
 
     mu_t   = n * (E_dc + E_omega*cos(w t)      + B*phi_y) * dt/2
@@ -118,7 +125,7 @@ def consts_from_model(model, device, t_start=None) -> StencilConsts:
 
 def _shift(arr, dn: int, dm: int):
     """Value at (n+dn, m+dm); wrap-around lands only in masked positions."""
-    return torch.roll(arr, shifts=(-dn, -dm), dims=(0, 1))
+    return torch.roll(arr, shifts=(-dn, -dm), dims=(-2, -1))
 
 
 def apply_half_step(c: StencilConsts, a_src, b_src, a_nb, b_nb,
@@ -218,14 +225,16 @@ def av_update(c: StencilConsts, av, a_new, b_new, cos_av, sin_av):
     av[4], av[5]: absorption quadratures Sum cos/sin(w t) * v_dr * dt with
     Kahan compensation carried in av[6], av[7].
     """
-    v_dr = torch.sum(b_new[1] * c.w_av, dim=-1)
-    v_y = torch.sum(a_new[0] * c.w_av_phi, dim=-1)
-    m_x = torch.sum(a_new[1] * c.w_av, dim=-1)
+    v_dr = torch.sum(b_new[..., 1, :] * c.w_av, dim=-1)
+    v_y = torch.sum(a_new[..., 0, :] * c.w_av_phi, dim=-1)
+    m_x = torch.sum(a_new[..., 1, :] * c.w_av, dim=-1)
     return av_update_from_sums(c, av, v_dr, v_y, m_x, cos_av, sin_av)
 
 
 def av_update_from_sums(c, av, v_dr, v_y, m_x, cos_av, sin_av):
-    """av_update with the three raw grid sums precomputed."""
+    """av_update with the three raw grid sums precomputed.  With a point
+    axis, the sums and cos_av/sin_av are (B,) and av is (B, 8)."""
+    av = av.unbind(-1)
     count = av[0] + 1
     av1 = av[1] + (v_dr - av[1]) / count
     av2 = av[2] + (v_y - av[2]) / count
@@ -236,15 +245,17 @@ def av_update_from_sums(c, av, v_dr, v_y, m_x, cos_av, sin_av):
     y5 = sin_av * v_dr * c.dt - av[7]
     t5 = av[5] + y5
     c5 = (t5 - av[5]) - y5
-    return torch.stack([av[0] + 1, av1, av2, av3, t4, t5, c4, c5])
+    return torch.stack([av[0] + 1, av1, av2, av3, t4, t5, c4, c5], dim=-1)
 
 
-def full_step(c: StencilConsts, state: State, trig, do_av: bool, *,
+def full_step(c: StencilConsts, state: State, trig, do_av, *,
               use_reciprocal: bool = False) -> State:
     """One full time step = main-grid + half-grid stencil application plus
     optional observable accumulation (reference loop body,
     src/boltzmann_c_solver.c:164-194).  trig: (cos_t, cos_t_dt, cos_hs,
-    cos_hs_dt, cos_av, sin_av) as Python floats or 0-d tensors.
+    cos_hs_dt, cos_av, sin_av) as Python floats or 0-d tensors; with a
+    point axis the first four may be (B, 1, 1) and the last two (B,).
+    do_av: a bool, or a (B,) bool tensor gating each point's av.
     use_reciprocal selects apply_half_step's form (the kernel's)."""
     cos_t, cos_t_dt, cos_hs, cos_hs_dt, cos_av, sin_av = trig
     a_new, b_new = apply_half_step(
@@ -253,7 +264,7 @@ def full_step(c: StencilConsts, state: State, trig, do_av: bool, *,
     # Parity ghost fill: this step writes main buffer (step+1) % 2; buffer 0
     # keeps a0's ghost cells from the initial copy, buffer 1 keeps zeros.
     # a_new is zero outside the write region, so the add is exact.
-    ghost_on = (state.step + 1) % 2 == 0
+    ghost_on = ((state.step + 1) % 2 == 0)[..., None, None]
     a_new = a_new + torch.where(ghost_on, c.a0_ghost,
                                 torch.zeros((), dtype=a_new.dtype,
                                             device=a_new.device))
@@ -262,13 +273,17 @@ def full_step(c: StencilConsts, state: State, trig, do_av: bool, *,
         main=False, use_reciprocal=use_reciprocal)
     # stale column M+1 of the retired half-step buffer (4-buffer rotation)
     emask = c.col_edge.to(a_new.dtype)
-    ahs_new = torch.where(c.col_edge, state.hs_edge_a[:, None], ahs_new)
-    bhs_new = torch.where(c.col_edge, state.hs_edge_b[:, None], bhs_new)
+    ahs_new = torch.where(c.col_edge, state.hs_edge_a[..., None], ahs_new)
+    bhs_new = torch.where(c.col_edge, state.hs_edge_b[..., None], bhs_new)
     # exact: a row dot with a one-hot mask picks the single column value
     new_edge_a = torch.sum(state.a_hs * emask, dim=-1)
     new_edge_b = torch.sum(state.b_hs * emask, dim=-1)
-    av_new = (av_update(c, state.av, a_new, b_new, cos_av, sin_av)
-              if do_av else state.av)
+    if isinstance(do_av, torch.Tensor):
+        av_new = torch.where(do_av[..., None], av_update(
+            c, state.av, a_new, b_new, cos_av, sin_av), state.av)
+    else:
+        av_new = (av_update(c, state.av, a_new, b_new, cos_av, sin_av)
+                  if do_av else state.av)
     return State(
         a=a_new, b=b_new, a_hs=ahs_new, b_hs=bhs_new,
         hs_edge_a=new_edge_a, hs_edge_b=new_edge_b,
@@ -297,12 +312,12 @@ def emission_record(c: StencilConsts, pre: State, post: State):
     step's loop t.  Host-side formatting applies the multipliers."""
     return torch.cat([
         torch.stack([
-            torch.sum(pre.a[0] * c.w_av),     # norm bounds == av bounds
-            torch.sum(pre.b[1] * c.w_av),
-            torch.sum(pre.a[0] * c.w_av_phi),
-            torch.sum(pre.a[1] * c.w_av),
-            pre.t.to(pre.a.dtype)]),
-        post.av])
+            torch.sum(pre.a[..., 0, :] * c.w_av, dim=-1),  # norm bounds
+            torch.sum(pre.b[..., 1, :] * c.w_av, dim=-1),  # == av bounds
+            torch.sum(pre.a[..., 0, :] * c.w_av_phi, dim=-1),
+            torch.sum(pre.a[..., 1, :] * c.w_av, dim=-1),
+            pre.t.to(pre.a.dtype)], dim=-1),
+        post.av], dim=-1)
 
 
 XS_TRIG = ("cos_t", "cos_t_dt", "cos_hs", "cos_hs_dt", "cos_av", "sin_av")

@@ -1,4 +1,4 @@
-"""The CUDA step kernel on a card, against its plain PyTorch version.
+"""The CUDA kernels on a card, against their plain PyTorch versions.
 
 Marked `cuda`; each test skips where torch sees no CUDA device.  This file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -50,3 +50,28 @@ def test_runner_validates_before_launch(card):
     out = runner(state, 6)
     torch.cuda.synchronize()
     assert runner.launches == 3 * 6 and int(out.step) == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_sweep_kernel_matches_plain(card, dtype):
+    """The sweep kernel on the ragged 6-point grid (a dc-only point, mu
+    swept), 60 steps in two chunks, as chip_smoke.py's sweep-kernel phase
+    checks it (f64 rtol 1e-12, f32 rtol 1e-4 atol 1e-7, edges bit for bit,
+    the dc-only point's av exactly 0)."""
+    import chip_smoke
+    chip_smoke.check_sweep_kernel_vs_plain("ragged", dtype, n_steps=60)
+
+
+@pytest.mark.cuda
+def test_sweep_runner_validates_before_launch(card):
+    import chip_smoke
+    sweep, runner = chip_smoke._sweep_setup("ragged", "f32")
+    state = sweep._initial_states()
+    bad = state.replace(av=state.av.t().contiguous().t())   # strided view
+    with pytest.raises(ValueError, match="contiguous"):
+        runner.advance(bad, 4)
+    assert runner.launches == 0
+    out = runner.advance(state, 6)
+    torch.cuda.synchronize()
+    assert runner.launches == 1 and int(out.step[0]) == 6
