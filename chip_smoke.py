@@ -5,8 +5,9 @@
 
 Phases, one output line each (plus a few measurement lines):
   1. device:  requires CUDA; prints the card's name and power limit;
-  2. build:   builds the CUDA kernels (csrc/stepper.cu, csrc/sweep_stack.cu)
-              with one nvcc per source, all started together;
+  2. build:   builds the CUDA kernels (csrc/stepper.cu, csrc/sweep_stack.cu
+              with both modes of the sweep kernel) with one nvcc per
+              source, all started together;
   3. kernel:  the step kernel against its plain PyTorch version on the
               card, 500 steps in two chunks (parity continuation) with
               display-77 records, at BASELINE #4 (N=100, M=4000) and at
@@ -24,8 +25,37 @@ Phases, one output line each (plus a few measurement lines):
               64-point E_dc sweep of bench.py's sweep bench, f32,
               impl=cuda, with the launch count, the table and every
               point's norm checked, and the batched torch engine's rate
-              beside the kernel path's.
-The last two lines are a JSON record of the kernels and
+              beside the kernel path's;
+  8. omega kernel: the sweep kernel's per-omega mode against its plain
+              version with the frames capture on, in two chunks (151
+              steps, then the rest from parity 1), on the ragged 5-point
+              omega grid (a dc-only point) and on 16 omegas x 4 E_dc at
+              N=40 M=500, each run to its end so every point's loop-exit
+              capture fires, in f64 and f32, and on the 16 x 16 paper map
+              from step 4990 across its window start and first exits, in
+              f32; its time per step over the whole sweep beside the
+              plain version's and the batched torch engine's;
+  9. omega sweep: the 16 x 4 grid at t-max=0.05 through the per-omega
+              kernel against the batched torch engine on the card (av
+              counts exact, observables at 2e-4 rel / 2e-5 abs);
+ 10. omega main: the sweep CLI on the 16 x 16 paper absorption map
+              (examples/absorption_map.py paper), f32, impl=cuda: launch
+              counts, 256 finite lines, norms, every point's av count
+              against the host schedule; then the measurement behind
+              impl=auto's routing of omega sweeps to the kernel: the
+              kernel path end to end against the batched engine's time
+              per step, at the 64-point omega sweep of bench.py and at
+              the paper map;
+ 11. frames:  sweep_cli frames-dir= on the card, a shared-omega grid
+              through the kernel and an omega grid through the per-omega
+              kernel (impl=cuda and impl=auto) and through the batched
+              engine (impl=torch), the kernel's frames against the
+              batched engine's.
+The last lines are the operation counts and bounds of the main paths, a
+JSON record of the kernels (ms, plain_ms and bound_ms per step; bound_ms
+is the larger of the main path's operations at F32_OPS_PEAK and its
+bytes, each input read once and each output written once, at 3.35 TB/s,
+over its steps) and
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no ok line.  It needs no network and one card.
 """
@@ -56,6 +86,10 @@ MAIN_ARGV = ["display=4", "E_dc=1.0", "E_omega=2.0", "omega=1.0", "mu=1.0",
 # interpreter-vs-scan envelope (the same differences at float32, D7 class)
 TOL = {"f64": dict(rtol=1e-12, atol=1e-14), "f32": dict(rtol=1e-4, atol=1e-7)}
 
+# sweep observables compared between engines
+OBS = ("v_dr_av", "v_y_av", "m_over_m_x_av", "A", "Asin", "v_dr_inst",
+       "v_y_inst", "m_over_m_x_inst", "norm", "av_count")
+
 # reference goldens at tests/test_golden.py's tolerances
 GOLDENS = (("d4_base1_f64.txt", "f64", 1e-8, 1e-9),
            ("d4_base1_f32.txt", "f32", 2e-5, 8e-6))
@@ -81,6 +115,64 @@ SWEEP_ARGV = ["E_dc=1.0", "E_omega=2.0", "omega=1.0", "mu=1.0",
 SWEEP_RAGGED = dict(n_harmonics=8, g_grid=24, t_start=0.2, omega=10.0)
 RAGGED_PARAMS = {"E_omega": [2.0, 2.0, 0.0, 1.5, 2.0, 2.0],
                  "mu": [1.0, 1.2, 1.0, 0.8, 1.0, 1.1]}
+
+# tests/test_sweep_stack.py's ragged omega grid (OMEGA_PARAMS: 5 points,
+# distinct periods, point 2 dc-only) with t-max cut to 0.01, so a run of
+# the whole sweep (796 steps) crosses every point's loop exit
+OMEGA_RAGGED = dict(n_harmonics=8, g_grid=24, t_start=0.01, omega=10.0)
+OMEGA_RAGGED_PARAMS = {"omega": [8.0, 10.0, 12.0, 14.0, 10.0],
+                       "E_dc": [0.4, 0.75, 1.1, 1.45, 1.8],
+                       "E_omega": [2.0, 2.0, 0.0, 1.5, 2.0]}
+# the absorption-map point shape (examples/absorption_map.py paper; N=40,
+# M=500, E_omega=1.5): the paper's 16 omegas x 4 E_dc at one drive period
+# (tests/test_sweep_stack.py:303-337), and the 16 x 16 paper map itself
+MAP = dict(E_dc=0.0, E_omega=1.5, omega=1.0, mu=1.0, alpha=0.9495,
+           phi_y_min=-10.0, phi_y_max=10.0, B=0.1, dt=1e-3, n_harmonics=40,
+           g_grid=500)
+PAPER_ARGV = ["E_dc=0.0", "E_omega=1.5", "omega=1.0", "mu=1.0",
+              "alpha=0.9495", "n-harmonics=40", "PhiYmin=-10", "PhiYmax=10",
+              "B=0.1", "t-max=5", "dt=1e-3", "g-grid=500", "dtype=f32",
+              "impl=cuda", "quiet=1", "sweep:E_dc=0,3,16",
+              "sweep:omega=6,14,16"]
+PAPER_POINTS = 256
+# bench.py:177-182's omega sweep: omega = linspace(0.8, 1.2, 64) at the
+# 64-point E_dc sweep's config (t-max=0.1, one period, ~7,950 steps)
+OMEGA64_ARGV = SWEEP_ARGV[:-1] + ["sweep:omega=0.8,1.2,64"]
+
+# The least time the card could take for a main path's kernel work
+# (bound_ms).  Its operations are the floating-point adds, multiplies and
+# divisions the function needs, counted from csrc/half_step.cuh with each
+# per-column or per-row term taken once per column or row, each loop
+# invariant (dt·a0, B·phi[m]) once per run, and each neighbour difference
+# once (it serves the rows above and below).  Per live cell of a
+# half-step: mu_t and mu_t1 from their column's coefficients 2, one a and
+# one b difference 2, g 7, h 6, xi 2, 1/xi 1, a 4, b 4.  The live cells
+# are rows 0..N-1 (row N stays 0) by columns 1..M+1 of the main grid and
+# 1..M of the half grid.
+CELL_FLOPS = 28
+# per column of a half-step: the coefficients (E_dc + E_omega·cos +
+# B·phi[m])·dt/2 of cos_t and of cos_t_dt, 2 each; per point and step:
+# E_dc + E_omega·cos for the four cos values, 2 each
+COLUMN_FLOPS = 4
+STEP_FLOPS = 8
+# per averaging step of a point: three weighted sums over columns 1..M (a
+# multiply and an add per column each) and the av chain (the count, three
+# running means, two Kahan sums)
+AV_COLUMN_FLOPS = 6
+AV_STEP_FLOPS = 22
+# per point once, at its loop exit in the per-omega kernel: four weighted
+# sums over the columns
+CAPTURE_COLUMN_FLOPS = 8
+# per point and step of the per-omega chains: four angle additions
+CHAIN_FLOPS = 12
+# The kernels round each add and multiply on its own (-fmad=false, the
+# plain version's rounding; with FMA contraction the f32 step kernel left
+# the f32 envelope at BASELINE #4, PERF.md §6).  The H100's f32 rate
+# outside the tensor cores, 67 TFLOP/s, counts an FMA as two operations;
+# one add or multiply per lane and cycle is half of it.  HBM bandwidth:
+# 3.35 TB/s.  Both from NVIDIA's data sheet (SXM part at 700 W).
+F32_OPS_PEAK = 67e12 / 2
+HBM_BYTES_PER_S = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -211,24 +303,37 @@ def kernel_ms(shape, dtype):
 
 
 def sweep_grid(shape):
-    """(config keywords, params) of one sweep-kernel check shape."""
+    """(config keywords, params) of one sweep check shape."""
     import numpy as np
     if shape == "ragged":
         params = {"E_dc": np.linspace(0.3, 2.0, 6),
                   **{k: np.asarray(v) for k, v in RAGGED_PARAMS.items()}}
         return {**PHYS, **SWEEP_RAGGED}, params
+    if shape == "omega_ragged":
+        return ({**PHYS, **OMEGA_RAGGED},
+                {k: np.asarray(v) for k, v in OMEGA_RAGGED_PARAMS.items()})
+    if shape in ("omega16x4", "paper"):
+        e_dc = np.linspace(0.0, 3.0, 4 if shape == "omega16x4" else 16)
+        E, W = np.meshgrid(e_dc, np.linspace(6.0, 14.0, 16), indexing="ij")
+        return ({**MAP, "t_start": 0.05 if shape == "omega16x4" else 5.0},
+                {"E_dc": E.ravel(), "omega": W.ravel()})
+    if shape == "omega64":
+        return ({**PHYS, **SWEEP_FULL},
+                {"omega": np.linspace(0.8, 1.2, SWEEP_POINTS)})
     return ({**PHYS, **SWEEP_FULL},
             {"E_dc": np.linspace(0.1, 3.0, SWEEP_POINTS)})
 
 
-def _sweep_setup(shape, dtype):
+def _sweep_setup(shape, dtype, impl="cuda"):
     import torch
     from slb2d_tpu_torch.config import SimConfig
     from slb2d_tpu_torch.ops import sweep_stack_cuda
     from slb2d_tpu_torch.parallel.sweep import ParameterSweep
     kw, params = sweep_grid(shape)
-    cfg = SimConfig(display=4, dtype=dtype, impl="cuda", quiet=True, **kw)
+    cfg = SimConfig(display=4, dtype=dtype, impl=impl, quiet=True, **kw)
     sweep = ParameterSweep(cfg, params, device=torch.device(DEVICE))
+    if impl == "torch":
+        return sweep, None
     check(sweep.engine == "cuda", f"sweep engine {sweep.engine}, not cuda")
     return sweep, sweep_stack_cuda.SweepStackRunner(sweep)
 
@@ -295,8 +400,7 @@ def sweep_kernel_ms(n_kernel=1000, n_plain=30, n_engine=300):
     p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
     k_ms = time_per_step(lambda: runner.advance(st, n_kernel), n_kernel,
                          reps=2)
-    cap = {k: torch.zeros(sweep.B, dtype=st.a.dtype, device=st.a.device)
-           for k in swmod.CAP_KEYS}
+    cap = _zero_cap(sweep)
     weights = sweep._weights()
     eng = sweep._initial_states()
     swmod._run_sweep(sweep.consts, eng, cap, weights, 2)    # warm-up
@@ -322,12 +426,14 @@ def sweep_main_phase(card):
         torch.cuda.synchronize()
         stepper_cuda.launch_count = 0
         ssc.launch_count = 0
+        ssc.omega_launch_count = 0
         t0 = time.perf_counter()
         rc = sweep_cli.main(SWEEP_ARGV + [f"o={path}"])
         wall = time.perf_counter() - t0      # ends in the result fetch,
                                              # which synchronises
         launches = ssc.launch_count
         step_launches = stepper_cuda.launch_count
+        omega_launches = ssc.omega_launch_count
         check(rc == 0, f"sweep_cli.main returned {rc}")
         with open(path) as fh:
             text = fh.read()
@@ -347,12 +453,413 @@ def sweep_main_phase(card):
           f"{launches} sweep kernel launches for {steps} steps (expected "
           f"{want})")
     check(step_launches == 0, "the sweep path launched the step kernel")
+    check(omega_launches == 0,
+          "the shared-omega sweep launched the per-omega kernel")
     sites = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * steps * sweep.B
     print(f"sweep main: sweep_cli {SWEEP_POINTS}-point E_dc sweep N=40 "
           f"M=500 f32 impl=cuda: {steps} steps, {launches} launch(es), "
           f"max |norm-1| {norm_err:.3e}, wall {wall:.3f} s, "
           f"{sites / wall:.4e} site-updates/s [{card}]", flush=True)
     return launches, wall, steps
+
+
+def _zero_cap(sweep, frames=False):
+    """A fresh loop-exit capture dict of a sweep, with the frames arrays
+    "a", "b" when `frames`."""
+    import torch
+    from slb2d_tpu_torch.ops.stencil import CAP_KEYS
+    dt, dev = sweep.consts.a0.dtype, sweep.device
+    cap = {k: torch.zeros(sweep.B, dtype=dt, device=dev) for k in CAP_KEYS}
+    if frames:
+        shape = (sweep.B, sweep.base.NHP, sweep.base.MP)
+        cap["a"] = torch.zeros(shape, dtype=dt, device=dev)
+        cap["b"] = torch.zeros(shape, dtype=dt, device=dev)
+    return cap
+
+
+def check_omega_kernel_vs_plain(shape, dtype, n_steps=None, start=0):
+    """Run the per-omega sweep kernel and its plain version from one
+    batched state over the same tables, in two chunks (151 steps, so the
+    second starts at parity 1; both cross resync steps), with the frames
+    capture on; raise on disagreement.  The state is first advanced
+    `start` steps by the kernel.  n_steps=None runs to the sweep's end,
+    past every point's loop exit.  Returns (largest abs difference of the
+    state arrays, of the four capture sums, whether the state arrays and
+    the frames agreed bit for bit, points whose capture fired)."""
+    import torch
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    from slb2d_tpu_torch.ops.stencil import CAP_KEYS
+    sweep, runner = _sweep_setup(shape, dtype)
+    check(runner.per_omega, f"{shape}: the runner is not in per-omega mode")
+    n_steps = n_steps or sweep.n_steps - start
+    state0, cap0 = sweep._initial_states(), _zero_cap(sweep, frames=True)
+    if start:
+        state0, cap0 = runner.advance(state0, start, cap=cap0)
+    kern, plain = state0.clone(), state0.clone()
+    kcap = {k: v.clone() for k, v in cap0.items()}
+    pcap = {k: v.clone() for k, v in cap0.items()}
+    fired0 = cap0["norm"] != 0
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    what = f"omega {dtype} {shape} B={sweep.B} from step {start}"
+    dc_only = ~runner.egate
+    err = cap_err = 0.0
+    bitwise = True
+    for n in (151, n_steps - 151):
+        xs = runner.chunk_table(n)
+        parity0 = runner.step0 % 2
+        launches0 = runner.launches
+        kern, kcap = runner.advance(kern, n, cap=kcap)
+        plain, pcap = ssc.run_chunk_plain_omega(
+            sweep.consts, plain, pcap, xs, parity0, runner.egate, runner.pp,
+            runner.w_d4, runner.w_d4_phi)
+        torch.cuda.synchronize()
+        want = -(-n // ssc.CHUNK_STEPS) * ssc.LAUNCHES_PER_CHUNK
+        check(runner.launches - launches0 == want,
+              f"{what}: {runner.launches - launches0} launches for {n} "
+              f"steps (expected {want})")
+        for f in ("a", "b", "a_hs", "b_hs"):
+            k, p = getattr(kern, f), getattr(plain, f)
+            err = max(err, allclose(k, p, what=f"{what} {f}", **tol))
+            bitwise = bitwise and torch.equal(k, p)
+        allclose(kern.av, plain.av, what=f"{what} av", **tol)
+        for k in CAP_KEYS:
+            cap_err = max(cap_err, allclose(kcap[k], pcap[k],
+                                            what=f"{what} capture {k}",
+                                            **tol))
+        for k in ("a", "b"):
+            allclose(kcap[k], pcap[k], what=f"{what} frames {k}", **tol)
+            bitwise = bitwise and torch.equal(kcap[k], pcap[k])
+        for f in ("hs_edge_a", "hs_edge_b"):
+            check(torch.equal(getattr(kern, f), getattr(plain, f)),
+                  f"{what} {f} not bit for bit")
+        for st, name in ((kern, "kernel"), (plain, "plain")):
+            check(bool(torch.all(st.av[dc_only] == 0)),
+                  f"{what}: the dc-only point's av is not 0 ({name})")
+        check(torch.equal(kern.step, plain.step), f"{what}: step count")
+        check(torch.equal(kern.t, plain.t), f"{what}: loop t")
+    fired = (kcap["norm"] != 0) & ~fired0
+    check(bool(torch.equal(fired, (pcap["norm"] != 0) & ~fired0)),
+          f"{what}: kernel and plain version captured different points")
+    check(bool(fired.any()), f"{what}: no loop-exit capture fired")
+    check(bool(torch.all(kern.av[~dc_only, 0] > 0)),
+          f"{what}: a point never averaged")
+    if start + n_steps == sweep.n_steps:
+        # run to the end: every point's capture fired (norm ~1, not 0)
+        check(bool(torch.all(kcap["norm"] != 0)),
+              f"{what}: a point's loop-exit capture never fired")
+    if shape == "omega_ragged":
+        check(bool(dc_only.any()), "the omega grid has no dc-only point")
+    return err, cap_err, bitwise, int(fired.sum())
+
+
+def batched_engine_ms(shape, n_steps=300):
+    """ms per step of the batched torch engine on the card (host clock to
+    a synchronise) at one sweep shape, f32."""
+    import torch
+    from slb2d_tpu_torch.parallel import sweep as swmod
+    sweep, _ = _sweep_setup(shape, "f32", impl="torch")
+    weights = sweep._weights()
+    st, cap = sweep._initial_states(), _zero_cap(sweep)
+    st, cap = swmod._run_sweep(sweep.consts, st, cap, weights, 2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swmod._run_sweep(sweep.consts, st, cap, weights, n_steps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_steps, sweep
+
+
+def omega_kernel_ms(shape, n_kernel=None, n_plain=30):
+    """ms per step of the per-omega sweep kernel (CUDA events, the first
+    n_kernel steps of the sweep, by default all of them, in one launch
+    per chunk as the main path runs them) and of its plain version (host
+    clock, n_plain steps from step 0), f32."""
+    import torch
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    sweep, runner = _sweep_setup(shape, "f32")
+    n_kernel = n_kernel or sweep.n_steps
+    st = sweep._initial_states()
+    xs = runner.chunk_table(n_plain)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ssc.run_chunk_plain_omega(sweep.consts, st.clone(), _zero_cap(sweep),
+                              xs, 0, runner.egate, runner.pp, runner.w_d4,
+                              runner.w_d4_phi)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+
+    def kernel():
+        runner.seek(0)              # the same steps, windows and exits
+        runner.advance(st.clone(), n_kernel, cap=_zero_cap(sweep))
+
+    k_ms = time_per_step(kernel, n_kernel)
+    return k_ms, p_ms, sweep
+
+
+def omega_sweep_phase(card):
+    """The 16 x 4 omega grid through the per-omega kernel against the
+    batched torch engine, both on the card; returns the largest relative
+    difference of the observables."""
+    import numpy as np
+    kern, _ = _sweep_setup("omega16x4", "f32")
+    batched, _ = _sweep_setup("omega16x4", "f32", impl="torch")
+    res_k, res_b = kern.run(), batched.run()
+    check(np.array_equal(res_k["av_count"], res_b["av_count"]),
+          "omega sweep av_count: kernel path and batched engine differ")
+    check(len(np.unique(res_k["av_count"])) > 8,
+          "the omega sweep's windows do not differ per point")
+    worst = 0.0
+    for k in OBS:
+        got, ref = np.asarray(res_k[k], float), np.asarray(res_b[k], float)
+        err = np.abs(got - ref)
+        check(bool(np.all(err <= 2e-5 + 2e-4 * np.abs(ref))),
+              f"omega sweep {k}: outside 2e-4 rel / 2e-5 abs, max abs err "
+              f"{err.max():.3e}")
+        worst = max(worst, float(err.max()))
+    print(f"omega sweep: 16 x 4 grid N=40 M=500 f32, {kern.n_steps} steps, "
+          f"per-omega kernel vs batched torch engine: av_count exact, max "
+          f"abs err {worst:.3e} (2e-4 rel / 2e-5 abs) [{card}]", flush=True)
+    return worst
+
+
+def expected_av_counts(sweep):
+    """Each point's averaging-step count from the host schedule alone: the
+    loop t of every step by sequential accumulation in the sweep's dtype,
+    inside [t_start, t_start + T_p), for points with E_omega > 0."""
+    import numpy as np
+    from slb2d_tpu_torch.runtime.schedule import accum_sequence
+    D = sweep.base.np_dtype
+    ts = accum_sequence(0.0, sweep.base.dt, sweep.n_steps - 1, D)
+    t0 = D(sweep.cfg.t_start)
+    return np.array([np.count_nonzero((ts >= t0) & (ts < D(t0 + m.T)))
+                     if float(m.E_omega) > 0 else 0 for m in sweep.models],
+                    float)
+
+
+def _run_cli_keeping_results(argv):
+    """sweep_cli.main(argv) with the launch counts zeroed just before and
+    read just after; returns (rc, wall, table text, the ParameterSweep,
+    its results, (per-omega, shared, step kernel launches))."""
+    import torch
+    from slb2d_tpu_torch import sweep_cli
+    from slb2d_tpu_torch.ops import stepper_cuda, sweep_stack_cuda as ssc
+    from slb2d_tpu_torch.parallel import sweep as swmod
+    seen = []
+    finalize = swmod.ParameterSweep._finalize
+
+    def keep(self, final, cap):
+        res = finalize(self, final, cap)
+        seen.append((self, res))
+        return res
+
+    swmod.ParameterSweep._finalize = keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sweep.txt")
+            torch.cuda.synchronize()
+            stepper_cuda.launch_count = 0
+            ssc.launch_count = 0
+            ssc.omega_launch_count = 0
+            t0 = time.perf_counter()
+            rc = sweep_cli.main(argv + [f"o={path}"])
+            wall = time.perf_counter() - t0  # ends in the result fetch
+            counts = (ssc.omega_launch_count, ssc.launch_count,
+                      stepper_cuda.launch_count)
+            with open(path) as fh:
+                text = fh.read()
+    finally:
+        swmod.ParameterSweep._finalize = finalize
+    check(rc == 0 and len(seen) == 1, f"sweep_cli.main returned {rc}")
+    return rc, wall, text, seen[0][0], seen[0][1], counts
+
+
+def omega_main_phase(card):
+    """The sweep CLI on the 16 x 16 paper map through the per-omega
+    kernel; returns (kernel launches, wall seconds, steps, sweep)."""
+    import numpy as np
+    from slb2d_tpu_torch import sweep_cli
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    _, wall, text, sweep, res, (launches, shared, step) = \
+        _run_cli_keeping_results(PAPER_ARGV)
+    steps = sweep.n_steps
+    check(sweep.engine == "cuda", f"paper map on the {sweep.engine} engine")
+    lines = text.splitlines()
+    check(lines[0] + "\n" == sweep_cli.HEADER, f"header {lines[0]!r}")
+    rows = np.array([l.split() for l in lines[1:]], float)
+    check(rows.shape == (PAPER_POINTS, 15),
+          f"expected {PAPER_POINTS} 15-column lines, got {rows.shape}")
+    check(bool(np.all(np.isfinite(rows))), "non-finite map output")
+    E, W = np.meshgrid(np.linspace(0, 3, 16), np.linspace(6, 14, 16),
+                       indexing="ij")
+    check(np.allclose(rows[:, 0], E.ravel(), rtol=1e-11, atol=1e-15)
+          and np.allclose(rows[:, 2], W.ravel(), rtol=1e-11, atol=0),
+          "the E_dc and omega columns")
+    norm_err = float(np.max(np.abs(rows[:, 14] - 1.0)))
+    check(norm_err < 1e-3, f"a point's norm is {norm_err} from 1")
+    want_counts = expected_av_counts(sweep)
+    check(np.array_equal(res["av_count"], want_counts),
+          f"av_count differs from the schedule at "
+          f"{np.flatnonzero(res['av_count'] != want_counts)[:8].tolist()}")
+    want = -(-steps // ssc.CHUNK_STEPS) * ssc.LAUNCHES_PER_CHUNK
+    check(launches == want, f"{launches} per-omega kernel launches for "
+          f"{steps} steps (expected {want})")
+    check(shared == 0, "the omega map launched the shared-omega kernel")
+    check(step == 0, "the omega map launched the step kernel")
+    sites = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * steps * sweep.B
+    print(f"omega main: sweep_cli 16x16 paper map N=40 M=500 f32 impl=cuda: "
+          f"{steps} steps, {launches} launch(es), av_count = schedule for "
+          f"all {sweep.B} points, max |norm-1| {norm_err:.3e}, wall "
+          f"{wall:.3f} s, {sites / wall:.4e} site-updates/s [{card}]",
+          flush=True)
+    return launches, wall, steps, sweep
+
+
+def omega_routing_phase(card, paper_wall, paper_steps):
+    """Why impl=auto routes omega sweeps to the kernel: the kernel
+    path's end-to-end wall against the batched engine's time per step
+    times the steps (a lower bound of its wall), at bench.py's 64-point
+    omega sweep and at the paper map."""
+    rows = []
+    _, wall64, _, sw64, _, (n64, _, _) = \
+        _run_cli_keeping_results(OMEGA64_ARGV)
+    check(sw64.engine == "cuda" and n64 >= 1,
+          "the 64-point omega sweep did not launch the per-omega kernel")
+    for name, wall, steps, shape in (
+            ("64-point omega sweep", wall64, sw64.n_steps, "omega64"),
+            ("16x16 paper map", paper_wall, paper_steps, "paper")):
+        e_ms, sweep = batched_engine_ms(shape)
+        est = e_ms * steps / 1e3
+        rows.append(wall < est)
+        sites = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * sweep.B
+        print(f"omega routing: {name} ({sweep.B} points, {steps} steps): "
+              f"kernel path end to end {wall:.3f} s "
+              f"({sites * steps / wall:.4e} site-updates/s); batched "
+              f"engine {e_ms:.5f} ms/step x {steps} steps = {est:.3f} s "
+              f"({sites / (e_ms * 1e-3):.4e} site-updates/s); kernel "
+              f"{'faster' if wall < est else 'NOT faster'} [{card}]",
+              flush=True)
+    return all(rows)
+
+
+def _check_frames(d, n_points, M):
+    import numpy as np
+    from slb2d_tpu_torch.ops.frames import phi_x_grid
+    with open(os.path.join(d, "index.txt")) as fh:
+        idx = fh.read().splitlines()
+    check(len(idx) == n_points + 1 and idx[0].startswith("#point"),
+          f"{d}: index.txt has {len(idx)} lines")
+    X = len(phi_x_grid(np.float32))
+    for i in range(n_points):
+        with open(os.path.join(d, f"point{i:04d}.data")) as fh:
+            lines = fh.read().splitlines()
+        check(lines[0].startswith("# E_dc=") and
+              lines[-1].startswith("# norm="), f"{d} point {i}: headers")
+        body = np.array([l.split() for l in lines[1:-1]], float)
+        check(body.shape == (X * (M + 1), 3), f"{d} point {i}: "
+              f"{body.shape} triplets, expected {(X * (M + 1), 3)}")
+        norm = float(lines[-1][len("# norm="):])
+        check(bool(np.all(np.isfinite(body))) and abs(norm - 1) < 1e-3,
+              f"{d} point {i}: non-finite frame or norm {norm}")
+
+
+def _frame_values(d, n_points):
+    import numpy as np
+    out = []
+    for i in range(n_points):
+        with open(os.path.join(d, f"point{i:04d}.data")) as fh:
+            out.append(np.array([l.split()[2] for l in fh
+                                 if not l.startswith("#")], float))
+    return out
+
+
+def frames_phase(card):
+    """sweep_cli frames-dir= on the card: a shared-omega grid through the
+    kernel, an omega grid through the per-omega kernel (impl=cuda and
+    impl=auto) and through the batched engine (impl=torch); the kernel's
+    frames against the batched engine's at 2e-4 rel / 2e-5 of the frame's
+    largest value."""
+    import numpy as np
+    from slb2d_tpu_torch import sweep_cli
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    small = ["E_dc=1", "E_omega=2", "omega=10", "mu=1", "alpha=0.9495",
+             "n-harmonics=8", "PhiYmin=-10", "PhiYmax=10", "B=0.1",
+             "t-max=0.3", "dt=1e-3", "g-grid=24", "quiet=1"]
+    omega = ["sweep:omega=8;12", "sweep:E_dc=0.5;1.5"]
+    runs = (("fa", "cuda", ["sweep:E_dc=0.5;1.5"], 2, (1, 0)),
+            ("fc", "cuda", omega, 4, (0, 1)),
+            ("fu", "auto", omega, 4, (0, 1)),
+            ("fb", "torch", omega, 4, (0, 0)))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, impl, grid, n, want in runs:
+            ssc.launch_count = ssc.omega_launch_count = 0
+            rc = sweep_cli.main(small + [f"impl={impl}", *grid,
+                                         f"o={tmp}/{name}.txt",
+                                         f"frames-dir={tmp}/{name}"])
+            got = (ssc.launch_count, ssc.omega_launch_count)
+            check(rc == 0 and got == want,
+                  f"frames run {name} (impl={impl}): rc {rc}, (shared, "
+                  f"per-omega) kernel launches {got}, expected {want}")
+            _check_frames(os.path.join(tmp, name, "grid00"), n, 24)
+        ref = _frame_values(os.path.join(tmp, "fb", "grid00"), 4)
+        worst = 0.0
+        for name in ("fc", "fu"):
+            d = os.path.join(tmp, name, "grid00")
+            for i, (got, want) in enumerate(zip(_frame_values(d, 4), ref)):
+                err = np.abs(got - want)
+                check(bool(np.all(err <= 2e-4 * np.abs(want)
+                                  + 2e-5 * np.abs(want).max())),
+                      f"frames {name} point {i}: the kernel's frame differs "
+                      f"from the batched engine's, max abs err {err.max()}")
+                worst = max(worst, float(err.max() / np.abs(want).max()))
+    print(f"frames: sweep_cli frames-dir= shared omega on the kernel (1 "
+          f"launch), omega grid on the per-omega kernel (impl=cuda, "
+          f"impl=auto; 1 launch each) and on the batched engine "
+          f"(impl=torch); files and norms ok; kernel vs batched engine "
+          f"frames max abs err {worst:.3e} of the frame's largest value "
+          f"[{card}]", flush=True)
+
+
+def main_path_flops(m, steps, points=1, av_steps=0, captures=0,
+                    chains=False):
+    """Floating-point operations a main path's kernel work needs: `steps`
+    steps of `points` points of model m, `av_steps` averaging steps
+    summed over the points, `captures` in-kernel loop-exit captures, and
+    the per-omega chains when `chains`."""
+    cols = 2 * m.M + 1                   # main grid M+1, half grid M
+    per_step = CELL_FLOPS * m.N * cols + COLUMN_FLOPS * cols + STEP_FLOPS
+    if chains:
+        per_step += CHAIN_FLOPS
+    return (per_step * steps * points
+            + (AV_COLUMN_FLOPS * m.M + AV_STEP_FLOPS) * av_steps
+            + CAPTURE_COLUMN_FLOPS * m.M * captures)
+
+
+def bound_ms(m, steps, flops, points=1, a0_arrays=2):
+    """(ms per step, 'operations' or 'bytes'): the least time the card
+    could take for `steps` steps of a main path's kernel work, the larger
+    of its `flops` at F32_OPS_PEAK and its bytes at HBM_BYTES_PER_S (the
+    state read once and written once, a0 and a0_ghost read once per
+    point that has its own, the xs table read once), divided by the
+    steps."""
+    esize = m.np_dtype(0).itemsize
+    cells = m.NHP * m.MP
+    nbytes = esize * (2 * 4 * cells * points + a0_arrays * cells
+                      + steps * 10)
+    t_ops, t_bytes = flops / F32_OPS_PEAK, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3 / steps,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def window_steps(m, t_start, steps):
+    """The averaging steps of a display-4 run of model m: loop t of every
+    step by sequential accumulation in m's dtype, inside [t_start,
+    t_start + T)."""
+    import numpy as np
+    from slb2d_tpu_torch.runtime.schedule import accum_sequence
+    D = m.np_dtype
+    ts = accum_sequence(0.0, m.dt, steps - 1, D)
+    t0 = D(t_start)
+    return int(np.count_nonzero((ts >= t0) & (ts < D(t0 + m.T))))
 
 
 def ptxas_summary(log):
@@ -555,17 +1062,93 @@ def main():
     # 7. the sweep main path
     sweep_launches, sweep_wall, sweep_steps = sweep_main_phase(card)
 
+    # 8. the per-omega kernel against its plain version, and its times
+    omega_err = {}
+    for shape in ("omega_ragged", "omega16x4"):
+        for dtype in ("f64", "f32"):
+            omega_err[shape, dtype] = check_omega_kernel_vs_plain(shape,
+                                                                  dtype)
+    # the paper map from just before its windows open (t_start=5, step
+    # ~5000) across its first loop exits (steps ~5449 on)
+    omega_err["paper", "f32"] = check_omega_kernel_vs_plain(
+        "paper", "f32", n_steps=751, start=4990)
+    print("omega kernel: vs plain with frames, 151 steps + the rest from "
+          "parity 1, edges bit for bit, dc-only av 0: " +
+          ", ".join(f"{s} {d} max abs err {e:.3e} (capture {c:.3e}, {n} "
+                    f"exits{', state and frames bit for bit' if b else ''})"
+                    for (s, d), (e, c, b, n) in omega_err.items()) + " ok",
+          flush=True)
+    ok_ms, op_ms, osweep = omega_kernel_ms("omega16x4")
+    oe_ms, _ = batched_engine_ms("omega16x4")
+    per_step = 2 * (osweep.base.N + 1) * (osweep.base.M + 1) * osweep.B
+    print(f"omega kernel time 16x4 N=40 M=500 f32, whole sweep "
+          f"({osweep.n_steps} steps): kernel {ok_ms:.5f} ms/step (CUDA "
+          f"events), plain version {op_ms:.5f} ms/step, batched torch "
+          f"engine {oe_ms:.5f} ms/step; kernel "
+          f"{per_step / (ok_ms * 1e-3):.4e} site-updates/s [{card}]",
+          flush=True)
+    pk_ms, pp_ms, psweep = omega_kernel_ms("paper")
+    print(f"omega kernel time 16x16 paper map f32, whole sweep "
+          f"({psweep.n_steps} steps, windows and exits included): kernel "
+          f"{pk_ms:.5f} ms/step (CUDA events), plain version {pp_ms:.5f} "
+          f"ms/step [{card}]", flush=True)
+
+    # 9. the omega sweep through the kernel against the batched engine
+    omega_sweep_phase(card)
+
+    # 10. the omega main path: the paper map, then the routing measurement
+    omega_launches, omega_wall, omega_steps, paper = omega_main_phase(card)
+    auto_wins = omega_routing_phase(card, omega_wall, omega_steps)
+    print(f"omega routing: impl=auto takes omega sweeps to the per-omega "
+          f"kernel; the kernel path is "
+          f"{'faster' if auto_wins else 'NOT faster'} at both shapes "
+          f"[{card}]", flush=True)
+
+    # 11. frames-dir
+    frames_phase(card)
+
+    # the bounds of each main path's run (model: BASELINE #4; sweep: the
+    # 64-point E_dc sweep; paper: the paper map)
+    b1_flops = main_path_flops(model, steps,
+                               av_steps=window_steps(model, 10.0, steps))
+    b1_bound, b1_by = bound_ms(model, steps, b1_flops)
+    b3_flops = main_path_flops(sweep.base, sweep_steps, points=sweep.B,
+                               av_steps=int(expected_av_counts(sweep).sum()))
+    b3_bound, b3_by = bound_ms(sweep.base, sweep_steps, b3_flops,
+                               points=sweep.B)
+    om_flops = main_path_flops(paper.base, omega_steps, points=paper.B,
+                               av_steps=int(expected_av_counts(paper).sum()),
+                               captures=paper.B, chains=True)
+    om_bound, om_by = bound_ms(paper.base, omega_steps, om_flops,
+                               points=paper.B)
+    print(f"bounds: operations per step B1 {b1_flops / steps:.6e}, B3 "
+          f"shared {b3_flops / sweep_steps:.6e}, B3 per-omega "
+          f"{om_flops / omega_steps:.6e} at {F32_OPS_PEAK:.4g} op/s; "
+          f"bound B1 {b1_bound * 1e3:.4f} us ({b1_by}), B3 shared "
+          f"{b3_bound * 1e3:.4f} us ({b3_by}), B3 per-omega "
+          f"{om_bound * 1e3:.4f} us ({om_by}) per step; share of the "
+          f"bound B1 {b1_bound / k_ms:.4f}, B3 shared {b3_bound / sk_ms:.4f},"
+          f" B3 per-omega {om_bound / pk_ms:.4f}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "slb_run_chunk (half_step<MAIN>, half_step<HALF>, av_step)",
         "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": launches,
         "max_abs_err": max_err["BASELINE#4", "f32"],
-        "ms": k_ms, "plain_ms": p_ms}, {
-        "name": "slb_sweep_chunk (sweep_chunk)",
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b1_bound,
+        "bound_by": b1_by, "library_ms": None}, {
+        "name": "slb_sweep_chunk (sweep_chunk<T, false>)",
         "route": "cuda", "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
         "launches": sweep_launches,
         "max_abs_err": sweep_err["full", "f32"],
-        "ms": sk_ms, "plain_ms": sp_ms}]}), flush=True)
+        "ms": sk_ms, "plain_ms": sp_ms, "bound_ms": b3_bound,
+        "bound_by": b3_by, "library_ms": None}, {
+        "name": "slb_sweep_chunk_omega (sweep_chunk<T, true>)",
+        "route": "cuda", "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
+        "launches": omega_launches,
+        "max_abs_err": omega_err["paper", "f32"][0],
+        "capture_max_abs_err": omega_err["paper", "f32"][1],
+        "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": om_bound,
+        "bound_by": om_by, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

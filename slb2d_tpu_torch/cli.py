@@ -2,8 +2,9 @@
 `python -m slb2d_tpu_torch.cli key=value ...` — the reference CLI surface
 (reference: src/boltzmann_cli.c, README.md:30-66) plus the extensions
 impl= (auto|torch|cuda), dtype=, steps-per-chunk= and checkpoint=.
-The run uses CUDA device `device=` (default 0); impl=torch runs on the
-CPU when no CUDA device is present.
+The run uses CUDA device `device=` (default 0) for every impl; only
+device=cpu runs it on the CPU.  Without a CUDA device and without
+device=cpu it prints an error and returns 1.
 """
 
 from __future__ import annotations
@@ -18,19 +19,11 @@ def main(argv=None):
         cfg = cfgmod.parse_cmd(argv)
     except cfgmod.ConfigError:
         return 1
-
-    import torch
-
-    if cfg.impl == "torch" and not torch.cuda.is_available():
-        device = torch.device("cpu")
-    else:
-        if torch.cuda.is_available() and not (
-                0 <= cfg.device < torch.cuda.device_count()):
-            # the reference aborts when cudaSetDevice fails
-            # (src/boltzmann_solver.c:77 via HANDLE_ERROR :14)
-            print(f"invalid device ordinal in {__file__}", file=sys.stderr)
-            return 1
-        device = torch.device(f"cuda:{cfg.device}")
+    try:
+        device = cfgmod.torch_device(cfg)
+    except RuntimeError as e:       # no card, or no such card
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
 
     from .runtime.loop import Simulation
 

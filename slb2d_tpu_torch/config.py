@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import sys
-from typing import IO, Optional
+from typing import IO, Optional, Union
 
 VALID_DISPLAYS = (3, 4, 7, 8, 9, 77)
 
@@ -52,7 +52,7 @@ class SimConfig:
     dt: float = 0.001
     g_grid: int = 3069        # M; CLI "g-grid"
     quiet: bool = False
-    device: int = 0           # CUDA device ordinal
+    device: Union[int, str] = 0   # CUDA device ordinal, or "cpu"
     out_file: str = "-"       # CLI "o"; "-"/"stdout", "stderr", "+file" appends
     read_from: Optional[str] = None   # only "stdin" supported, like reference
 
@@ -98,7 +98,7 @@ _KEYMAP = {
     "g-grid": ("g_grid", int),
     "read-from": ("read_from", str),
     "quiet": ("quiet", lambda v: True),
-    "device": ("device", int),
+    "device": ("device", lambda v: v if v == "cpu" else int(v)),
     "o": ("out_file", str),
     # extensions
     "impl": ("impl", str),
@@ -198,6 +198,28 @@ def open_out(cfg: SimConfig) -> IO[str]:
     if cfg.out_file.startswith("+"):
         return open(cfg.out_file[1:], "a")
     return open(cfg.out_file, "w")
+
+
+def torch_device(cfg: SimConfig, device=None):
+    """The torch.device a run uses: `device` when the caller gives one,
+    else cuda:<cfg.device>, or the CPU for device=cpu, whatever the impl.
+    A CUDA device that torch cannot see raises RuntimeError (the entry
+    points print it and return 1): nothing falls back to the CPU."""
+    import torch
+    if device is None:
+        device = "cpu" if cfg.device == "cpu" else f"cuda:{cfg.device}"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{device}: no CUDA device is available "
+                               f"(device=cpu runs on the CPU)")
+        if not 0 <= (device.index or 0) < torch.cuda.device_count():
+            # the reference aborts when cudaSetDevice fails
+            # (src/boltzmann_solver.c:77 via HANDLE_ERROR :14)
+            raise RuntimeError(
+                f"{device}: invalid device ordinal "
+                f"({torch.cuda.device_count()} CUDA device(s))")
+    return device
 
 
 # fscanf treats input as one token stream, so "E_dc 1.5 0.5 exit" on a

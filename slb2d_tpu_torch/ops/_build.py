@@ -38,6 +38,8 @@ _ENTRY_ARGS = {
                       + [ctypes.c_void_p]),
     "slb_sweep_chunk": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p]),
+    "slb_sweep_chunk_omega": ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
+                              + [ctypes.c_void_p]),
 }
 
 

@@ -320,6 +320,21 @@ def emission_record(c: StencilConsts, pre: State, post: State):
         post.av], dim=-1)
 
 
+# the display-4 loop-exit capture's columns (csrc/sweep_stack.cu CAP_COLS)
+CAP_KEYS = ("v_dr", "v_y", "m_x", "norm")
+
+
+def capture_sums(state: State, w_d4, w_d4_phi, w_norm):
+    """The display-4 loop-exit sums of every point's current arrays
+    (src/boltzmann_c_solver.c:236-244), a (..., 4) tensor in CAP_KEYS
+    order: b[1]·w_d4, a[0]·w_d4_phi, a[1]·w_d4, a[0]·w_norm."""
+    return torch.stack([
+        torch.sum(state.b[..., 1, :] * w_d4, dim=-1),
+        torch.sum(state.a[..., 0, :] * w_d4_phi, dim=-1),
+        torch.sum(state.a[..., 1, :] * w_d4, dim=-1),
+        torch.sum(state.a[..., 0, :] * w_norm, dim=-1)], dim=-1)
+
+
 XS_TRIG = ("cos_t", "cos_t_dt", "cos_hs", "cos_hs_dt", "cos_av", "sin_av")
 
 

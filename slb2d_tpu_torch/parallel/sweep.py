@@ -11,15 +11,26 @@ even though all points advance together.
 Two engines:
   * the batched torch engine (``_run_sweep``, the vmapped XLA engine's
     counterpart): device trig from each point's carried t; serves
-    ``impl=torch`` and omega sweeps;
-  * the stacked sweep kernel (``ops/sweep_stack_cuda.py``, B3's
-    shared-omega mode on CUDA): exact host trig tables, one launch per
-    chunk for the whole batch; serves float32 sweeps with a shared omega
-    on a CUDA device.
+    ``impl=torch`` and float64 under ``impl=auto``;
+  * the stacked sweep kernel (``ops/sweep_stack_cuda.py``, kernel B3 on
+    CUDA), one launch per chunk for the whole batch: with a shared omega
+    from exact host trig tables, every point exiting at the last step;
+    with omega swept (per-omega mode) from per-point trig chains, with
+    per-point windows and the loop-exit capture (with frames, each
+    point's arrays too) rolled in the kernel.
 
-Not ported (ROADMAP.md): meshes and ``shards>1`` (queue A item 9), the
-per-point frame capture behind ``frames-dir=`` (queue A item 5), and B3's
-per-omega mode (queue B).
+Routing (``choose_engine``) follows the JAX package's _use_stack_engine
+with pallas -> cuda, xla -> torch and "the backend is a TPU" -> "the
+sweep's device is CUDA", except that omega sweeps, with or without
+frames, take the kernel too.  The JAX package sends them to its vmapped
+engine (slb2d_tpu/parallel/sweep.py:385-430); on an H100 80GB HBM3 at
+700 W the kernel path ran bench.py's 64-point omega sweep in 0.498 s
+and the 16x16 paper map in 1.468 s end to end, against at least 14.6 s
+and 19.8 s for the batched engine (chip_smoke.py phase 10, PERF.md §6).
+``impl=cuda`` never falls back to the batched engine: a CPU device
+raises.
+
+Not ported (ROADMAP.md): meshes and ``shards>1`` (queue A item 9).
 """
 
 from __future__ import annotations
@@ -31,55 +42,40 @@ import sys
 import numpy as np
 import torch
 
-from ..config import SimConfig
+from ..config import SimConfig, torch_device
 from ..constants import PI
 from ..models.superlattice import SuperlatticeModel
 from ..ops import stencil
+from ..ops.stencil import CAP_KEYS, capture_sums
 from ..runtime.schedule import count_steps
 
 SWEEPABLE = ("E_dc", "E_omega", "omega", "mu", "alpha", "B")
-
-# impl=auto routing of omega sweeps to the sweep kernel's per-omega mode:
-# off, as in the JAX package (slb2d_tpu/parallel/sweep.py:38), and that
-# mode is not ported yet (ROADMAP.md queue B)
-PER_OMEGA_AUTO = False
-
-CAP_KEYS = ("v_dr", "v_y", "m_x", "norm")
 
 # per-point StencilConsts fields (the JAX package's in_axes=0 fields)
 _POINT_FIELDS = ("E_dc", "E_omega", "omega", "B", "bdt")
 
 
-def choose_engine(cfg: SimConfig, params, device) -> str:
-    """'cuda' (the stacked sweep kernel) or 'torch' (the batched engine),
-    as ``slb2d_tpu`` ParameterSweep._use_stack_engine routes with
-    pallas -> cuda, xla -> torch and "the backend is a TPU" -> "the
-    sweep's device is CUDA".  One point per block has no size bound, so
-    there is no VMEM fallback.  impl=cuda never falls back: omega swept
-    or a non-CUDA device raises."""
+def choose_engine(cfg: SimConfig, device) -> str:
+    """'cuda' (the stacked sweep kernel) or 'torch' (the batched engine).
+    One point per block has no size bound, so there is no VMEM fallback;
+    impl=cuda on a non-CUDA device raises."""
     device = torch.device(device)
-    omega = "omega" in params
     if cfg.impl == "torch":
         return "torch"
     if cfg.impl == "cuda":
-        if omega:
-            raise NotImplementedError(
-                "impl=cuda with omega swept needs the sweep kernel's "
-                "per-omega mode (B3, ROADMAP.md queue B); impl=auto or "
-                "impl=torch run omega sweeps on the batched engine")
         if device.type != "cuda":
             raise ValueError(f"impl=cuda needs a CUDA device, got {device}")
         return "cuda"
     if device.type != "cuda" or cfg.dtype != "f32":
-        return "torch"
-    if omega and not PER_OMEGA_AUTO:
         return "torch"
     return "cuda"
 
 
 def _sweep_step(c, st, cap, weights):
     """One step of every point plus the loop-exit capture: the JAX
-    package's _make_point_step with the point axis written out."""
+    package's _make_point_step with the point axis written out.  With
+    "a", "b" in cap (capture_state) each point's arrays are frozen at its
+    own loop exit too."""
     t = st.t[:, None, None]
     trig = stencil.device_trig(c, t)
     trig = trig[:4] + tuple(x.reshape(-1) for x in trig[4:])
@@ -92,17 +88,23 @@ def _sweep_step(c, st, cap, weights):
     # (display-4 inline sums, src/boltzmann_c_solver.c:236-244)
     live = st.t < c.t_end.reshape(-1)
     inst = _capture(new, weights)
-    cap = {k: torch.where(live, inst[k], cap[k]) for k in CAP_KEYS}
+    if "a" in cap:
+        inst.update(a=new.a, b=new.b)
+    cap = {k: torch.where(live.reshape((-1,) + (1,) * (v.dim() - 1)),
+                          inst[k], v) for k, v in cap.items()}
     return new, cap
 
 
-def _capture(st, weights):
-    """The display-4 loop-exit sums of every point's current arrays."""
-    return dict(
-        v_dr=torch.sum(st.b[:, 1] * weights["w_d4"], dim=-1),
-        v_y=torch.sum(st.a[:, 0] * weights["w_d4_phi"], dim=-1),
-        m_x=torch.sum(st.a[:, 1] * weights["w_d4"], dim=-1),
-        norm=torch.sum(st.a[:, 0] * weights["w_norm"], dim=-1))
+def _capture(st, weights, capture_state=False):
+    """The display-4 loop-exit capture of every point's current arrays,
+    with the arrays themselves when capture_state."""
+    sums = capture_sums(st, weights["w_d4"], weights["w_d4_phi"],
+                        weights["w_norm"])
+    cap = dict(zip(CAP_KEYS, sums.unbind(-1)))
+    if capture_state:
+        cap["a"] = st.a.clone()       # the kernel updates st in place
+        cap["b"] = st.b.clone()
+    return cap
 
 
 def _run_sweep(consts, states, cap, weights, n_steps):
@@ -114,11 +116,14 @@ def _run_sweep(consts, states, cap, weights, n_steps):
 
 
 class ParameterSweep:
-    def __init__(self, cfg: SimConfig, params: dict, device=None):
+    def __init__(self, cfg: SimConfig, params: dict, device=None,
+                 capture_state=False):
         """params: {name: 1-D array}; all arrays broadcast together into a
         flat batch (numpy meshgrid + ravel upstream for grids).  device:
-        the one device of the sweep (default: cuda:<cfg.device> for
-        impl=auto|cuda, else the CPU)."""
+        the one device of the sweep (default: cuda:<cfg.device> for every
+        impl, the CPU for device=cpu).  capture_state: run() also freezes
+        each point's (a, b) at its own loop exit, for per-point frames
+        (sweep frames-dir=)."""
         if cfg.shards > 1:
             raise NotImplementedError(
                 "slb2d_tpu_torch does not run sweeps with shards>1 yet "
@@ -127,16 +132,15 @@ class ParameterSweep:
             if k not in SWEEPABLE:
                 raise ValueError(f"cannot sweep over {k!r}")
         self.cfg = cfg
-        if device is None:
-            device = (f"cuda:{cfg.device}" if cfg.impl in ("auto", "cuda")
-                      else "cpu")
-        self.device = torch.device(device)
+        self.device = torch_device(cfg, device)
         arrs = np.broadcast_arrays(*[np.asarray(v, np.float64)
                                      for v in params.values()])
         flat = [np.ravel(np.asarray(a)) for a in arrs]
         self.B = len(flat[0]) if flat else 1
         self.params = dict(zip(params.keys(), flat))
-        self.engine = choose_engine(cfg, self.params, self.device)
+        self.capture_state = capture_state
+        self.engine = choose_engine(cfg, self.device)
+        self.final_ab = None
 
         # per-point models: scalar derivations are cheap; a0 differs only
         # when mu/alpha vary
@@ -198,9 +202,21 @@ class ParameterSweep:
         return {k: torch.as_tensor(getattr(self.base, k), device=self.device)
                 for k in ("w_d4", "w_d4_phi", "w_norm")}
 
+    def _zero_cap(self):
+        dt, dev = self.consts.a0.dtype, self.device
+        cap = {k: torch.zeros((self.B,), dtype=dt, device=dev)
+               for k in CAP_KEYS}
+        if self.capture_state:
+            shape = (self.B, self.base.NHP, self.base.MP)
+            cap["a"] = torch.zeros(shape, dtype=dt, device=dev)
+            cap["b"] = torch.zeros(shape, dtype=dt, device=dev)
+        return cap
+
     def run(self, checkpoint=None, resume=None, checkpoint_every=0):
         """Run all points to their t_max; returns per-point display-4
-        observables as a dict of (B,) arrays.
+        observables as a dict of (B,) arrays.  With capture_state,
+        afterwards `self.final_ab` holds host (B, NHP, MP) arrays of each
+        point's (a, b) at its own loop exit.
 
         checkpoint: .npz path saved at the end and (if checkpoint_every >
         0) every checkpoint_every steps, in the JAX package's sweep
@@ -210,27 +226,31 @@ class ParameterSweep:
         checkpoint = checkpoint or None          # '' from the CLI == unset
         resume = resume or None
         weights = self._weights()
+        self.final_ab = None
         done = 0
         if resume is not None:
             states, cap, done = self._load_checkpoint(resume)
         else:
-            cap = {k: torch.zeros((self.B,), dtype=self.consts.a0.dtype,
-                                  device=self.device) for k in CAP_KEYS}
+            cap = self._zero_cap()
             states = self._initial_states()
 
         if self.engine == "cuda":
-            # the stacked sweep kernel: with a shared omega every point
-            # exits at the same step, so the loop-exit capture is the
-            # post-step sums of the final state
             from ..ops.sweep_stack_cuda import SweepStackRunner
             if self._stack_runner is None:
                 self._stack_runner = SweepStackRunner(self)
             runner = self._stack_runner
             runner.seek(done)            # resume-aware t/step trackers
-
-            def advance(st, cp, k):
-                st = runner.advance(st, k)
-                return st, _capture(st, weights)
+            if runner.per_omega:
+                # omega swept: the kernel rolls each point's loop-exit
+                # capture (and frames) at its own exit step
+                def advance(st, cp, k):
+                    return runner.advance(st, k, cap=cp)
+            else:
+                # a shared omega: every point exits at the last step, so
+                # the capture is the post-step sums of the final state
+                def advance(st, cp, k):
+                    st = runner.advance(st, k)
+                    return st, _capture(st, weights, self.capture_state)
         else:
             def advance(st, cp, k):
                 return _run_sweep(self.consts, st, cp, weights, k)
@@ -245,6 +265,10 @@ class ParameterSweep:
                 self._save_checkpoint(checkpoint, states, cap, done)
         if checkpoint is not None:
             self._save_checkpoint(checkpoint, states, cap, done)
+        if self.capture_state:
+            cap = dict(cap)
+            self.final_ab = (cap.pop("a").cpu().numpy(),
+                             cap.pop("b").cpu().numpy())
         return self._finalize(states, cap)
 
     # -- checkpoint/resume ----------------------------------------------------
@@ -271,12 +295,14 @@ class ParameterSweep:
 
     def _load_checkpoint(self, path):
         z = np.load(path)
+        expected_cap = set(CAP_KEYS) | (
+            {"a", "b"} if self.capture_state else set())
         saved_cap = {k[len("cap_"):] for k in z.files
                      if k.startswith("cap_")}
-        if saved_cap != set(CAP_KEYS):
+        if saved_cap != expected_cap:
             raise ValueError(
                 f"sweep checkpoint capture keys {sorted(saved_cap)} do not "
-                f"match this run's {sorted(CAP_KEYS)} (frames mode "
+                f"match this run's {sorted(expected_cap)} (frames mode "
                 f"mismatch — resume with the same frames-dir setting)")
         if int(z["n_steps"]) != self.n_steps:
             raise ValueError(
@@ -313,7 +339,7 @@ class ParameterSweep:
                 f"the dtype= setting ({np.dtype(self.base.np_dtype).name})")
         states = stencil.state_from_numpy(arrays, self.device)
         cap = {k: torch.as_tensor(z[f"cap_{k}"], device=self.device)
-               for k in CAP_KEYS}
+               for k in sorted(expected_cap)}
         return states, cap, int(z["done"])
 
     def _finalize(self, final: stencil.State, cap):

@@ -31,7 +31,7 @@ from .checkpoint import save_state
 # Schedule chunk for impl=cuda.  Each chunk costs one synchronising host
 # copy of its xs table and a drained launch queue: 0.11-0.17 ms per
 # extra chunk against 15 us per step at BASELINE #4 f32 (H100 80GB HBM3,
-# 700 W; PERF.md "Chunk length").  16384 steps keep that under 0.1% and
+# 700 W; PERF.md §5).  16384 steps keep that under 0.1% and
 # the host table at 16384 x 10 values; a BASELINE #4 run is one chunk.
 CUDA_CHUNK_DEFAULT = 16384
 
@@ -68,10 +68,8 @@ class Simulation:
             raise NotImplementedError(
                 f"slb2d_tpu_torch does not run {missing} yet")
         self.cfg = cfg
-        if device is None:
-            device = (f"cuda:{cfg.device}" if cfg.impl in ("auto", "cuda")
-                      else "cpu")
-        self.device = torch.device(device)
+        # default cuda:<cfg.device> for every impl; the CPU only when asked
+        self.device = cfgmod.torch_device(cfg, device)
         self._build_model()
         self.out = out if out is not None else cfgmod.open_out(cfg)
         self.quiet = cfg.quiet

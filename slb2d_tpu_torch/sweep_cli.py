@@ -2,10 +2,10 @@
 slb2d_tpu_torch.sweep_cli`.
 
 The port of ``slb2d_tpu/sweep_cli.py`` on one device: a whole grid runs
-as one batch (BASELINE config #5, absorption maps) — on the stacked sweep
-kernel (csrc/sweep_stack.cu, one launch per chunk) for float32 sweeps with
-a shared omega on a CUDA device, else on the batched torch engine
-(parallel/sweep.py).
+as one batch (BASELINE config #5, absorption maps) on the stacked sweep
+kernel (csrc/sweep_stack.cu, one launch per chunk; omega axes ride its
+per-omega mode) or on the batched torch engine (parallel/sweep.py), as
+parallel/sweep.choose_engine routes them.
 
 Usage: the regular solver `key=value` arguments (display is ignored; sweeps
 are display-4 semantics) plus any number of
@@ -17,16 +17,22 @@ Multiple sweep axes form the cartesian product.  Output: one line per
 point with all six physics parameters and the display-4 observables, byte
 for byte in the JAX package's format.
 
+`frames-dir=DIR` additionally writes each point's final distribution
+f(phi_x, phi_y), captured at that point's own loop exit, as
+DIR/grid%02d/point%04d.data files in the display-7 triplet format, plus
+an index.txt of point parameters, as the JAX CLI writes them.  Either
+engine captures them; with omega swept the kernel copies each point's
+arrays at its own exit.
+
 Interactive refinement (`read-from=stdin`, the sweep analogue of the
 reference's parameter server, src/boltzmann_cli.c:71-91): after each
 grid's results are written, one line of new `sweep:` specs (optionally
 with `key=value` scalar overrides) is read from stdin and run as the next
-grid.  `exit` or EOF quits.
+grid (its frames go to the next grid%02d).  `exit` or EOF quits.
 
-Not ported yet (NotImplementedError): `frames-dir=` (ROADMAP.md queue A
-item 5) and `shards>1` (queue A item 9).  The run uses CUDA device
-`device=` (default 0); impl=torch runs on the CPU when no CUDA device is
-present.
+The run uses CUDA device `device=` (default 0) for every impl; only
+device=cpu runs it on the CPU.  Not ported yet (NotImplementedError):
+`shards>1` (ROADMAP.md queue A item 9).
 """
 
 from __future__ import annotations
@@ -78,18 +84,40 @@ def _point_params(cfg, params, i):
              float(getattr(cfg, k))) for k in SWEEPABLE]
 
 
-def _device(cfg):
-    """The sweep's one device, chosen as the single-run CLI chooses it."""
-    import torch
-    if cfg.impl == "torch" and not torch.cuda.is_available():
-        return torch.device("cpu")
-    if torch.cuda.is_available() and not (
-            0 <= cfg.device < torch.cuda.device_count()):
-        raise ValueError(f"invalid device ordinal {cfg.device}")
-    return torch.device(f"cuda:{cfg.device}")
+def _write_point_frames(cfg, sweep, res, frames_dir, grid_no):
+    """Per-point final-distribution frames (`frames-dir=`): each sweep
+    point's f(phi_x, phi_y) at its own loop exit, reconstructed from the
+    captured (a, b) arrays in the display-7 triplet format
+    (reference print_2d_data, src/boltzmann_c_solver.c:334-353), one file
+    per point plus an index.txt mapping points to parameter values.
+    Refinement grids go to separate grid%02d subdirectories."""
+    import os
+
+    from .io import writers
+    from .ops.frames import FrameReconstructor
+    from .parallel.sweep import SWEEPABLE
+
+    a, b = sweep.final_ab
+    d = os.path.join(frames_dir, f"grid{grid_no:02d}")
+    os.makedirs(d, exist_ok=True)
+    m = sweep.base
+    recon = FrameReconstructor(m)        # tables are parameter-independent
+    m_lo, m_hi = 1, m.M + 2              # display-7 frame bounds
+    with open(os.path.join(d, "index.txt"), "w") as idx:
+        idx.write("#point " + " ".join(SWEEPABLE) + "\n")
+        for i in range(sweep.B):
+            kv = _point_params(cfg, sweep.params, i)
+            idx.write(f"{i:04d} "
+                      + " ".join(f"{v:.12e}" for _, v in kv) + "\n")
+            with open(os.path.join(d, f"point{i:04d}.data"), "w") as fh:
+                fh.write("# " + " ".join(
+                    f"{k}={v:.12e}" for k, v in kv) + "\n")
+                F = recon.reconstruct(a[i], b[i], m_lo, m_hi)
+                writers._write_xy_rows(fh, recon.phi_x, m.phi[m_lo:m_hi], F)
+                fh.write(f"# norm={writers.f20(res['norm'][i])}\n")
 
 
-def _run_one_grid(cfg, sweeps, out):
+def _run_one_grid(cfg, sweeps, out, device, frames_dir=None, grid_no=0):
     """Build, run, and write one sweep grid; returns the point count."""
     from .parallel.sweep import ParameterSweep
 
@@ -97,7 +125,8 @@ def _run_one_grid(cfg, sweeps, out):
     flat = {k: g.ravel() for k, g in zip(sweeps.keys(), grids)}
     B = len(next(iter(flat.values())))
 
-    sweep = ParameterSweep(cfg, flat, device=_device(cfg))
+    sweep = ParameterSweep(cfg, flat, device=device,
+                           capture_state=frames_dir is not None)
     if not cfg.quiet:
         print(f"# sweeping {list(sweeps.keys())} over {B} points "
               f"({sweep.n_steps} steps each) on {sweep.device} "
@@ -114,6 +143,9 @@ def _run_one_grid(cfg, sweeps, out):
             "v_dr_inst", "v_y_inst", "m_over_m_x_inst", "norm")]
         out.write(" ".join(f"{float(v):.12e}" for v in vals + obs) + "\n")
     out.flush()
+    # after the table: a failing frames write must not cost the results
+    if frames_dir is not None:
+        _write_point_frames(cfg, sweep, res, frames_dir, grid_no)
     return B
 
 
@@ -184,10 +216,22 @@ def _read_refinement(cfg, stream):
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if any(tok.startswith("frames-dir=") for tok in argv):
-        raise NotImplementedError(
-            "slb2d_tpu_torch does not run sweep frames-dir= yet "
-            "(ROADMAP.md queue A item 5)")
+    # frames-dir=DIR: per-point final-distribution frames for every grid
+    # of the session (a sweep-only key, extracted before config parsing)
+    frames_dir = None
+    for tok in list(argv):
+        if tok.startswith("frames-dir="):
+            frames_dir = tok[len("frames-dir="):] or None
+            argv.remove(tok)
+    if frames_dir is not None:
+        import os
+        try:
+            # fail BEFORE the sweep runs, not after hours of compute
+            os.makedirs(frames_dir, exist_ok=True)
+        except OSError as e:
+            print(f"ERROR: cannot create frames-dir={frames_dir!r}: {e}",
+                  file=sys.stderr)
+            return 1
     try:
         sweeps, rest = parse_sweep_args(argv)
     except SystemExit:           # malformed spec: message already printed
@@ -203,12 +247,17 @@ def main(argv=None):
         cfg = cfgmod.parse_cmd(rest)
     except cfgmod.ConfigError:
         return 1
+    try:
+        device = cfgmod.torch_device(cfg)
+    except RuntimeError as e:       # no card, or no such card
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
 
     out = cfgmod.open_out(cfg)
     try:
         try:
-            _run_one_grid(cfg, sweeps, out)
-        except ValueError as e:   # unsweepable axis, bad device
+            _run_one_grid(cfg, sweeps, out, device, frames_dir, 0)
+        except ValueError as e:   # e.g. an unsweepable axis
             print(f"ERROR: {e}", file=sys.stderr)
             return 1
         # refinement grids are new grids: never resume them from the
@@ -216,13 +265,18 @@ def main(argv=None):
         # wins)
         cfg = cfg.replace(resume=None)
         # interactive refinement loop (read-from=stdin)
+        grid_no = 0
         while cfg.read_from == "stdin":
             nxt = _read_refinement(cfg, sys.stdin)
             if nxt is None:
                 break
             cfg, sweeps = nxt
             try:
-                _run_one_grid(cfg, sweeps, out)
+                # grid numbering stays dense: a rejected grid must not
+                # consume a frames grid%02d slot
+                _run_one_grid(cfg, sweeps, out, device, frames_dir,
+                              grid_no + 1)
+                grid_no += 1
             except ValueError as e:          # e.g. unsweepable axis name
                 print(f"ERROR: {e}", file=sys.stderr)
     finally:

@@ -75,3 +75,39 @@ def test_sweep_runner_validates_before_launch(card):
     out = runner.advance(state, 6)
     torch.cuda.synchronize()
     assert runner.launches == 1 and int(out.step[0]) == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_omega_kernel_matches_plain(card, dtype):
+    """The per-omega sweep kernel on the ragged 5-point omega grid (a
+    dc-only point, distinct windows) over the whole sweep, 151 steps then
+    the rest from parity 1, as chip_smoke.py's omega-kernel phase checks
+    it (f64 rtol 1e-12, f32 rtol 1e-4 atol 1e-7 on states, av, the
+    loop-exit captures, which all fire, and the frames arrays; edges bit
+    for bit; the dc-only point's av exactly 0)."""
+    import chip_smoke
+    chip_smoke.check_omega_kernel_vs_plain("omega_ragged", dtype)
+
+
+@pytest.mark.cuda
+def test_omega_runner_validates_before_launch(card):
+    import chip_smoke
+    sweep, runner = chip_smoke._sweep_setup("omega_ragged", "f32")
+    assert runner.per_omega
+    state = sweep._initial_states()
+    cap = chip_smoke._zero_cap(sweep)
+    bad = state.replace(b=state.b.transpose(1, 2).contiguous()
+                        .transpose(1, 2))                # strided view
+    with pytest.raises(ValueError, match="contiguous"):
+        runner.advance(bad, 4, cap=cap)
+    assert runner.launches == 0
+    out, cap = runner.advance(state, 6, cap=cap)
+    torch.cuda.synchronize()
+    assert runner.launches == 1 and int(out.step[0]) == 6
+    assert set(cap) == {"v_dr", "v_y", "m_x", "norm"}
+    frames = chip_smoke._zero_cap(sweep, frames=True)
+    del frames["b"]
+    with pytest.raises(ValueError, match="both a and b"):
+        runner.advance(out, 4, cap=frames)
+    assert runner.launches == 1

@@ -1,7 +1,8 @@
 """The port's driver (runtime/loop.Simulation, cli, checkpoint) against the
 JAX driver and the reference C solver's recorded output.
 
-impl=torch runs on the CPU here.  f64 against the JAX Simulation at
+impl=torch runs on the CPU here, asked for with device=cpu (the port's
+entry points run on the card otherwise).  f64 against the JAX Simulation at
 rtol=1e-12 on all 13 display-4 columns (atol=1e-15 for columns that
 cancel to ~0), headers byte for byte; the golden fixtures at
 tests/test_golden.py's tolerances (f64 1e-8; f32 2e-5 with atol 8e-6, the
@@ -19,6 +20,7 @@ from slb2d_tpu.runtime import checkpoint as jckpt
 from slb2d_tpu.runtime.loop import Simulation as JSimulation
 
 from slb2d_tpu_torch import cli
+from slb2d_tpu_torch import config as cfgmod
 from slb2d_tpu_torch.config import SimConfig
 from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
 from slb2d_tpu_torch.ops import stencil as ts
@@ -105,7 +107,7 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
         tckpt.load_state(path, wrong)
 
 
-def test_impl_cuda_without_cuda_raises(monkeypatch):
+def test_impl_cuda_without_cuda_raises(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = SimConfig(**{**COMMON, **TINY}, impl="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -114,11 +116,12 @@ def test_impl_cuda_without_cuda_raises(monkeypatch):
         Simulation(cfg.replace(impl="auto"), device="cuda:0")
     with pytest.raises(ValueError, match="needs a CUDA device"):
         Simulation(cfg, device=CPU)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["display=4", "E_dc=1", "E_omega=2", "omega=10", "mu=1",
-                  "alpha=0.9495", "n-harmonics=8", "PhiYmin=-10",
-                  "PhiYmax=10", "B=0.1", "t-max=0.5", "g-grid=24",
-                  "impl=cuda", "quiet=1", "o=stderr"])
+    # the CLI reports it and returns 1, naming the way to the CPU
+    assert cli.main(["display=4", "E_dc=1", "E_omega=2", "omega=10", "mu=1",
+                     "alpha=0.9495", "n-harmonics=8", "PhiYmin=-10",
+                     "PhiYmax=10", "B=0.1", "t-max=0.5", "g-grid=24",
+                     "impl=cuda", "quiet=1", "o=stderr"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("kw,what", [
@@ -143,7 +146,9 @@ def test_cli_torch_on_cpu_and_device_ordinal(tmp_path, monkeypatch, capsys):
             "alpha=0.9495", "n-harmonics=8", "PhiYmin=-10", "PhiYmax=10",
             "B=0.1", "t-max=0.5", "g-grid=24", "dtype=f64", "o=cli.txt"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert cli.main(argv + ["impl=torch"]) == 0
+    assert cli.main(argv + ["impl=torch"]) == 1       # the CPU only if asked
+    assert "device=cpu" in capsys.readouterr().err
+    assert cli.main(argv + ["impl=torch", "device=cpu"]) == 0
     out = capsys.readouterr().out
     assert "# t_max = " in out and "[impl=torch]" in out
     rows = d4_values((tmp_path / "cli.txt").read_text())
@@ -154,3 +159,26 @@ def test_cli_torch_on_cpu_and_device_ordinal(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert cli.main(argv + ["impl=cuda", "device=3"]) == 1
     assert "invalid device ordinal" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("impl", ["torch", "auto", "cuda"])
+def test_simulation_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                             impl):
+    """device=None means cuda:<cfg.device> for every impl, and only
+    device=cpu the CPU: checked without running."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SimConfig(**{**COMMON, **TINY}, impl=impl, device=3)
+    with pytest.raises(RuntimeError, match="cuda:3"):
+        Simulation(cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert cfgmod.torch_device(cfg) == torch.device("cuda:3")
+    assert cfgmod.torch_device(cfg.replace(device="cpu")) == CPU
+    assert cfgmod.parse_cmd(["display=4", "E_dc=1", "E_omega=2",
+                             "omega=10", "mu=1", "alpha=0.9495",
+                             "n-harmonics=8", "PhiYmin=-10", "PhiYmax=10",
+                             "B=0.1", "t-max=0.5", "device=cpu"]).device \
+        == "cpu"
+    if impl == "torch":
+        sim = Simulation(cfg.replace(device="cpu"))
+        assert sim.device == CPU and sim.state.a.device == CPU

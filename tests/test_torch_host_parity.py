@@ -1,5 +1,6 @@
 """The port's copies of the numpy-only host modules against their JAX-package
-originals, bit for bit: model, schedule, CLI parsing, writers, xs tables.
+originals, bit for bit: model, schedule, CLI parsing, writers, xs tables,
+frame reconstruction.
 
 The port copies these modules instead of importing them (any import of
 slb2d_tpu loads jax); these tests are what keeps the copies from drifting.
@@ -15,6 +16,7 @@ import pytest
 from slb2d_tpu import config as jcfg
 from slb2d_tpu.io import writers as jwriters
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
+from slb2d_tpu.ops import frames as jframes
 from slb2d_tpu.ops import observables as jobs
 from slb2d_tpu.ops import stepper_pallas as jstep
 from slb2d_tpu.runtime import schedule as jsched
@@ -22,6 +24,7 @@ from slb2d_tpu.runtime import schedule as jsched
 from slb2d_tpu_torch import config as tcfg
 from slb2d_tpu_torch.io import writers as twriters
 from slb2d_tpu_torch.models.superlattice import SuperlatticeModel as TModel
+from slb2d_tpu_torch.ops import frames as tframes
 from slb2d_tpu_torch.ops import observables as tobs
 from slb2d_tpu_torch.ops import stepper_cuda as tstep
 from slb2d_tpu_torch.runtime import schedule as tsched
@@ -238,3 +241,33 @@ def test_repl_scanner_parity():
         results.append(seq)
     assert results[0] == results[1]
     assert len(results[1]) == 6 and results[1][-2] == ("omega", 12.0, 0.3)
+
+
+@pytest.mark.parametrize("dtype,N,M", [("f32", 8, 24), ("f64", 20, 200)])
+def test_frame_reconstruction_bit_for_bit(dtype, N, M):
+    """ops/frames.py's host part: the phi_x grid, the cos/sin tables, the
+    reconstruction (clamped or not) and the equilibrium frame."""
+    jm, tm = _models(dtype, N, M)
+    D = jm.np_dtype
+    _assert_same(jframes.phi_x_grid(D), tframes.phi_x_grid(D), "phi_x_grid")
+    jr, tr = jframes.FrameReconstructor(jm), tframes.FrameReconstructor(tm)
+    for k in ("phi_x", "cos_t", "sin_t"):
+        _assert_same(getattr(jr, k), getattr(tr, k), k)
+    rng = np.random.default_rng(11)
+    a = (rng.standard_normal((jm.NHP, jm.MP)) * 0.1).astype(D)
+    b = (rng.standard_normal((jm.NHP, jm.MP)) * 0.1).astype(D)
+    for lo, hi, clamp in ((1, M + 2, True), (1, M, False)):
+        _assert_same(jr.reconstruct(a, b, lo, hi, clamp=clamp),
+                     tr.reconstruct(a, b, lo, hi, clamp=clamp),
+                     f"reconstruct {lo}:{hi} clamp={clamp}")
+    _assert_same(jr.reconstruct_equilibrium(1, M),
+                 tr.reconstruct_equilibrium(1, M), "equilibrium")
+
+
+def test_device_key_takes_cpu_or_an_ordinal():
+    """The port's device= also takes cpu; an ordinal parses as before."""
+    tc, terr = _parse(tcfg, REQ + ["device=cpu"])
+    assert terr is None and tc.device == "cpu"
+    assert _parse(tcfg, REQ + ["device=2"])[0].device == 2
+    assert _parse(tcfg, REQ + ["device=gpu"])[1] == _parse(
+        jcfg, REQ + ["device=gpu"])[1]

@@ -24,7 +24,9 @@ def test_port_imports_no_jax():
     assert "slb2d_tpu_torch.runtime.loop" in mods
     for m in ("slb2d_tpu_torch.parallel.sweep",
               "slb2d_tpu_torch.ops.sweep_stack_cuda",
-              "slb2d_tpu_torch.sweep_cli"):
+              "slb2d_tpu_torch.sweep_cli",
+              "slb2d_tpu_torch.ops.frames",
+              "slb2d_tpu_torch.absorption_map"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

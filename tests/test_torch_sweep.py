@@ -43,6 +43,7 @@ from slb2d_tpu.parallel.sweep import ParameterSweep as JSweep
 
 from slb2d_tpu_torch import sweep_cli as tcli
 from slb2d_tpu_torch.config import SimConfig as TConfig
+from slb2d_tpu_torch.config import torch_device
 from slb2d_tpu_torch.ops import _build
 from slb2d_tpu_torch.ops import stencil as ts
 from slb2d_tpu_torch.ops import sweep_stack_cuda
@@ -269,41 +270,77 @@ def test_dc_only_point_keeps_zero_averages(engine):
     assert np.all(np.isfinite(res["norm"]))
 
 
-# ---- 5. routing -----------------------------------------------------------
+# ---- 5. routing and devices ---------------------------------------------
+
+OMEGA = {"omega": [9.0, 10.0]}
+
 
 @pytest.mark.parametrize("impl,dtype,params,device,engine", [
     ("auto", "f32", PARAMS, "cuda:0", "cuda"),
-    ("auto", "f32", {"omega": [9.0, 10.0]}, "cuda:0", "torch"),
+    ("auto", "f32", OMEGA, "cuda:0", "cuda"),    # omega: the kernel
     ("auto", "f64", PARAMS, "cuda:0", "torch"),
     ("auto", "f32", PARAMS, "cpu", "torch"),
     ("cuda", "f32", PARAMS, "cuda:0", "cuda"),
     ("cuda", "f64", PARAMS, "cuda:0", "cuda"),
     ("torch", "f32", PARAMS, "cuda:0", "torch"),
+    ("auto", "f64", OMEGA, "cuda:0", "torch"),
+    ("cuda", "f32", OMEGA, "cuda:0", "cuda"),    # per-omega kernel
+    ("cuda", "f64", OMEGA, "cuda:0", "cuda"),
+    ("torch", "f32", OMEGA, "cuda:0", "torch"),
 ])
 def test_engine_choice(impl, dtype, params, device, engine):
+    """Frames (capture_state) take no part: either engine captures them."""
     cfg = TConfig(**CFG, impl=impl, dtype=dtype)
-    assert tsweep.choose_engine(cfg, params, torch.device(device)) == engine
+    assert tsweep.choose_engine(cfg, torch.device(device)) == engine
 
 
 def test_impl_cuda_never_falls_back():
+    """impl=cuda takes omega sweeps, with or without frames, to the
+    per-omega kernel and never to the batched engine: a CPU device
+    raises."""
     cfg = TConfig(**CFG, impl="cuda")
-    with pytest.raises(NotImplementedError, match="per-omega"):
-        TSweep(cfg, {"omega": np.array([9.0, 10.0])})
-    with pytest.raises(ValueError, match="CUDA device"):
-        TSweep(cfg, PARAMS, device=CPU)
-    sw = port_sweep("f32", params={"omega": np.array([9.0, 10.0])})
-    with pytest.raises(NotImplementedError, match="queue B"):
-        sweep_stack_cuda.SweepStackRunner(sw)
+    omega = {"omega": np.array([9.0, 10.0])}
+    for params in (PARAMS, omega):
+        for frames in (False, True):
+            with pytest.raises(ValueError, match="CUDA device"):
+                TSweep(cfg, params, device=CPU, capture_state=frames)
+    assert sweep_stack_cuda.SweepStackRunner(
+        port_sweep("f32", engine="cuda", params=omega)).per_omega
 
 
-def test_unported_sweep_options_raise(tmp_path):
+def test_unported_sweep_options_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
         TSweep(TConfig(**CFG, impl="torch", shards=2), PARAMS, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tcli.main(cli_argv("f64", tmp_path / "x.txt")
-                  + [f"frames-dir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tcli.main(cli_argv("f64", "stderr") + ["shards=2", "device=cpu"])
     with pytest.raises(ValueError, match="cannot sweep"):
         TSweep(TConfig(**CFG, impl="torch"), {"dt": [1e-3]}, device=CPU)
+
+
+def test_sweeps_run_on_the_card_unless_asked_for_the_cpu(tmp_path,
+                                                         monkeypatch,
+                                                         capsys):
+    """device= picks cuda:<n> for every impl; only device=cpu runs on the
+    CPU; without a card the CLI returns 1 naming device=cpu."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for impl in ("torch", "auto", "cuda"):
+        assert tcli.main(cli_argv("f64", tmp_path / "x.txt")
+                         + [f"impl={impl}"]) == 1
+        assert "device=cpu" in capsys.readouterr().err
+        with pytest.raises(RuntimeError, match="cuda:1"):
+            TSweep(TConfig(**CFG, impl=impl, device=1), PARAMS)
+    sw = TSweep(TConfig(**CFG, impl="torch", device="cpu"), PARAMS)
+    assert sw.device == CPU and sw.engine == "torch"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    for impl in ("torch", "auto", "cuda"):
+        assert torch_device(TConfig(**CFG, impl=impl, device=2)) == \
+            torch.device("cuda:2")
+        with pytest.raises(RuntimeError, match="invalid device ordinal"):
+            torch_device(TConfig(**CFG, impl=impl, device=3))
+        assert tcli.main(cli_argv("f64", tmp_path / "x.txt")
+                         + [f"impl={impl}", "device=3"]) == 1
+        assert "invalid device ordinal" in capsys.readouterr().err
 
 
 # ---- 6. checkpoints -------------------------------------------------------
@@ -392,8 +429,8 @@ def table(text):
 
 
 def test_cli_matches_jax_cli_f64(tmp_path):
-    assert tcli.main(cli_argv("f64", tmp_path / "p.txt") + ["impl=torch"]) \
-        == 0
+    assert tcli.main(cli_argv("f64", tmp_path / "p.txt")
+                     + ["impl=torch", "device=cpu"]) == 0
     assert jcli.main(cli_argv("f64", tmp_path / "j.txt") + ["impl=xla"]) == 0
     ph, pv = table((tmp_path / "p.txt").read_text())
     jh, jv = table((tmp_path / "j.txt").read_text())
@@ -416,6 +453,8 @@ def test_cli_refinement_session_matches_jax(tmp_path, monkeypatch):
         argv = cli_argv("f64", out)[:-2] + ["sweep:E_dc=0.3;0.4",
                                              "read-from=stdin",
                                              f"impl={impl}"]
+        if mod is tcli:
+            argv.append("device=cpu")
         assert mod.main(argv) == 0
         outs[name] = (tmp_path / f"{name}.txt").read_text()
     ph, pv = table(outs["p"])
