@@ -6,17 +6,19 @@
 Phases, one output line each (plus a few measurement lines):
   1. device:  requires CUDA; prints the card's name and power limit;
   2. build:   builds the CUDA kernels (csrc/stepper.cu, csrc/sweep_stack.cu
-              with both modes of the sweep kernel) with one nvcc per
-              source, all started together;
+              with both modes of the sweep kernel, csrc/stepper_stream.cu)
+              with one nvcc per source, all started together;
   3. kernel:  the step kernel against its plain PyTorch version on the
               card, 500 steps in two chunks (parity continuation) with
               display-77 records, at BASELINE #4 (N=100, M=4000) and at
-              N=8 M=64, in f64 and f32;
+              N=8 M=64, in f64 and f32, and 200 steps at N=400 M=4000 in
+              f32;
   4. golden:  impl=cuda display 4 against the reference C solver's
               recorded output (tests/golden/d4_base1_*.txt);
   5. main:    the CLI (slb2d_tpu_torch.cli.main) at BASELINE #4, display 4,
-              f32, impl=cuda, with the kernel launch count checked, and
-              the plain path's rate beside the kernel's;
+              f32, impl=cuda (on the engine the routing picks), with the
+              kernel launch counts checked, and the plain path's rate
+              beside the kernel's;
   6. sweep kernel: the sweep kernel against its plain version, 300 steps
               in two chunks, at the 64-point N=40 M=500 sweep shape and at
               a ragged 6-point shape with a dc-only point and mu swept, in
@@ -50,7 +52,24 @@ Phases, one output line each (plus a few measurement lines):
               through the kernel and an omega grid through the per-omega
               kernel (impl=cuda and impl=auto) and through the batched
               engine (impl=torch), the kernel's frames against the
-              batched engine's.
+              batched engine's;
+ 12. stream kernel: the temporal-tiling kernel (B2) against its plain
+              version, K+3 steps (a full launch and a partial one) then 5
+              from parity 1, with display-77 records, at N=100 M=12000 and
+              N=400 M=4000 in f32 and at N=8 M=64 and N=18 M=300 in f64
+              (state and edges bit for bit, av and records at TOL); then B2
+              against B1 over 203 steps at both shapes (state bit for bit);
+              its time per step beside the plain version's;
+ 13. stream golden: impl=stream display 4 against d4_base1_*.txt, and
+              display 77 on impl=cuda and impl=stream against the patched
+              reference's d77_tiny_*_fixed.txt.gz;
+ 14. stream main: the CLI at N=100 M=12000 and N=400 M=4000 (BASELINE
+              #4's physics, 16,281 steps) with impl=stream and impl=cuda,
+              display 4 (launch counts checked, the 13 columns of B2
+              against B1) and display 77 with impl=stream; display 77
+              against display 4 at BASELINE #4 on B1;
+ 15. stream routing: B1 and B2 per step at the three shapes, the
+              measurement behind impl=cuda's and auto's engine choice.
 The last lines are the operation counts and bounds of the main paths, a
 JSON record of the kernels (ms, plain_ms and bound_ms per step; bound_ms
 is the larger of the main path's operations at F32_OPS_PEAK and its
@@ -101,6 +120,16 @@ KERNEL_SOURCE = "slb2d_tpu_torch/csrc/stepper.cu"
 REPLACES = "slb2d_tpu/ops/stepper_pallas.py:133"
 SWEEP_SOURCE = "slb2d_tpu_torch/csrc/sweep_stack.cu"
 SWEEP_REPLACES = "slb2d_tpu/ops/sweep_stack.py:101"
+STREAM_SOURCE = "slb2d_tpu_torch/csrc/stepper_stream.cu"
+STREAM_REPLACES = "slb2d_tpu/ops/stepper_stream.py:85"
+
+# the stream engine's shapes (docs/PERF.md "HBM-streaming engine"): the
+# wide grid N=100 M=12000 (NHP=104, MP=12032) and the tall-thin N=400
+# M=4000 (NHP=408, MP=4096), at BASELINE #4's physics
+WIDE = dict(n_harmonics=100, g_grid=12000)
+TALL = dict(n_harmonics=400, g_grid=4000)
+D77_GOLDENS = (("d77_tiny_f32_fixed.txt.gz", "f32", 2e-4, 8e-6),
+               ("d77_tiny_f64_fixed.txt.gz", "f64", 5e-9, 1e-12))
 
 # the 64-point E_dc sweep of bench.py:177-195 (bench_sweep_stack, BASELINE
 # #2's shape): N=40 M=500 (NHP=48, MP=512), one drive period per point
@@ -300,6 +329,106 @@ def kernel_ms(shape, dtype):
     many_ms = time_per_step(kernel_many, n, reps=3)
     chunk_ms = (many_ms - k_ms) * n / 19   # 19 extra chunks
     return k_ms, chunk_ms
+
+
+def _stream_runner(shape, dtype):
+    import torch
+    from slb2d_tpu_torch.ops import stepper_stream_cuda
+    model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
+    return model, c, xs, stepper_stream_cuda.make_stream_runner(c, model)
+
+
+def check_stream_vs_plain(shape, dtype):
+    """Run the stream kernel and its plain version from one state over
+    the same table rows (from step 45, across the averaging window's start
+    at step 50) in two chunks of odd length, K+3 steps (a full launch and
+    a partial one) then 5 from parity 1, with display-77 records in both;
+    raise on disagreement.  State and edges bit for bit; av and records
+    at TOL (the block sums' order).  Returns the largest abs difference of
+    av and the records."""
+    import torch
+    from slb2d_tpu_torch.ops import (stencil, stepper_cuda,
+                                     stepper_stream_cuda as ssc)
+    model, c, xs, runner = _stream_runner(shape, dtype)
+    K = runner.geom.K
+    rows = {k: v[45:45 + K + 8] for k, v in xs.items()}
+    parts = [({k: v[:K + 3] for k, v in rows.items()}, (0, 4, K + 2)),
+             ({k: v[K + 3:] for k, v in rows.items()}, (0, 2, 4))]
+    state0 = stencil.bootstrap_state(c, model)
+    kern, plain = state0.clone(), state0.clone()
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    what = f"stream {dtype} {shape} {tuple(runner.geom)}"
+    err = 0.0
+    steps = 0
+    for xs_part, emit in parts:
+        n = len(xs_part["t"])
+        launches0 = runner.launches
+        kern = runner.run_xs(kern, xs_part, steps % 2, emit_idx=emit)
+        table = stepper_cuda.pack_xs_dict(xs_part, model.np_dtype)
+        plain, plain_obs = ssc.run_chunk_plain_stream(
+            c, plain, table, steps % 2, emit, runner.geom)
+        torch.cuda.synchronize()
+        steps += n
+        want = ssc.LAUNCHES_PER_LAUNCH * -(-n // K)
+        check(runner.launches - launches0 == want,
+              f"{what}: {runner.launches - launches0} launches for {n} "
+              f"steps (expected {want})")
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            k, p = getattr(kern, f), getattr(plain, f)
+            check(torch.equal(k, p), f"{what} {f} not bit for bit, max abs "
+                  f"err {float((k - p).abs().max()):.3e}")
+        check(bool(kern.av[0] > 0), f"{what}: av never fired")
+        err = max(err, allclose(kern.av, plain.av, what=f"{what} av", **tol))
+        check(int(kern.step) == int(plain.step) == steps, "step count")
+        obs = torch.from_numpy(runner.take_obs(len(emit)))
+        ref = plain_obs[:, :13].cpu()
+        check(torch.equal(obs[:, 4], ref[:, 4]), f"{what}: record loop t")
+        err = max(err, allclose(obs, ref, what=f"{what} d77 records",
+                                **tol))
+    return err
+
+
+def check_stream_vs_b1(shape, dtype="f32", n_steps=203):
+    """B2 and B1 from one state over the same n_steps (odd: full launches
+    and a partial one) with display-77 records: state and edges bit for
+    bit (the same per-cell arithmetic, -fmad=false), av and records at
+    TOL (the sums' order).  Returns the largest abs difference of av."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs, runner = _stream_runner(shape, dtype)
+    b1 = stepper_cuda.make_cuda_runner(c, model)
+    part = {k: v[:n_steps] for k, v in xs.items()}
+    emit = (0, 57, 130, n_steps - 1)
+    state0 = stencil.bootstrap_state(c, model)
+    s2 = runner.run_xs(state0.clone(), part, 0, emit_idx=emit)
+    s1 = b1.run_xs(state0.clone(), part, 0, emit_idx=emit)
+    torch.cuda.synchronize()
+    what = f"stream vs B1 {dtype} {shape}"
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+        check(torch.equal(getattr(s2, f), getattr(s1, f)),
+              f"{what}: {f} not bit for bit")
+    check(bool(s1.av[0] > 0), f"{what}: av never fired")
+    err = allclose(s2.av, s1.av, what=f"{what} av", **TOL[dtype])
+    allclose(torch.from_numpy(runner.take_obs(len(emit))),
+             torch.from_numpy(b1.take_obs(len(emit))),
+             what=f"{what} d77 records", **TOL[dtype])
+    return err
+
+
+def engine_ms(shape, engine, dtype="f32", n=2000, reps=3):
+    """ms per step of one kernel engine ('cuda-b1' or 'stream') at one
+    shape: n steps in one chunk, CUDA events, after a warm-up."""
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    if engine == "stream":
+        model, c, xs, runner = _stream_runner(shape, dtype)
+    else:
+        import torch
+        model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
+        runner = stepper_cuda.make_cuda_runner(c, model)
+    win = {k: v[:n] for k, v in xs.items()}
+    st = stencil.bootstrap_state(c, model)
+    return time_per_step(lambda: runner.run_xs(st, win, 0), n, reps=reps)
 
 
 def sweep_grid(shape):
@@ -869,7 +998,8 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(half_step|av_step|record_step|sweep_chunk)"
+            k = re.search(r"(half_step|av_step|record_step|sweep_chunk|"
+                          r"stream_tile|stream_replay)"
                           r"I([fd])(?:Lb([01]))?", m.group(1))
             name = (f"{k.group(1)}<{k.group(2)}"
                     f"{',' + k.group(3) if k.group(3) else ''}>"
@@ -893,7 +1023,7 @@ def gpu_line():
     return out[0]
 
 
-def golden_phase(card):
+def golden_phase(card, impl="cuda"):
     import numpy as np
     import torch
     from slb2d_tpu_torch.config import SimConfig
@@ -903,10 +1033,11 @@ def golden_phase(card):
             gold_text = fh.read()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "out.txt")
-            cfg = SimConfig(display=4, dtype=dtype, impl="cuda", quiet=True,
+            cfg = SimConfig(display=4, dtype=dtype, impl=impl, quiet=True,
                             t_start=10.0, n_harmonics=20, g_grid=200,
                             out_file=path, **PHYS)
-            Simulation(cfg, device=torch.device(DEVICE)).run()
+            sim = Simulation(cfg, device=torch.device(DEVICE))
+            sim.run()
             with open(path) as fh:
                 mine = fh.read()
 
@@ -923,36 +1054,47 @@ def golden_phase(card):
         gh = [l for l in gold_text.splitlines() if l.startswith("#")]
         mh = [l for l in mine.splitlines() if l.startswith("#")]
         check(gh == mh, f"{gold}: header lines differ")
-        print(f"golden {gold}: ok (max abs err {err.max():.3e}, "
-              f"rtol {rtol}, atol {atol}) [{card}]", flush=True)
+        print(f"golden {gold} impl={impl} ({sim.engine}): ok (max abs err "
+              f"{err.max():.3e}, rtol {rtol}, atol {atol}) [{card}]",
+              flush=True)
+
+
+def routed_engine(model):
+    """The engine impl=cuda and impl=auto take for model's grid."""
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    return ("stream" if sst.stream_beats_b1(model.NHP, model.MP,
+                                            model.np_dtype) else "cuda-b1")
+
+
+def expected_launches(engine, steps, records=0):
+    """(B1, B2, B3 shared, B3 per-omega) launches of a single run: B1
+    three per step and one per display-77 record, B2 two per K steps."""
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    if engine == "stream":
+        return (0, sst.LAUNCHES_PER_LAUNCH * -(-steps // sst.DEFAULT_K), 0,
+                0)
+    return (3 * steps + records, 0, 0, 0)
+
+
+def run_steps(model, t_start=10.0):
+    """Steps of a run of model from t=0 to t_start + T."""
+    from slb2d_tpu_torch.runtime import schedule
+    D = model.np_dtype
+    return schedule.count_steps(0.0, float(D(D(t_start) + model.T)),
+                                model.dt, D)
 
 
 def main_path_phase(card):
-    """The CLI at BASELINE #4; returns (launches, wall seconds, steps)."""
+    """The CLI at BASELINE #4 with impl=cuda, on the engine the routing
+    picks; returns (wall seconds, steps, engine)."""
     import numpy as np
-    import torch
-    from slb2d_tpu_torch import cli
     from slb2d_tpu_torch.config import parse_cmd
     from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
-    from slb2d_tpu_torch.ops import stepper_cuda
-    from slb2d_tpu_torch.runtime import schedule
 
     model = SuperlatticeModel(parse_cmd(MAIN_ARGV))
-    D = model.np_dtype
-    steps = schedule.count_steps(0.0, float(D(D(10.0) + model.T)),
-                                 model.dt, D)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "obs.txt")
-        torch.cuda.synchronize()
-        stepper_cuda.launch_count = 0
-        t0 = time.perf_counter()
-        rc = cli.main(MAIN_ARGV + [f"o={path}"])
-        wall = time.perf_counter() - t0      # ends in the packed fetch,
-                                             # which synchronises
-        launches = stepper_cuda.launch_count
-        check(rc == 0, f"cli.main returned {rc}")
-        with open(path) as fh:
-            text = fh.read()
+    steps = run_steps(model)
+    engine = routed_engine(model)
+    wall, text, counts = run_cli(MAIN_ARGV)
     rows = [l.split() for l in text.splitlines()
             if l and not l.startswith("#")]
     check(len(rows) == 1 and len(rows[0]) == 13,
@@ -960,14 +1102,253 @@ def main_path_phase(card):
     vals = np.array(rows[0], float)
     check(bool(np.all(np.isfinite(vals))), f"non-finite output {vals}")
     check(abs(vals[6] - 1.0) < 1e-3, f"NORM {vals[6]} not within 1e-3 of 1")
-    check(launches == 3 * steps,
-          f"{launches} kernel launches for {steps} steps (expected "
-          f"{3 * steps})")
+    want = expected_launches(engine, steps)
+    check(counts == want, f"(B1, B2, B3, B3 per-omega) launches {counts} "
+          f"for {steps} steps on {engine} (expected {want})")
     sites = 2 * (model.N + 1) * (model.M + 1) * steps
-    print(f"main: cli display=4 BASELINE#4 f32 impl=cuda: {steps} steps, "
-          f"{launches} launches, NORM={vals[6]:.9f}, wall {wall:.3f} s, "
-          f"{sites / wall:.4e} site-updates/s [{card}]", flush=True)
-    return launches, wall, steps
+    print(f"main: cli display=4 BASELINE#4 f32 impl=cuda [{engine}]: "
+          f"{steps} steps, launches B1 {counts[0]} B2 {counts[1]}, "
+          f"NORM={vals[6]:.9f}, wall {wall:.3f} s, {sites / wall:.4e} "
+          f"site-updates/s [{card}]", flush=True)
+    return wall, steps, engine
+
+
+def d77_golden_phase(card):
+    """Display 77 on impl=cuda and impl=stream against the patched
+    reference's recorded lines (tests/test_golden.py:135-202): t bit for
+    bit, all 15 columns at f32 rtol 2e-4 atol 8e-6, f64 rtol 5e-9 atol
+    1e-12."""
+    import gzip
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.runtime.loop import Simulation
+    done = []
+    for gold, dtype, rtol, atol in D77_GOLDENS:
+        with gzip.open(os.path.join(ROOT, "tests", "golden", gold),
+                       "rt") as fh:
+            ref = [np.array(l.split(), float) for l in fh.read().splitlines()
+                   if l and not l.startswith("#")]
+        for impl in ("cuda", "stream"):
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "d77.txt")
+                cfg = SimConfig(display=77, dtype=dtype, impl=impl,
+                                quiet=True, t_start=0.2, n_harmonics=8,
+                                g_grid=24, out_file=path,
+                                **{**PHYS, "omega": 10.0})
+                sim = Simulation(cfg, device=torch.device(DEVICE))
+                sim.run()
+                with open(path) as fh:
+                    mine = [np.array(l.split(), float)
+                            for l in fh.read().splitlines()
+                            if l and not l.startswith("#")]
+            what = f"{gold} impl={impl} ({sim.engine})"
+            check(len(mine) == len(ref) > 50,
+                  f"{what}: {len(mine)} lines, expected {len(ref)}")
+            err = 0.0
+            for g, m in zip(ref, mine):
+                check(m[13] == g[13], f"{what}: t {m[13]} != {g[13]}")
+                e = np.abs(m - g)
+                check(bool(np.all(e <= atol + rtol * np.abs(g))),
+                      f"{what}: columns outside rtol={rtol} atol={atol}, "
+                      f"max abs err {e.max():.3e}")
+                err = max(err, float(e.max()))
+            done.append(f"{what} max abs err {err:.3e}")
+    print(f"golden d77: {len(ref)} lines each, t bit for bit: "
+          + "; ".join(done) + f" ok [{card}]", flush=True)
+
+
+def stream_plain_ms(shape, dtype="f32"):
+    """ms per step of the stream kernel's plain version on the card (host
+    clock to a synchronise), K+3 steps: a full launch and a partial one."""
+    import torch
+    from slb2d_tpu_torch.ops import (stencil, stepper_cuda,
+                                     stepper_stream_cuda as ssc)
+    model, c, xs, runner = _stream_runner(shape, dtype)
+    n = runner.geom.K + 3
+    table = stepper_cuda.pack_xs_dict({k: v[:n] for k, v in xs.items()},
+                                      model.np_dtype)
+    st = stencil.bootstrap_state(c, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ssc.run_chunk_plain_stream(c, st, table, 0, (), runner.geom)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def step_plain_ms(shape, dtype="f32", n=20):
+    """ms per step of the step kernel's plain version (run_chunk_plain) on
+    the card, host clock to a synchronise, n steps."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
+    table = stepper_cuda.pack_xs_dict({k: v[:n] for k, v in xs.items()},
+                                      model.np_dtype)
+    st = stencil.bootstrap_state(c, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepper_cuda.run_chunk_plain(c, st, table, 0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def cli_argv(shape, display=4, impl="cuda"):
+    """MAIN_ARGV (BASELINE #4's physics) at another shape, display and
+    impl."""
+    return [a for a in MAIN_ARGV if a.split("=")[0] not in
+            ("display", "n-harmonics", "g-grid", "impl")] + [
+        f"display={display}", f"n-harmonics={shape['n_harmonics']}",
+        f"g-grid={shape['g_grid']}", f"impl={impl}"]
+
+
+def run_cli(argv, force_b1=False):
+    """cli.main(argv) with every kernel count set to 0 just before and
+    read just after; force_b1 makes impl=cuda's routing take B1.  Returns
+    (wall seconds, output text, launches of B1, B2, B3 shared, B3
+    per-omega)."""
+    import torch
+    from slb2d_tpu_torch import cli
+    from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda as
+                                     sst, sweep_stack_cuda as ssc)
+    rule = sst.stream_beats_b1
+    if force_b1:
+        sst.stream_beats_b1 = lambda *a: False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "out.txt")
+            torch.cuda.synchronize()
+            stepper_cuda.launch_count = sst.launch_count = 0
+            ssc.launch_count = ssc.omega_launch_count = 0
+            t0 = time.perf_counter()
+            rc = cli.main(argv + [f"o={path}"])
+            wall = time.perf_counter() - t0  # ends in a fetch, which
+                                             # synchronises
+            counts = (stepper_cuda.launch_count, sst.launch_count,
+                      ssc.launch_count, ssc.omega_launch_count)
+            check(rc == 0, f"cli.main returned {rc}")
+            with open(path) as fh:
+                text = fh.read()
+    finally:
+        sst.stream_beats_b1 = rule
+    return wall, text, counts
+
+
+def _rows(text):
+    import numpy as np
+    return np.array([l.split() for l in text.splitlines()
+                     if l and not l.startswith("#")], float)
+
+
+def stream_main_phase(card):
+    """The CLI at the wide and the tall shape with impl=stream and
+    impl=cuda (display 4; at the wide shape also with the routing forced
+    to B1, for the 13 columns of B2 against B1), display 77 on
+    impl=stream, and display 77 against display 4 at BASELINE #4 on B1.
+    Returns {(shape name, engine): (model, steps, launches)} of the
+    display-4 runs."""
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch.config import parse_cmd
+    from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
+    from slb2d_tpu_torch.runtime import schedule
+    out = {}
+    walls = {}
+    for name, shape in (("N=100 M=12000", WIDE), ("N=400 M=4000", TALL),
+                        ("BASELINE#4", BASELINE4)):
+        model = SuperlatticeModel(parse_cmd(cli_argv(shape)))
+        D = model.np_dtype
+        steps = run_steps(model)
+        records = sum(len(ch.emit_idx) for ch in schedule.iter_chunks(
+            omega=model.omega, dt=model.dt, t0=0.0,
+            t_max=float(D(D(10.0) + model.T)), t_start=10.0,
+            E_omega=model.E_omega, display=77, frame_start=0.0, T=model.T,
+            dtype=D, chunk_max=16384, break_on_e77=False))
+        routed = routed_engine(model)
+        sites = 2 * (model.N + 1) * (model.M + 1) * steps
+        # (impl, display, engine, routing forced to B1)
+        if shape is BASELINE4:
+            runs = [("cuda", 4, "cuda-b1", True),
+                    ("cuda", 77, "cuda-b1", True)]
+        else:
+            runs = ([("stream", 4, "stream", False),
+                     ("cuda", 4, routed, False)]
+                    + ([("cuda", 4, "cuda-b1", True)] if routed == "stream"
+                       else []) + [("stream", 77, "stream", False)])
+        lines = {}
+        for impl, display, engine, force in runs:
+            wall, text, counts = run_cli(cli_argv(shape, display, impl),
+                                         force_b1=force)
+            what = (f"cli display={display} {name} f32 impl={impl}"
+                    f"{' (routing forced to B1)' if force else ''}")
+            want = expected_launches(engine, steps,
+                                     records if display == 77 else 0)
+            check(counts == want, f"{what}: (B1, B2, B3, B3 per-omega) "
+                  f"launches {counts}, expected {want} on {engine}")
+            rows = _rows(text)
+            check(bool(np.all(np.isfinite(rows))), f"{what}: non-finite")
+            norm_err = float(np.max(np.abs(rows[:, 6] - 1.0)))
+            check(norm_err < 1e-3, f"{what}: NORM {norm_err} from 1")
+            if display == 4:
+                check(rows.shape == (1, 13), f"{what}: {rows.shape} lines")
+                lines[engine] = rows[0]
+                out[name, engine] = (model, steps, counts[:2])
+            else:
+                check(rows.shape == (records, 15),
+                      f"{what}: {rows.shape}, expected {records} lines")
+                check(bool(np.all(np.diff(rows[:, 13]) > 0)),
+                      f"{what}: t not increasing")
+            walls[display] = wall
+            print(f"stream main: {what} [{engine}]: {steps} steps, "
+                  f"launches B1 {counts[0]} B2 {counts[1]}, "
+                  f"{rows.shape[0]} line(s), max |NORM-1| {norm_err:.3e}, "
+                  f"wall {wall:.3f} s, {sites / wall:.4e} site-updates/s "
+                  f"[{card}]", flush=True)
+        if shape is BASELINE4:
+            print(f"stream main: display 77 vs display 4 at BASELINE#4 on "
+                  f"B1: {walls[77]:.3f} s vs {walls[4]:.3f} s "
+                  f"({walls[77] / walls[4]:.3f}x) for {records} records "
+                  f"[{card}]", flush=True)
+        if len(lines) == 2:
+            err = allclose(torch.as_tensor(lines["stream"]),
+                           torch.as_tensor(lines["cuda-b1"]),
+                           what=f"{name} display-4 columns B2 vs B1",
+                           **TOL["f32"])
+            print(f"stream main: {name} the 13 display-4 columns of B2 vs "
+                  f"B1: max abs err {err:.3e} (rtol 1e-4, atol 1e-7) "
+                  f"[{card}]", flush=True)
+    return out
+
+
+def stream_routing_phase(card):
+    """B1 and B2 per step (CUDA events, 2000 steps in one chunk) at
+    BASELINE #4 and the two stream shapes: the measurement behind
+    stream_beats_b1.  Where one engine leads by more than 10%, the rule
+    must name it.  Returns {shape name: (B1 ms, B2 ms)}."""
+    from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    res, parts = {}, []
+    for name, shape in (("BASELINE#4", BASELINE4), ("N=100 M=12000", WIDE),
+                        ("N=400 M=4000", TALL)):
+        b1, b2 = engine_ms(shape, "cuda-b1"), engine_ms(shape, "stream")
+        m = SuperlatticeModel(SimConfig(display=4, t_start=10.0, **PHYS,
+                                        **shape))
+        rule = sst.stream_beats_b1(m.NHP, m.MP, m.np_dtype)
+        g = sst.default_geometry(m.NHP, m.MP, 4)
+        if abs(b1 - b2) > 0.1 * min(b1, b2):
+            check(rule == (b2 < b1),
+                  f"routing at {name}: B1 {b1 * 1e3:.3f} us, B2 "
+                  f"{b2 * 1e3:.3f} us per step, but the rule picks "
+                  f"{'B2' if rule else 'B1'}")
+        res[name] = (b1, b2)
+        parts.append(f"{name} (W={g.W}, {g.n_tiles} tiles, "
+                     f"{'shared' if g.smem else 'global'}) B1 "
+                     f"{b1 * 1e3:.3f} us, B2 {b2 * 1e3:.3f} us -> "
+                     f"{'B2' if rule else 'B1'}")
+    print("stream routing (f32, per step, CUDA events): " + "; ".join(parts)
+          + f" [{card}]", flush=True)
+    return res
+
 
 
 def main():
@@ -985,7 +1366,7 @@ def main():
     pkg = os.path.dirname(os.path.abspath(slb2d_tpu_torch.__file__))
     check(pkg == os.path.join(ROOT, "slb2d_tpu_torch"),
           f"slb2d_tpu_torch imported from {pkg}, not from this checkout")
-    from slb2d_tpu_torch.ops import _build, stencil, stepper_cuda
+    from slb2d_tpu_torch.ops import _build, stencil
 
     # 1. device: the nvidia-smi line (name, power limit) on its own line
     card = gpu_line()
@@ -1009,7 +1390,10 @@ def main():
     for shape_name, shape in (("BASELINE#4", BASELINE4), ("N8M64", SMALL)):
         for dtype in ("f64", "f32"):
             max_err[shape_name, dtype] = check_kernel_vs_plain(shape, dtype)
-    print("kernel: vs plain, 500 steps in 2 chunks + d77 records: " +
+    max_err["N=400 M=4000", "f32"] = check_kernel_vs_plain(TALL, "f32",
+                                                           n_steps=200)
+    print("kernel: vs plain, 500 steps (200 at N=400 M=4000) in 2 chunks + "
+          "d77 records: " +
           ", ".join(f"{s} {d} max abs err {e:.3e}"
                     for (s, d), e in max_err.items()) + " ok", flush=True)
     k_ms, chunk_ms = kernel_ms(BASELINE4, "f32")
@@ -1020,12 +1404,9 @@ def main():
     # 4. goldens through impl=cuda
     golden_phase(card)
 
-    # 5. the main path, then the plain path's rate over 2000 steps
-    from slb2d_tpu_torch.ops import sweep_stack_cuda
-    sweep_stack_cuda.launch_count = 0
-    launches, wall, steps = main_path_phase(card)
-    check(sweep_stack_cuda.launch_count == 0,
-          "the single-run path launched the sweep kernel")
+    # 5. the main path (impl=cuda: the engine the routing picks), then the
+    # plain path's rate over 2000 steps
+    wall, steps, _ = main_path_phase(card)
     model, c, xs = _setup(BASELINE4, "f32", torch.device(DEVICE))
     win = {k: v[:2000] for k, v in xs.items()}
     st = stencil.bootstrap_state(c, model)
@@ -1107,11 +1488,45 @@ def main():
     # 11. frames-dir
     frames_phase(card)
 
-    # the bounds of each main path's run (model: BASELINE #4; sweep: the
-    # 64-point E_dc sweep; paper: the paper map)
-    b1_flops = main_path_flops(model, steps,
-                               av_steps=window_steps(model, 10.0, steps))
-    b1_bound, b1_by = bound_ms(model, steps, b1_flops)
+    # 12. the stream kernel against its plain version and against B1
+    stream_err = {}
+    for name, shape, dtype in (
+            ("N=100 M=12000", WIDE, "f32"), ("N=400 M=4000", TALL, "f32"),
+            ("N=8 M=64", SMALL, "f64"),
+            ("N=18 M=300", dict(n_harmonics=18, g_grid=300), "f64")):
+        stream_err[name, dtype] = check_stream_vs_plain(shape, dtype)
+    vs_b1 = {name: check_stream_vs_b1(shape) for name, shape in
+             (("N=100 M=12000", WIDE), ("N=400 M=4000", TALL))}
+    b2_plain_ms = stream_plain_ms(WIDE)
+    b1_plain_ms = step_plain_ms(TALL)
+    print("stream kernel: vs plain, K+3 steps then 5 from parity 1 with "
+          "d77 records, state and edges bit for bit: " +
+          ", ".join(f"{s} {d} av/records max abs err {e:.3e}"
+                    for (s, d), e in stream_err.items()) +
+          "; vs B1 over 203 steps f32, state and edges bit for bit: " +
+          ", ".join(f"{s} av max abs err {e:.3e}" for s, e in vs_b1.items())
+          + f" ok; plain versions {b2_plain_ms:.5f} ms/step at N=100 "
+          f"M=12000 (B2), {b1_plain_ms:.5f} ms/step at N=400 M=4000 (B1) "
+          f"[{card}]", flush=True)
+
+    # 13. goldens through impl=stream; display 77 on both kernel engines
+    golden_phase(card, impl="stream")
+    d77_golden_phase(card)
+
+    # 14. the stream main paths; 15. the routing measurement
+    stream_runs = stream_main_phase(card)
+    routing = stream_routing_phase(card)
+
+    # the bounds of each main path's run (B1: the tall grid, where impl=cuda
+    # takes it; B2: the wide grid's impl=stream run, the same work as B1
+    # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
+    # paper: the paper map)
+    tall, tall_steps, (b1_launches, _) = stream_runs["N=400 M=4000",
+                                                     "cuda-b1"]
+    b1_flops = main_path_flops(tall, tall_steps,
+                               av_steps=window_steps(tall, 10.0, tall_steps))
+    b1_bound, b1_by = bound_ms(tall, tall_steps, b1_flops)
+    b1_ms = routing["N=400 M=4000"][0]
     b3_flops = main_path_flops(sweep.base, sweep_steps, points=sweep.B,
                                av_steps=int(expected_av_counts(sweep).sum()))
     b3_bound, b3_by = bound_ms(sweep.base, sweep_steps, b3_flops,
@@ -1121,20 +1536,29 @@ def main():
                                captures=paper.B, chains=True)
     om_bound, om_by = bound_ms(paper.base, omega_steps, om_flops,
                                points=paper.B)
-    print(f"bounds: operations per step B1 {b1_flops / steps:.6e}, B3 "
+    wide, wide_steps, (_, b2_launches) = stream_runs["N=100 M=12000",
+                                                     "stream"]
+    b2_flops = main_path_flops(wide, wide_steps,
+                               av_steps=window_steps(wide, 10.0, wide_steps))
+    b2_bound, b2_by = bound_ms(wide, wide_steps, b2_flops)
+    b2_ms = routing["N=100 M=12000"][1]
+    print(f"bounds: operations per step B1 {b1_flops / tall_steps:.6e}, B3 "
           f"shared {b3_flops / sweep_steps:.6e}, B3 per-omega "
-          f"{om_flops / omega_steps:.6e} at {F32_OPS_PEAK:.4g} op/s; "
+          f"{om_flops / omega_steps:.6e}, B2 {b2_flops / wide_steps:.6e} "
+          f"at {F32_OPS_PEAK:.4g} op/s; "
           f"bound B1 {b1_bound * 1e3:.4f} us ({b1_by}), B3 shared "
           f"{b3_bound * 1e3:.4f} us ({b3_by}), B3 per-omega "
-          f"{om_bound * 1e3:.4f} us ({om_by}) per step; share of the "
-          f"bound B1 {b1_bound / k_ms:.4f}, B3 shared {b3_bound / sk_ms:.4f},"
-          f" B3 per-omega {om_bound / pk_ms:.4f}", flush=True)
+          f"{om_bound * 1e3:.4f} us ({om_by}), B2 {b2_bound * 1e3:.4f} us "
+          f"({b2_by}) per step; share of the "
+          f"bound B1 {b1_bound / b1_ms:.4f}, B3 shared {b3_bound / sk_ms:.4f},"
+          f" B3 per-omega {om_bound / pk_ms:.4f}, B2 {b2_bound / b2_ms:.4f}",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "slb_run_chunk (half_step<MAIN>, half_step<HALF>, av_step)",
         "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err["BASELINE#4", "f32"],
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b1_bound,
+        "launches": b1_launches,
+        "max_abs_err": max_err["N=400 M=4000", "f32"],
+        "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
         "bound_by": b1_by, "library_ms": None}, {
         "name": "slb_sweep_chunk (sweep_chunk<T, false>)",
         "route": "cuda", "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
@@ -1148,7 +1572,13 @@ def main():
         "max_abs_err": omega_err["paper", "f32"][0],
         "capture_max_abs_err": omega_err["paper", "f32"][1],
         "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": om_bound,
-        "bound_by": om_by, "library_ms": None}]}), flush=True)
+        "bound_by": om_by, "library_ms": None}, {
+        "name": "slb_stream_chunk (stream_tile, stream_replay)",
+        "route": "cuda", "source": STREAM_SOURCE,
+        "replaces": STREAM_REPLACES, "launches": b2_launches,
+        "max_abs_err": stream_err["N=100 M=12000", "f32"],
+        "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
+        "bound_by": b2_by, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,10 @@
 
 The port of ``slb2d_tpu`` (JAX) to an NVIDIA H100: the same host schedule,
 model and output formats, the stencil as plain PyTorch (``impl=torch``)
-and the step loop as a hand-written CUDA kernel (``impl=cuda``,
-``csrc/stepper.cu``); parameter sweeps as a batched torch engine and a
+and the step loop as hand-written CUDA kernels: three launches per step
+(``csrc/stepper.cu``) or temporal tiling (``impl=stream``,
+``csrc/stepper_stream.cu``), ``impl=cuda`` taking whichever is faster at
+the grid's shape; parameter sweeps as a batched torch engine and a
 hand-written sweep kernel (``parallel/sweep.py``, ``csrc/sweep_stack.cu``).
 Imports torch and numpy, never jax.
 """

@@ -1,10 +1,12 @@
 """Command-line entry point: `slb2d-torch key=value ...` or
 `python -m slb2d_tpu_torch.cli key=value ...` — the reference CLI surface
 (reference: src/boltzmann_cli.c, README.md:30-66) plus the extensions
-impl= (auto|torch|cuda), dtype=, steps-per-chunk= and checkpoint=.
+impl= (auto|torch|cuda|stream), dtype=, steps-per-chunk= and checkpoint=.
 The run uses CUDA device `device=` (default 0) for every impl; only
 device=cpu runs it on the CPU.  Without a CUDA device and without
-device=cpu it prints an error and returns 1.
+device=cpu it prints an error and returns 1.  Unless quiet, the closing
+`# perf:` line names the engine that ran: torch, cuda-b1 (the step
+kernel) or stream (the temporal-tiling kernel).
 """
 
 from __future__ import annotations

@@ -6,8 +6,11 @@ protocol (src/boltzmann_cli.c:71-91).  Extensions (impl, dtype,
 steps-per-chunk, ...) are additive and default to reference behavior.
 
 The parsing rules and messages are those of ``slb2d_tpu.config``; the
-engines differ: ``impl=torch`` is the plain tensor path and ``impl=cuda``
-the hand-written CUDA kernel (``auto`` means ``cuda``).
+engines differ: ``impl=torch`` is the plain tensor path, ``impl=stream``
+the temporal-tiling CUDA kernel (B2; its plain version with device=cpu,
+as the JAX package's impl=stream runs interpreted on the CPU), and
+``impl=cuda`` (``auto`` means ``cuda``) the step kernel (B1) or B2,
+whichever ran a step faster on an H100 at the grid's shape.
 """
 
 from __future__ import annotations
@@ -23,10 +26,10 @@ VALID_DISPLAYS = (3, 4, 7, 8, 9, 77)
 # (reference: src/boltzmann_cli.c:82-87).
 REPL_MUTABLE = ("E_dc", "E_omega", "omega", "mu", "alpha", "B")
 
-IMPLS = ("auto", "torch", "cuda")
+IMPLS = ("auto", "torch", "cuda", "stream")
 
 # engines of the JAX package and their counterparts here
-_JAX_IMPLS = {"xla": "torch", "pallas": "cuda", "stream": "cuda"}
+_JAX_IMPLS = {"xla": "torch", "pallas": "cuda"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +60,7 @@ class SimConfig:
     read_from: Optional[str] = None   # only "stdin" supported, like reference
 
     # ---- extensions (not present in the reference CLI) ----
-    impl: str = "auto"        # {"auto", "torch", "cuda"} stepper
+    impl: str = "auto"        # {"auto", "torch", "cuda", "stream"} stepper
                               # implementation; auto means cuda
     dtype: str = "f32"        # {"f32", "f64"}; reference is float32 (src/boltzmann.h:15)
     exact_time: bool = True   # replicate the C solver's float32 `t += dt` accumulation
@@ -178,7 +181,7 @@ def validate(cfg: SimConfig):
         _die(f"ERROR: impl={cfg.impl} names an engine of the JAX package; "
              f"use impl={_JAX_IMPLS[cfg.impl]}, its counterpart here.")
     if cfg.impl not in IMPLS:
-        _die("ERROR: impl= must be one of auto, torch, cuda.")
+        _die("ERROR: impl= must be one of auto, torch, cuda, stream.")
     if cfg.dtype not in ("f32", "f64"):
         _die("ERROR: dtype= must be f32 or f64.")
     if cfg.g_grid < 3:

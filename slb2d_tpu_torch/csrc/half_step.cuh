@@ -1,6 +1,7 @@
-// Device code shared by the step kernels (stepper.cu, sweep_stack.cu):
-// one stencil application at one cell, block sums, and the av() chain.
-// Both kernels compute these expressions in this one operand order, which
+// Device code shared by the step kernels (stepper.cu, sweep_stack.cu,
+// stepper_stream.cu): one stencil application at one cell, block sums,
+// and the av() chain.
+// The kernels compute these expressions in this one operand order, which
 // is the order of their plain PyTorch version (slb2d_tpu_torch/ops/
 // stencil.py: apply_half_step in the reciprocal form, av_update_from_sums).
 
@@ -88,6 +89,27 @@ __device__ __forceinline__ void half_step_cell(
   }
   a_dst[idx] = a_new;
   b_dst[idx] = b_new;
+}
+
+// The update of one cell from what it reads, in half_step_cell's operand
+// order (the C order, src/boltzmann_c_solver.c:363-378): mu_t, mu_t1 and
+// the row and column factors come from the caller, which may hoist them
+// (stepper_stream.cu computes each column's mu part once per half-step
+// and multiplies it by the row's n as half_step_cell does).  Returns the
+// values before the ghost fill and the edge swap.
+template <typename T>
+__device__ __forceinline__ void cell_update(
+    T a_src, T b_src, T dmb_p, T dmb_m, T dma_p, T dma_m, T a0v, T mu_t,
+    T mu_t1, T nu_a, T nu_b, T n_ge2, T w_n, T colf, const Params<T>& p,
+    T& a_new, T& b_new) {
+  const T gv = p.dt * a0v + a_src * p.nu_tilde - b_src * mu_t +
+               p.bdt * (dmb_p - n_ge2 * dmb_m);
+  const T hv = b_src * p.nu_tilde + a_src * mu_t +
+               p.bdt * (w_n * dma_m - dma_p);
+  const T xi = p.nu2 + mu_t1 * mu_t1;
+  const T inv_xi = colf / xi;
+  a_new = (gv * nu_a - hv * mu_t1) * inv_xi;
+  b_new = (gv * mu_t1 + hv * nu_b) * inv_xi;
 }
 
 template <typename T>

@@ -20,7 +20,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", f)
-                for f in ("stepper.cu", "sweep_stack.cu"))
+                for f in ("stepper.cu", "sweep_stack.cu",
+                          "stepper_stream.cu"))
 HEADERS = (os.path.join(_PKG, "csrc", "half_step.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "slb2d_tpu_torch")
 # -fmad=false: no multiply-add contraction, so the kernel rounds as the
@@ -40,6 +41,8 @@ _ENTRY_ARGS = {
                         + [ctypes.c_void_p]),
     "slb_sweep_chunk_omega": ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
                               + [ctypes.c_void_p]),
+    "slb_stream_chunk": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
+                         + [ctypes.c_void_p]),
 }
 
 

@@ -93,135 +93,174 @@ def run_chunk_plain(c: stencil.StencilConsts, state: stencil.State, xs,
     return state, obs
 
 
-def make_cuda_runner(c: stencil.StencilConsts, model, av_enabled=True,
-                     exact_trig=False):
+class Runner:
     """(state, n_steps) -> state on the CUDA kernel (CPU tensors: the plain
     version).  Same surface as the JAX package's pallas Runner: run_xs,
     __call__, take_obs, update_consts; plus `launches`, the number of
-    kernel launches made so far."""
-    D = model.np_dtype
-    NHP, MP = model.NHP, model.MP
-    tdtype = torch.float32 if D == np.float32 else torch.float64
+    kernel launches made so far.  Tracks step parity and loop t on the
+    host, so no device scalar is read per chunk.  Subclasses replace
+    _plain, _enqueue and _add_launches (ops/stepper_stream_cuda.py)."""
 
-    class Runner:
-        """Tracks step parity and loop t on the host, so no device scalar
-        is read per chunk."""
+    engine = "cuda-b1"
 
-        def __init__(self):
-            self.step0 = 0
-            self.t0 = 0.0
-            self.launches = 0
-            self.last_obs = None     # display-77 records of the last run
-            self._xs_dev = None      # the last chunk's table, kept alive
-                                     # while its launches may still run
-            self.update_consts(c)
+    def __init__(self, c: stencil.StencilConsts, model, av_enabled=True,
+                 exact_trig=False):
+        self.model = model
+        self.av_enabled = av_enabled
+        self.exact_trig = exact_trig
+        self.dtype = (torch.float32 if model.np_dtype == np.float32
+                      else torch.float64)
+        self.step0 = 0
+        self.t0 = 0.0
+        self.launches = 0
+        self.last_obs = None     # display-77 records of the last run
+        self._xs_dev = None      # the last chunk's table, kept alive
+                                 # while its launches may still run
+        self.update_consts(c)
 
-        def update_consts(self, c_new):
-            self.c = c_new
-            # host copies of the physics scalars, read once here and not
-            # per chunk (reading a device scalar synchronises)
-            self.params = np.zeros(16, D)
-            for i, name in enumerate(SCALAR_FIELDS):
-                self.params[i] = D(float(getattr(c_new, name)))
-            self.host = types.SimpleNamespace(
-                **dict(zip(SCALAR_FIELDS, self.params)))
+    def update_consts(self, c_new):
+        D = self.model.np_dtype
+        self.c = c_new
+        # host copies of the physics scalars, read once here and not
+        # per chunk (reading a device scalar synchronises)
+        self.params = np.zeros(16, D)
+        for i, name in enumerate(SCALAR_FIELDS):
+            self.params[i] = D(float(getattr(c_new, name)))
+        self.host = types.SimpleNamespace(
+            **dict(zip(SCALAR_FIELDS, self.params)))
 
-        def _run(self, state, xs, n, parity0, emit_idx=()):
-            dev = state.a.device
-            if dev.type == "cpu":
-                out, self.last_obs = run_chunk_plain(self.c, state, xs[:n],
-                                                     parity0, emit_idx)
-            elif dev.type == "cuda":
-                out = self._launch(state, xs, n, parity0, emit_idx)
-            else:
-                raise ValueError(f"cuda runner: unsupported device {dev}")
-            # t continues exactly: the last row's loop t plus one dt,
-            # the C driver's sequential accumulation
-            t_next = D(xs[n - 1, 7] + self.host.dt)
-            return out.replace(t=torch.tensor(t_next, dtype=tdtype,
-                                              device=dev))
+    def _run(self, state, xs, n, parity0, emit_idx=()):
+        dev = state.a.device
+        if dev.type == "cpu":
+            out, self.last_obs = self._plain(state, xs[:n], parity0,
+                                             emit_idx)
+        elif dev.type == "cuda":
+            out = self._launch(state, xs, n, parity0,
+                               self._emit_array(emit_idx, n))
+        else:
+            raise ValueError(f"{self.engine} runner: unsupported device "
+                             f"{dev}")
+        # t continues exactly: the last row's loop t plus one dt,
+        # the C driver's sequential accumulation
+        t_next = self.model.np_dtype(xs[n - 1, 7] + self.host.dt)
+        return out.replace(t=torch.tensor(t_next, dtype=self.dtype,
+                                          device=dev))
 
-        def _launch(self, state, xs, n, parity0, emit_idx):
-            from . import _build
-            c = self.c
-            tensors = dict(
-                a=state.a, b=state.b, a_hs=state.a_hs, b_hs=state.b_hs,
-                hs_edge_a=state.hs_edge_a, hs_edge_b=state.hs_edge_b,
-                av=state.av, a0=c.a0, a0_ghost=c.a0_ghost, phi=c.phi,
-                w_av=c.w_av, w_av_phi=c.w_av_phi)
-            shapes = dict(a=(NHP, MP), b=(NHP, MP), a_hs=(NHP, MP),
-                          b_hs=(NHP, MP), a0=(NHP, MP), a0_ghost=(NHP, MP),
-                          hs_edge_a=(NHP,), hs_edge_b=(NHP,), av=(8,),
-                          phi=(MP,), w_av=(MP,), w_av_phi=(MP,))
-            dev = state.a.device
-            for name, t in tensors.items():
-                if (t.device != dev or t.dtype != tdtype
-                        or tuple(t.shape) != shapes[name]
-                        or not t.is_contiguous()):
-                    raise ValueError(
-                        f"cuda runner: {name} must be a contiguous "
-                        f"{tdtype} {shapes[name]} tensor on {dev}, got "
-                        f"{t.dtype} {tuple(t.shape)} on {t.device}")
-            if not 0 < n <= xs.shape[0]:
-                raise ValueError(f"cuda runner: n_steps={n} outside the "
-                                 f"{xs.shape[0]}-row table")
-            emit = np.ascontiguousarray(emit_idx, np.int32)
-            if emit.size and (np.any(np.diff(emit) <= 0) or emit[0] < 0
-                              or emit[-1] >= n):
-                raise ValueError("cuda runner: emit_idx must ascend "
-                                 "within the chunk")
-            lib = _build.load()
-            fn = (lib.cdll.slb_run_chunk_f32 if D == np.float32
-                  else lib.cdll.slb_run_chunk_f64)
-            with torch.cuda.device(dev):
-                xs_dev = torch.from_numpy(
-                    np.ascontiguousarray(xs[:n], D)).to(dev)
-                obs = torch.zeros((max(1, emit.size), OBS_LANES),
-                                  dtype=tdtype, device=dev)
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                rc = fn(*(t.data_ptr() for t in tensors.values()),
-                        self.params.ctypes.data, xs_dev.data_ptr(),
-                        obs.data_ptr(),
-                        emit.ctypes.data if emit.size else None,
-                        int(emit.size), model.N, model.M, NHP, MP, int(n),
-                        int(parity0), stream)
-            if rc != 0:
-                raise RuntimeError(f"cuda step kernel launch failed: "
-                                   f"cudaError_t {rc}")
-            global launch_count
-            k = LAUNCHES_PER_STEP * n + int(emit.size)
-            self.launches += k
-            launch_count += k
-            self._xs_dev = xs_dev
-            self.last_obs = obs
-            return state.replace(step=state.step + n)
+    def _plain(self, state, xs, parity0, emit_idx):
+        return run_chunk_plain(self.c, state, xs, parity0, emit_idx)
 
-        def __call__(self, state, n_steps):
-            xs = build_xs_table(model, self.host, self.t0, self.step0,
-                                n_steps, av_enabled=av_enabled,
-                                exact=exact_trig)
-            t_last = xs[-1, 7]
-            out = self._run(state, xs, n_steps, self.step0 % 2)
-            self.step0 += n_steps
-            self.t0 = float(D(t_last + D(self.host.dt)))
-            return out
+    def _tensors(self, state):
+        """The kernel's state and constant tensors by name, checked for
+        device, type, shape and contiguity."""
+        NHP, MP = self.model.NHP, self.model.MP
+        c = self.c
+        tensors = dict(
+            a=state.a, b=state.b, a_hs=state.a_hs, b_hs=state.b_hs,
+            hs_edge_a=state.hs_edge_a, hs_edge_b=state.hs_edge_b,
+            av=state.av, a0=c.a0, a0_ghost=c.a0_ghost, phi=c.phi,
+            w_av=c.w_av, w_av_phi=c.w_av_phi)
+        shapes = dict(a=(NHP, MP), b=(NHP, MP), a_hs=(NHP, MP),
+                      b_hs=(NHP, MP), a0=(NHP, MP), a0_ghost=(NHP, MP),
+                      hs_edge_a=(NHP,), hs_edge_b=(NHP,), av=(8,),
+                      phi=(MP,), w_av=(MP,), w_av_phi=(MP,))
+        dev = state.a.device
+        for name, t in tensors.items():
+            if (t.device != dev or t.dtype != self.dtype
+                    or tuple(t.shape) != shapes[name]
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"{self.engine} runner: {name} must be a contiguous "
+                    f"{self.dtype} {shapes[name]} tensor on {dev}, got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        return tensors
 
-        def run_xs(self, state, xs_dict, parity0, emit_idx=()):
-            """Chunk interface for the Simulation driver: xs_dict columns
-            from runtime/schedule.iter_chunks.  emit_idx: in-chunk step
-            indices at which a display-77 emission record is written
-            (fetch via take_obs)."""
-            n = len(xs_dict["t"])
-            xs = pack_xs_dict(xs_dict, D)
-            return self._run(state, xs, n, parity0, emit_idx)
+    def _emit_array(self, emit_idx, n):
+        emit = np.ascontiguousarray(emit_idx, np.int32)
+        if emit.size and (np.any(np.diff(emit) <= 0) or emit[0] < 0
+                          or emit[-1] >= n):
+            raise ValueError(f"{self.engine} runner: emit_idx must ascend "
+                             f"within the chunk")
+        return emit
 
-        def take_obs(self, n_emit):
-            """The last run's first n_emit display-77 records, fetched in
-            ONE transfer, in ops/stencil.emission_record layout
-            [norm_sum, v_dr_sum, v_y_sum, m_x_sum, t, av[0..7]]."""
-            return self.last_obs[:n_emit, :13].cpu().numpy()
+    def _launch(self, state, xs, n, parity0, emit):
+        """Copy the chunk's table to the card (lanes 8-9: emission flag and
+        record slot), enqueue the kernel's launches (_enqueue) and count
+        them."""
+        from . import _build
+        tensors = self._tensors(state)
+        if not 0 < n <= xs.shape[0]:
+            raise ValueError(f"{self.engine} runner: n_steps={n} outside "
+                             f"the {xs.shape[0]}-row table")
+        table = np.array(xs[:n], self.model.np_dtype)
+        table[:, 8] = 0
+        table[emit, 8] = 1
+        table[emit, 9] = np.arange(emit.size)
+        lib = _build.load()
+        dev = state.a.device
+        with torch.cuda.device(dev):
+            xs_dev = torch.from_numpy(table).to(dev)
+            obs = torch.zeros((max(1, emit.size), OBS_LANES),
+                              dtype=self.dtype, device=dev)
+            rc, k = self._enqueue(lib.cdll, tensors, xs_dev, obs, emit, n,
+                                  parity0,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.engine} kernel launch failed: "
+                               f"cudaError_t {rc}")
+        self.launches += k
+        self._add_launches(k)
+        self._xs_dev = xs_dev
+        self.last_obs = obs
+        return state.replace(step=state.step + n)
 
-    return Runner()
+    def _enqueue(self, cdll, tensors, xs_dev, obs, emit, n, parity0,
+                 stream):
+        """One C call enqueuing the chunk: (cudaError_t, launches)."""
+        m = self.model
+        fn = (cdll.slb_run_chunk_f32 if m.np_dtype == np.float32
+              else cdll.slb_run_chunk_f64)
+        rc = fn(*(t.data_ptr() for t in tensors.values()),
+                self.params.ctypes.data, xs_dev.data_ptr(), obs.data_ptr(),
+                emit.ctypes.data if emit.size else None, int(emit.size),
+                m.N, m.M, m.NHP, m.MP, int(n), int(parity0), stream)
+        return rc, LAUNCHES_PER_STEP * n + int(emit.size)
+
+    @staticmethod
+    def _add_launches(k):
+        global launch_count
+        launch_count += k
+
+    def __call__(self, state, n_steps):
+        D = self.model.np_dtype
+        xs = build_xs_table(self.model, self.host, self.t0, self.step0,
+                            n_steps, av_enabled=self.av_enabled,
+                            exact=self.exact_trig)
+        t_last = xs[-1, 7]
+        out = self._run(state, xs, n_steps, self.step0 % 2)
+        self.step0 += n_steps
+        self.t0 = float(D(t_last + D(self.host.dt)))
+        return out
+
+    def run_xs(self, state, xs_dict, parity0, emit_idx=()):
+        """Chunk interface for the Simulation driver: xs_dict columns
+        from runtime/schedule.iter_chunks.  emit_idx: in-chunk step
+        indices at which a display-77 emission record is written
+        (fetch via take_obs)."""
+        n = len(xs_dict["t"])
+        xs = pack_xs_dict(xs_dict, self.model.np_dtype)
+        return self._run(state, xs, n, parity0, emit_idx)
+
+    def take_obs(self, n_emit):
+        """The last run's first n_emit display-77 records, fetched in
+        ONE transfer, in ops/stencil.emission_record layout
+        [norm_sum, v_dr_sum, v_y_sum, m_x_sum, t, av[0..7]]."""
+        return self.last_obs[:n_emit, :13].cpu().numpy()
+
+
+def make_cuda_runner(c: stencil.StencilConsts, model, av_enabled=True,
+                     exact_trig=False) -> Runner:
+    """The B1 Runner (see Runner)."""
+    return Runner(c, model, av_enabled=av_enabled, exact_trig=exact_trig)
 
 
 def build_xs_table(model, c, t0, step0, n_steps, *, av_enabled, exact):

@@ -58,13 +58,15 @@ _POINT_FIELDS = ("E_dc", "E_omega", "omega", "B", "bdt")
 def choose_engine(cfg: SimConfig, device) -> str:
     """'cuda' (the stacked sweep kernel) or 'torch' (the batched engine).
     One point per block has no size bound, so there is no VMEM fallback;
-    impl=cuda on a non-CUDA device raises."""
+    impl=cuda (and impl=stream, which forces the stacked kernel as in the
+    JAX package) on a non-CUDA device raises."""
     device = torch.device(device)
     if cfg.impl == "torch":
         return "torch"
-    if cfg.impl == "cuda":
+    if cfg.impl in ("cuda", "stream"):
         if device.type != "cuda":
-            raise ValueError(f"impl=cuda needs a CUDA device, got {device}")
+            raise ValueError(f"impl={cfg.impl} needs a CUDA device, got "
+                             f"{device}")
         return "cuda"
     if device.type != "cuda" or cfg.dtype != "f32":
         return "torch"

@@ -1,10 +1,14 @@
-"""Where a step's time goes on the card: the kernel path at BASELINE #4
-(N=100, M=4000) under torch.profiler, per CUDA kernel, with the device's
-busy and idle share of the window's wall time.
+"""Where a step's time goes on the card: a single-run kernel engine under
+torch.profiler, per CUDA kernel, with the device's busy and idle share of
+the window's wall time.
 
-    python -m slb2d_tpu_torch.profile_step [n_steps] [f32|f64]
+    python -m slb2d_tpu_torch.profile_step [n_steps] [f32|f64] \\
+        [impl=cuda|stream] [n-harmonics=100] [g-grid=4000]
 
-Needs a CUDA device; it fails without one.
+impl=cuda is the step kernel B1 (three launches per step), impl=stream the
+temporal-tiling kernel B2 (two launches per K steps); the shape defaults
+to BASELINE #4 (N=100, M=4000), with its physics.  Needs a CUDA device; it
+fails without one.
 """
 
 from __future__ import annotations
@@ -12,6 +16,10 @@ from __future__ import annotations
 import subprocess
 import sys
 import time
+
+# the kernels (and copies) whose device time counts as busy
+KERNELS = ("half_step", "av_step", "record_step", "stream_tile",
+           "stream_replay", "Memcpy")
 
 
 def _device_us(evt):
@@ -24,8 +32,13 @@ def _device_us(evt):
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    n_steps = int(argv[0]) if argv else 2000
-    dtype = argv[1] if len(argv) > 1 else "f32"
+    opts = dict(a.split("=", 1) for a in argv if "=" in a)
+    pos = [a for a in argv if "=" not in a]
+    n_steps = int(pos[0]) if pos else 2000
+    dtype = pos[1] if len(pos) > 1 else "f32"
+    impl = opts.get("impl", "cuda")
+    N = int(opts.get("n-harmonics", 100))
+    M = int(opts.get("g-grid", 4000))
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -34,13 +47,13 @@ def main(argv=None):
         return 1
     from .config import SimConfig
     from .models.superlattice import SuperlatticeModel
-    from .ops import stencil, stepper_cuda
+    from .ops import stencil, stepper_cuda, stepper_stream_cuda
     from .runtime import schedule
 
     dev = torch.device("cuda:0")
     cfg = SimConfig(display=4, E_dc=1.0, E_omega=2.0, omega=1.0, mu=1.0,
-                    alpha=0.9495, n_harmonics=100, phi_y_min=-10.0,
-                    phi_y_max=10.0, B=0.1, t_start=10.0, g_grid=4000,
+                    alpha=0.9495, n_harmonics=N, phi_y_min=-10.0,
+                    phi_y_max=10.0, B=0.1, t_start=10.0, g_grid=M,
                     dt=1e-3, dtype=dtype)
     model = SuperlatticeModel(cfg)
     c = stencil.consts_from_model(model, dev)
@@ -48,7 +61,14 @@ def main(argv=None):
         omega=model.omega, dt=model.dt, t0=0.0, t_max=100.0,
         t_start=0.0, E_omega=model.E_omega, display=4, frame_start=0.0,
         T=model.T, dtype=model.np_dtype, chunk_max=n_steps)).xs
-    runner = stepper_cuda.make_cuda_runner(c, model)
+    if impl == "stream":
+        runner = stepper_stream_cuda.make_stream_runner(c, model)
+        g = runner.geom
+        how = (f"stream K={g.K} H={g.H} W={g.W}, {g.n_tiles} tiles, "
+               f"{'shared memory' if g.smem else 'global scratch'}")
+    else:
+        runner = stepper_cuda.make_cuda_runner(c, model)
+        how = "cuda-b1"
     state = stencil.bootstrap_state(c, model)
     runner.run_xs(state, xs, 0)              # build, load, warm up
     torch.cuda.synchronize()
@@ -60,15 +80,14 @@ def main(argv=None):
         wall = time.perf_counter() - t0
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
             if _device_us(e) > 0 and e.count > 0]
-    kernels = [r for r in rows if "half_step" in r[0] or "av_step" in r[0]
-               or "record_step" in r[0] or "Memcpy" in r[0]]
+    kernels = [r for r in rows if any(k in r[0] for k in KERNELS)]
     busy = sum(r[2] for r in kernels) * 1e-6
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[:1]
-    print(f"profile_step: {n_steps} steps BASELINE#4 {dtype}, wall "
-          f"{wall * 1e3:.3f} ms ({wall * 1e6 / n_steps:.2f} us/step), "
+    print(f"profile_step: {n_steps} steps N={N} M={M} {dtype} [{how}], "
+          f"wall {wall * 1e3:.3f} ms ({wall * 1e6 / n_steps:.2f} us/step), "
           f"device busy {busy * 1e3:.3f} ms = {100 * busy / wall:.1f}%, "
           f"idle {100 * (1 - busy / wall):.1f}% [{', '.join(card)}]")
     for key, count, us in sorted(kernels, key=lambda r: -r[2]):

@@ -5,10 +5,15 @@ on one explicit device.  The hot loop runs host-precomputed step
 schedules (runtime/schedule.py) chunk by chunk; the device is
 synchronised only at chunk and round boundaries, never per step.
 
-Ported: display 4 and ``checkpoint=``.  Not yet ported (they raise
-NotImplementedError and are listed in ROADMAP.md queue A item 3, or item
-9 for ``shards``): displays 3/7/8/9/77, the stdin parameter server,
-``resume=``, ``warmup`` and ``exact-time=0`` on ``impl=torch``.
+Ported: displays 4 and 77 (records batched per chunk on every engine)
+and ``checkpoint=``.  Engines: ``impl=torch`` the plain tensor path;
+``impl=stream`` the temporal-tiling kernel (B2, ops/stepper_stream_cuda);
+``impl=cuda`` and ``auto`` B1 (ops/stepper_cuda) or B2 by the crossover
+measured on an H100 (stepper_stream_cuda.stream_beats_b1).  Not yet
+ported (they raise NotImplementedError and are listed in ROADMAP.md queue
+A item 3, or item 9 for ``shards``): displays 3/7/8/9, the stdin
+parameter server, ``resume=``, ``warmup`` and ``exact-time=0`` on
+``impl=torch``.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ from . import schedule
 from .checkpoint import save_state
 
 
-# Schedule chunk for impl=cuda.  Each chunk costs one synchronising host
-# copy of its xs table and a drained launch queue: 0.11-0.17 ms per
-# extra chunk against 15 us per step at BASELINE #4 f32 (H100 80GB HBM3,
-# 700 W; PERF.md §5).  16384 steps keep that under 0.1% and
-# the host table at 16384 x 10 values; a BASELINE #4 run is one chunk.
+# Schedule chunk for the kernel engines.  Each chunk costs one
+# synchronising host copy of its xs table and a drained launch queue:
+# 0.08-0.39 ms per extra chunk against 13-15 us per step at BASELINE #4
+# f32 (H100 80GB HBM3, 700 W; PERF.md §5).  16384 steps keep that under
+# 0.2% and the host table at 16384 x 10 values; a BASELINE #4 run is one
+# chunk, and its display-77 records are one fetch.
 CUDA_CHUNK_DEFAULT = 16384
 
 # impl=torch runs a Python loop per step; the chunk only bounds the xs
@@ -46,7 +52,7 @@ class NumericalInstability(RuntimeError):
 
 def _unported(cfg: SimConfig):
     """The first feature of cfg this package does not run yet, or None."""
-    if cfg.display != 4:
+    if cfg.display not in (4, 77):
         return f"display={cfg.display} (ROADMAP.md queue A item 3)"
     if cfg.read_from == "stdin":
         return "read-from=stdin (ROADMAP.md queue A item 3)"
@@ -87,25 +93,39 @@ class Simulation:
 
     def _build_model(self):
         self.model = SuperlatticeModel(self.cfg)
-        self.impl = self._select_impl()
+        self.engine = self._select_engine()
         self.c = stencil.consts_from_model(self.model, self.device)
         self._runner = None
 
-    def _select_impl(self):
-        impl = "cuda" if self.cfg.impl == "auto" else self.cfg.impl
-        if impl == "cuda":
-            # no fallback: the kernel path runs on a card or not at all
-            if self.device.type != "cuda":
-                raise ValueError(f"impl=cuda needs a CUDA device, got "
-                                 f"{self.device}")
-            if not torch.cuda.is_available():
-                raise RuntimeError("impl=cuda: no CUDA device is available")
-        return impl
+    def _select_engine(self):
+        """'torch', 'cuda-b1' or 'stream'.  impl=stream on device=cpu runs
+        the temporal-tiling kernel's plain version, as the JAX package's
+        impl=stream runs its kernel in interpret mode on the CPU; impl=cuda
+        and auto run on a card or not at all."""
+        impl = self.cfg.impl
+        if impl == "torch":
+            return "torch"
+        if impl == "stream" and self.device.type == "cpu":
+            return "stream"
+        if self.device.type != "cuda":
+            raise ValueError(f"impl={impl} needs a CUDA device, got "
+                             f"{self.device}")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"impl={impl}: no CUDA device is available")
+        from ..ops.stepper_stream_cuda import stream_beats_b1
+        m = self.model
+        if impl == "stream" or stream_beats_b1(m.NHP, m.MP, m.np_dtype):
+            return "stream"
+        return "cuda-b1"
 
-    def _cuda_runner(self):
+    def _kernel_runner(self):
         if self._runner is None:
-            from ..ops.stepper_cuda import make_cuda_runner
-            self._runner = make_cuda_runner(self.c, self.model)
+            if self.engine == "stream":
+                from ..ops.stepper_stream_cuda import make_stream_runner
+                self._runner = make_stream_runner(self.c, self.model)
+            else:
+                from ..ops.stepper_cuda import make_cuda_runner
+                self._runner = make_cuda_runner(self.c, self.model)
         return self._runner
 
     def _compute_t_max(self):
@@ -115,7 +135,8 @@ class Simulation:
     # -- main ----------------------------------------------------------------
 
     def run(self):
-        """One display-4 round; returns the final State."""
+        """One round (display 4: its line at the end; display 77: its
+        lines per chunk); returns the final State."""
         cfg = self.cfg
         if not self.quiet:
             print(f"# t_max = {writers.f20(self.model.np_dtype(self.t_max))}")
@@ -123,9 +144,10 @@ class Simulation:
         steps0 = self.steps_done
 
         self._run_round()
-        av, a2, b2 = self._round_obs
-        writers.write_display4(self.out, self.model, cfg, a2, b2, av,
-                               quiet=self.quiet, t_start=self.t_start)
+        if cfg.display == 4:
+            av, a2, b2 = self._round_obs
+            writers.write_display4(self.out, self.model, cfg, a2, b2, av,
+                                   quiet=self.quiet, t_start=self.t_start)
 
         if not self.quiet:
             wall = time.perf_counter() - wall_t0
@@ -135,7 +157,7 @@ class Simulation:
                 print(f"\n# perf: {steps} steps in {wall:.3f}s = "
                       f"{steps / wall:.1f} steps/s "
                       f"({sites / wall:.3e} site-updates/s) "
-                      f"[impl={self.impl}]")
+                      f"[impl={self.engine}]")
         if cfg.checkpoint:
             save_state(cfg.checkpoint, self.state, model=self.model,
                        t0=self.t_exit, frame_time=self.frame_time,
@@ -154,21 +176,32 @@ class Simulation:
             frame_start=cfg.frame_start, T=model.T,
             dtype=model.np_dtype,
             chunk_max=(cfg.steps_per_chunk
-                       or (CUDA_CHUNK_DEFAULT if self.impl == "cuda"
-                           else TORCH_CHUNK_DEFAULT)),
+                       or (TORCH_CHUNK_DEFAULT if self.engine == "torch"
+                           else CUDA_CHUNK_DEFAULT)),
             frame_time0=self.frame_time,
-            last_tT_reminder0=self.last_rem)
+            last_tT_reminder0=self.last_rem,
+            # display 77: the records of a chunk's emission steps are
+            # written on the device and fetched once per chunk
+            break_on_e77=False)
 
     def _run_round(self):
         carry: dict = {}
         for chunk in schedule.iter_chunks(
                 carry_out=carry, **self._schedule_kwargs()):
-            if self.impl == "cuda":
-                self.state = self._cuda_runner().run_xs(
-                    self.state, chunk.xs, self.steps_done % 2)
+            emit = chunk.emit_idx
+            if self.engine != "torch":
+                runner = self._kernel_runner()
+                self.state = runner.run_xs(self.state, chunk.xs,
+                                           self.steps_done % 2,
+                                           emit_idx=emit)
+                records = runner.take_obs(len(emit)) if emit else ()
             else:
-                self.state, _ = stencil.run_chunk(
-                    self.c, self.state, chunk.xs, collect_obs=False)
+                self.state, ys = stencil.run_chunk(
+                    self.c, self.state, chunk.xs, collect_obs=bool(emit))
+                records = ys[list(emit)].cpu().numpy() if emit else ()
+            for rec in records:
+                writers.write_display77_from_record(
+                    self.out, self.model, rec, quiet=self.quiet)
             self.steps_done += chunk.n_steps
             self._progress(chunk)
         self.frame_time = carry.get("frame_time", self.frame_time)
@@ -178,10 +211,13 @@ class Simulation:
         self._check_finite(*self._round_obs[:2])
 
     def _fetch_round_obs(self):
-        """ONE packed device->host transfer per round end: av plus harmonic
-        rows 0/1 of a and b — everything the round-end NaN guard and the
-        display-4 observable line read."""
+        """ONE packed device->host transfer per round end: av plus (for
+        display 4) harmonic rows 0/1 of a and b — everything the round-end
+        NaN guard and the display-4 observable line read."""
         st = self.state
+        if self.cfg.display != 4:
+            packed = torch.cat([st.av, st.a[0, :8]]).cpu().numpy()
+            return packed[:8], packed[8:16].reshape(1, 8), None
         MP = self.model.MP
         packed = torch.cat([st.av, st.a[:2].reshape(-1),
                             st.b[:2].reshape(-1)]).cpu().numpy()

@@ -111,3 +111,45 @@ def test_omega_runner_validates_before_launch(card):
     with pytest.raises(ValueError, match="both a and b"):
         runner.advance(out, 4, cap=frames)
     assert runner.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("grid", [(8, 64), (18, 300)])
+def test_stream_kernel_matches_plain(card, dtype, grid):
+    """The temporal-tiling kernel against its plain version, K+3 steps
+    then 5 from parity 1 with display-77 records, as chip_smoke.py's
+    stream-kernel phase checks it (state and edges bit for bit; av and
+    records at f64 rtol 1e-12, f32 rtol 1e-4 atol 1e-7)."""
+    import chip_smoke
+    chip_smoke.check_stream_vs_plain(
+        dict(n_harmonics=grid[0], g_grid=grid[1]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_stream_kernel_matches_step_kernel(card, dtype):
+    """B2 and B1 from one state over 203 steps: state and edges bit for
+    bit, av and records at the sums' order tolerance."""
+    import chip_smoke
+    chip_smoke.check_stream_vs_b1(dict(n_harmonics=8, g_grid=300), dtype)
+
+
+@pytest.mark.cuda
+def test_stream_runner_validates_before_launch(card):
+    from slb2d_tpu_torch.ops import stencil
+    import chip_smoke
+    model, c, xs, runner = chip_smoke._stream_runner(chip_smoke.SMALL,
+                                                     "f32")
+    state = stencil.bootstrap_state(c, model)
+    bad = state.replace(b=state.b.t().contiguous().t())   # strided view
+    with pytest.raises(ValueError, match="contiguous"):
+        runner(bad, 4)
+    with pytest.raises(ValueError, match="emit_idx"):
+        runner.run_xs(state, xs, 0, emit_idx=(5, 2))
+    assert runner.launches == 0
+    out = runner(state, 11)
+    torch.cuda.synchronize()
+    assert runner.launches == 2 * -(-11 // runner.geom.K)
+    assert int(out.step) == 11
+    assert out.a.data_ptr() == state.a.data_ptr()   # updated in place

@@ -107,6 +107,59 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
         tckpt.load_state(path, wrong)
 
 
+def test_display77_matches_jax_simulation_f64(tmp_path, monkeypatch):
+    """Display 77 on impl=torch: the batched records (one fetch per
+    chunk) against the JAX driver's lines, rtol 1e-12, t bit for bit."""
+    kw = dict(TINY, display=77, t_start=0.2)
+    port = run_port(tmp_path, monkeypatch, dtype="f64", **kw)
+    JSimulation(JConfig(out_file="jax.txt", **{**COMMON, **kw},
+                        dtype="f64")).run()
+    ref = (tmp_path / "jax.txt").read_text()
+    pl, rl = d4_values(port), d4_values(ref)
+    assert len(pl) == len(rl) > 50 and pl[0].shape == (15,)
+    for p, r in zip(pl, rl):
+        assert p[13] == r[13]
+        np.testing.assert_allclose(p, r, rtol=1e-12, atol=1e-15)
+    assert headers(port) == headers(ref)
+
+
+@pytest.mark.parametrize("dtype,grid,engine", [
+    ("f32", (100, 4000), "stream"),      # BASELINE #4
+    ("f32", (100, 12000), "stream"),
+    ("f32", (400, 4000), "cuda-b1"),
+    ("f64", (100, 12000), "cuda-b1"),
+    ("f32", (8, 24), "cuda-b1"),
+])
+def test_engine_routing(monkeypatch, dtype, grid, engine):
+    """impl=cuda and auto take B2 where stream_beats_b1 says the card ran
+    it faster (PERF.md §6), B1 elsewhere; impl=stream forces B2, also on
+    device=cpu (its plain version); impl=torch stays the tensor path.
+    Checked without building a model's device constants."""
+    from slb2d_tpu_torch.ops.stepper_stream_cuda import stream_beats_b1
+    N, M = grid
+    cfg = SimConfig(**{**COMMON, **TINY, "n_harmonics": N, "g_grid": M},
+                    dtype=dtype)
+
+    def engine_of(impl, device):
+        sim = Simulation.__new__(Simulation)
+        sim.cfg = cfg.replace(impl=impl)
+        sim.device = torch.device(device)
+        sim.model = SuperlatticeModel(sim.cfg)
+        return sim._select_engine()
+
+    m = SuperlatticeModel(cfg)
+    assert stream_beats_b1(m.NHP, m.MP, m.np_dtype) == (engine == "stream")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for impl in ("cuda", "auto"):
+        assert engine_of(impl, "cuda:0") == engine
+        with pytest.raises(ValueError, match="needs a CUDA device"):
+            engine_of(impl, "cpu")
+    assert engine_of("stream", "cuda:0") == "stream"
+    assert engine_of("stream", "cpu") == "stream"
+    assert engine_of("torch", "cuda:0") == engine_of("torch", "cpu") == \
+        "torch"
+
+
 def test_impl_cuda_without_cuda_raises(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = SimConfig(**{**COMMON, **TINY}, impl="cuda")
@@ -125,7 +178,7 @@ def test_impl_cuda_without_cuda_raises(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(display=77), "display=77"),
+    (dict(display=7), "display=7"),
     (dict(display=3), "display=3"),
     (dict(read_from="stdin"), "read-from=stdin"),
     (dict(resume="x.npz"), "resume="),

@@ -179,11 +179,15 @@ def test_parse_cmd_parity(argv):
 
 
 @pytest.mark.parametrize("jax_impl,port_impl", [
-    ("xla", "torch"), ("pallas", "cuda"), ("stream", "cuda")])
+    ("xla", "torch"), ("pallas", "cuda"), ("stream", "stream")])
 def test_parse_cmd_names_counterpart_engine(jax_impl, port_impl):
     tc, terr = _parse(tcfg, REQ + [f"impl={jax_impl}"])
-    assert tc is None and terr[0] == 1
-    assert f"impl={port_impl}" in terr[1]
+    if jax_impl == port_impl:        # the temporal-tiling engine: both
+        assert terr is None and tc.impl == jax_impl
+        assert _parse(jcfg, REQ + [f"impl={jax_impl}"])[1] is None
+    else:
+        assert tc is None and terr[0] == 1
+        assert f"impl={port_impl}" in terr[1]
     tc, terr = _parse(tcfg, REQ + [f"impl={port_impl}"])
     assert terr is None and tc.impl == port_impl
     assert _parse(tcfg, REQ + ["impl=auto"])[0].impl == "auto"

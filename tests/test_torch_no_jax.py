@@ -21,6 +21,7 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert "slb2d_tpu_torch.ops.stepper_cuda" in mods
+    assert "slb2d_tpu_torch.ops.stepper_stream_cuda" in mods
     assert "slb2d_tpu_torch.runtime.loop" in mods
     for m in ("slb2d_tpu_torch.parallel.sweep",
               "slb2d_tpu_torch.ops.sweep_stack_cuda",
