@@ -69,7 +69,27 @@ Phases, one output line each (plus a few measurement lines):
               against B1) and display 77 with impl=stream; display 77
               against display 4 at BASELINE #4 on B1;
  15. stream routing: B1 and B2 per step at the three shapes, the
-              measurement behind impl=cuda's and auto's engine choice.
+              measurement behind impl=cuda's and auto's engine choice;
+ 16. lanes kernel: the lane-packed sweep kernel (B4) against its plain
+              version, its steps split across launches at step 151, on
+              tests/test_sweep_pallas.py's 3-point grid (a dc-only point)
+              and the ragged omega grid, both run to their ends (every
+              window edge and capture), and on the 64-point E_dc sweep for
+              300 steps with max_points=16 and in one chunk of 64; its
+              time per step over the whole sweep beside the plain
+              version's;
+ 17. lanes main: `python -m slb2d_tpu_torch.bench sweep lanes` as a
+              subprocess (its JSON line, device line and B4 launch
+              count), then the bench function in this process: every
+              point's av count against the schedule, the observables
+              against the stacked sweep kernel B3's on the same sweep, and
+              B4's wall and time per step beside B3's;
+ 18. bench modes: every other mode of the bench once (auto, driver cuda
+              exact 4 and driver stream exact 77 as subprocesses, driver
+              torch fast 4 at a small shape, cuda, stream, f64, torch 400
+              20, sweep torch, sweep stack, sweep stack omega; the plain
+              engines' modes at a cut depth), each one parseable line with
+              a finite value, and movie refused with exit 1.
 The last lines are the operation counts and bounds of the main paths, a
 JSON record of the kernels (ms, plain_ms and bound_ms per step; bound_ms
 is the larger of the main path's operations at F32_OPS_PEAK and its
@@ -122,6 +142,8 @@ SWEEP_SOURCE = "slb2d_tpu_torch/csrc/sweep_stack.cu"
 SWEEP_REPLACES = "slb2d_tpu/ops/sweep_stack.py:101"
 STREAM_SOURCE = "slb2d_tpu_torch/csrc/stepper_stream.cu"
 STREAM_REPLACES = "slb2d_tpu/ops/stepper_stream.py:85"
+LANES_SOURCE = "slb2d_tpu_torch/csrc/sweep_lanes.cu"
+LANES_REPLACES = "slb2d_tpu/ops/sweep_pallas.py:50"
 
 # the stream engine's shapes (docs/PERF.md "HBM-streaming engine"): the
 # wide grid N=100 M=12000 (NHP=104, MP=12032) and the tall-thin N=400
@@ -164,6 +186,15 @@ PAPER_ARGV = ["E_dc=0.0", "E_omega=1.5", "omega=1.0", "mu=1.0",
               "impl=cuda", "quiet=1", "sweep:E_dc=0,3,16",
               "sweep:omega=6,14,16"]
 PAPER_POINTS = 256
+# tests/test_sweep_pallas.py's grid: 3 points (E_dc swept, point 2
+# dc-only) at N=6 M=29, omega=20, t-max=0.02 (335 steps)
+LANES3 = dict(E_dc=1.0, E_omega=2.0, omega=20.0, mu=1.0, alpha=0.9495,
+              n_harmonics=6, phi_y_min=-5.0, phi_y_max=5.0, B=0.1,
+              t_start=0.02, g_grid=29, dt=1e-3)
+LANES3_PARAMS = {"E_dc": [0.5, 1.25, 2.0], "E_omega": [2.0, 2.0, 0.0]}
+# the bench's sweep lanes mode: chunks of max_points=16 (the JAX runner's
+# default) points
+LANES_MAX_POINTS = 16
 # bench.py:177-182's omega sweep: omega = linspace(0.8, 1.2, 64) at the
 # 64-point E_dc sweep's config (t-max=0.1, one period, ~7,950 steps)
 OMEGA64_ARGV = SWEEP_ARGV[:-1] + ["sweep:omega=0.8,1.2,64"]
@@ -446,6 +477,8 @@ def sweep_grid(shape):
         E, W = np.meshgrid(e_dc, np.linspace(6.0, 14.0, 16), indexing="ij")
         return ({**MAP, "t_start": 0.05 if shape == "omega16x4" else 5.0},
                 {"E_dc": E.ravel(), "omega": W.ravel()})
+    if shape == "lanes3":
+        return LANES3, {k: np.asarray(v) for k, v in LANES3_PARAMS.items()}
     if shape == "omega64":
         return ({**PHYS, **SWEEP_FULL},
                 {"omega": np.linspace(0.8, 1.2, SWEEP_POINTS)})
@@ -998,12 +1031,12 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(half_step|av_step|record_step|sweep_chunk|"
-                          r"stream_tile|stream_replay)"
-                          r"I([fd])(?:Lb([01]))?", m.group(1))
-            name = (f"{k.group(1)}<{k.group(2)}"
-                    f"{',' + k.group(3) if k.group(3) else ''}>"
-                    if k else m.group(1))
+            k = re.search(r"(lanes_half_step|half_step|av_step|record_step|"
+                          r"sweep_chunk|stream_tile|stream_replay)"
+                          r"I([fd])?(?:Lb([01]))?", m.group(1))
+            args = [a for a in (k.group(2), k.group(3)) if a] if k else []
+            name = (f"{k.group(1)}<{','.join(args)}>" if k
+                    else m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name and m.group(1) != "0":
@@ -1350,6 +1383,220 @@ def stream_routing_phase(card):
     return res
 
 
+def _lanes_runner(shape, max_points=LANES_MAX_POINTS):
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    sweep, _ = _sweep_setup(shape, "f32", impl="torch")
+    return sweep, slc.make_sweep_lanes_runner(sweep, max_points=max_points)
+
+
+def check_lanes_vs_plain(shape, max_points=LANES_MAX_POINTS, n_steps=None,
+                         split=151):
+    """Run the lane-packed kernel and its plain version from each chunk's
+    bootstrap over the same steps, split across calls at step `split`
+    (odd: the second call starts at parity 1 and its loop t continues);
+    n_steps=None runs to the sweep's end.  State, per-lane av and capture
+    rows and the host segment sums bit for bit where they are, else at
+    TOL.  Returns (largest abs difference, whether everything was bit for
+    bit)."""
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    sweep, runner = _lanes_runner(shape, max_points)
+    n = n_steps or sweep.n_steps
+    tol = TOL["f32"]
+    what = f"lanes {shape} B={sweep.B} max_points={max_points} {n} steps"
+    err, bitwise = 0.0, True
+    sums = []
+    for k, pack in enumerate(runner.packs):
+        launches0 = runner.launches
+        kern = runner.advance(k, runner.start(k), split)
+        kern = runner.advance(k, kern, n - split, step0=split)
+        plain = slc.run_lanes_plain(pack, runner.start(k), split)
+        plain = slc.run_lanes_plain(pack, plain, n - split, split,
+                                    runner.loop_t(split))
+        torch.cuda.synchronize()
+        check(runner.launches - launches0 == slc.LAUNCHES_PER_STEP * n,
+              f"{what}: {runner.launches - launches0} launches")
+        for f in ("a", "b", "a_hs", "b_hs", "av", "cap"):
+            x, y = getattr(kern, f), getattr(plain, f)
+            if not torch.equal(x, y):
+                bitwise = False
+                err = max(err, allclose(x, y, what=f"{what} chunk {k} {f}",
+                                        **tol))
+        (kav, kcap, _), (pav, pcap, _) = (slc.finish_chunk(pack, kern),
+                                          slc.finish_chunk(pack, plain))
+        for x, y, f in ((kav, pav, "av sums"), (kcap, pcap, "cap sums")):
+            if not np.array_equal(x, y):
+                bitwise = False
+                err = max(err, allclose(torch.from_numpy(x),
+                                        torch.from_numpy(y),
+                                        what=f"{what} {f}", **tol))
+        sums.append((kav, kcap))
+    av = np.concatenate([a for a, _ in sums])
+    cap = np.concatenate([c for _, c in sums], axis=1)
+    egate = np.array([float(m.E_omega) > 0 for m in sweep.models])
+    check(bool(np.all(av[~egate] == 0)) and bool(np.all(av[egate, 0] > 0)),
+          f"{what}: the dc-only points averaged or a point never did")
+    if n == sweep.n_steps:
+        # run to the end: the schedule's counts and every capture fired
+        check(np.array_equal(av[:, 0], expected_av_counts(sweep)),
+              f"{what}: av counts differ from the schedule")
+        check(bool(np.all(cap[3] != 0)), f"{what}: a capture never fired")
+    return err, bitwise
+
+
+def lanes_kernel_ms(max_points=LANES_MAX_POINTS, n_plain=20):
+    """ms per step of the lane-packed kernel over the whole 64-point
+    sweep (CUDA events; every chunk from its bootstrap, one C call per
+    chunk, as the bench runs them) and of its plain version (host clock,
+    n_plain steps of every chunk)."""
+    import torch
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    sweep, runner = _lanes_runner("full", max_points)
+    n = sweep.n_steps
+    chunks = range(len(runner.packs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in chunks:
+        slc.run_lanes_plain(runner.packs[k], runner.start(k), n_plain)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+    k_ms = time_per_step(lambda: [runner.advance(k, runner.start(k), n)
+                                  for k in chunks], n)
+    return k_ms, p_ms, sweep
+
+
+def _bench_line(argv):
+    """`python -m slb2d_tpu_torch.bench argv` as a subprocess: its one
+    JSON line, checked for a finite value."""
+    proc = subprocess.run([sys.executable, "-m", "slb2d_tpu_torch.bench",
+                           *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"bench {' '.join(argv)}: rc {proc.returncode}, stdout "
+          f"{proc.stdout[-500:]!r}, stderr {proc.stderr[-1500:]}")
+    line = json.loads(lines[0])
+    check(isinstance(line.get("value"), float)
+          and line["value"] == line["value"] and line["value"] > 0,
+          f"bench {' '.join(argv)}: value {line.get('value')}")
+    return line
+
+
+def lanes_main_phase(card):
+    """The bench's sweep lanes mode as a user runs it, then its bench
+    function in this process against B3 on the same sweep.  Returns (B4
+    launches of the bench run, its wall, steps, the sweep)."""
+    import numpy as np
+    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    line = _bench_line(["sweep", "lanes"])
+    check(line["device"] == card and "B4" in line["metric"],
+          f"bench sweep lanes line {line}")
+    sweep = bench.make_sweep(device=DEVICE)
+    chunks = -(-sweep.B // LANES_MAX_POINTS)
+    per_call = slc.LAUNCHES_PER_STEP * sweep.n_steps * chunks
+    want = dict.fromkeys(("B1", "B2", "B3", "B3 per-omega"), 0)
+    want["B4"] = 2 * per_call                 # the warm and the timed call
+    check(line["launches"] == want,
+          f"bench sweep lanes launches {line['launches']}, expected {want}")
+    print(f"lanes main: python -m slb2d_tpu_torch.bench sweep lanes: "
+          f"{line['value']:.4e} site-updates/s, wall {line['wall_s']:.4f} "
+          f"s for {line['steps']} steps, B4 launches {want['B4']} "
+          f"[{line['device']}]", flush=True)
+
+    zero_counts()
+    ups, wall, steps, (sweep, (av, cap, _)) = bench.bench_sweep(
+        "lanes", device=DEVICE)
+    got = bench.launch_counts()
+    check(got["B4"] == 2 * per_call and sum(got.values()) == got["B4"],
+          f"bench_sweep lanes launches {got}")
+    want_counts = expected_av_counts(sweep)
+    check(np.array_equal(av[:, 0], want_counts),
+          f"B4 av counts differ from the schedule at "
+          f"{np.flatnonzero(av[:, 0] != want_counts)[:8].tolist()}")
+    res = slc.observables(sweep, av, cap)
+    b3 = bench.make_sweep(device=DEVICE)
+    check(b3.engine == "cuda", f"the B3 reference ran on {b3.engine}")
+    ref = b3.run()
+    check(np.array_equal(res["av_count"], ref["av_count"]),
+          "B4 and B3 av counts differ")
+    worst = 0.0
+    for k in OBS:
+        g, r = np.asarray(res[k], float), np.asarray(ref[k], float)
+        e = np.abs(g - r)
+        check(bool(np.all(e <= 2e-5 + 2e-4 * np.abs(r))),
+              f"B4 vs B3 {k}: outside 2e-4 rel / 2e-5 abs, max abs err "
+              f"{e.max():.3e}")
+        worst = max(worst, float(e.max()))
+    _, s_wall, s_steps, _ = bench.bench_sweep("stack", K=sweep.n_steps,
+                                              device=DEVICE)
+    print(f"lanes main: bench_sweep lanes in process: {steps} steps, wall "
+          f"{wall:.4f} s = {wall / steps * 1e3:.5f} ms/step "
+          f"({ups:.4e} site-updates/s); av_count = schedule for all "
+          f"{sweep.B} points; vs B3 on the same sweep: av_count exact, max "
+          f"abs err {worst:.3e} (2e-4 rel / 2e-5 abs); B3 (SweepStackRunner, "
+          f"{s_steps} steps) wall {s_wall:.4f} s = "
+          f"{s_wall / s_steps * 1e3:.5f} ms/step [{card}]", flush=True)
+    return line["launches"]["B4"], line["wall_s"], line["steps"], sweep
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0 (bench.launch_counts reads
+    them)."""
+    from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda,
+                                     sweep_lanes_cuda, sweep_stack_cuda)
+    for mod in (stepper_cuda, stepper_stream_cuda, sweep_lanes_cuda,
+                sweep_stack_cuda):
+        mod.launch_count = 0
+    sweep_stack_cuda.omega_launch_count = 0
+
+
+def bench_modes_phase(card):
+    """Every other bench mode once: one parseable line with a finite
+    value each (subprocesses for the two kernel driver modes; in this
+    process the rest, the plain engines' modes at a cut depth), and movie
+    refused."""
+    import contextlib
+    import io
+    import math
+    from slb2d_tpu_torch import bench
+    out = []
+    for argv in (["driver", "cuda", "exact", "4"],
+                 ["driver", "stream", "exact", "77"]):
+        line = _bench_line(argv)
+        check(line["device"] == card, f"bench {argv}: device {line}")
+        out.append(line)
+    for argv, depth in (
+            (["auto"], {}),
+            (["driver", "torch", "fast", "4"],
+             dict(N=8, M=64, omega=10.0, t_start=0.01, reps=2)),
+            (["cuda"], {}), (["stream"], {}), (["f64"], {}),
+            (["torch", "400", "20"], dict(chunk=100, reps=2)),
+            (["sweep", "torch"], dict(K=100, reps=2)),
+            (["sweep", "stack"], {}), (["sweep", "stack", "omega"], {})):
+        rec = bench.run_mode(argv, DEVICE, **depth)
+        line = json.loads(json.dumps({**rec, "device": card}))
+        check(math.isfinite(line["value"]) and line["value"] > 0,
+              f"bench {argv}: value {line['value']}")
+        out.append(line)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = bench.main(["movie"])
+    lines = buf.getvalue().strip().splitlines()
+    movie = json.loads(lines[-1]) if lines else {}
+    check(rc == 1 and len(lines) == 1 and movie.get("value") is None
+          and "ROADMAP" in movie.get("error", ""),
+          f"bench movie: rc {rc}, {lines}")
+    for line in out:
+        print(f"bench: {line['metric']}: {line['value']:.4e} "
+              f"{line['unit']}, wall {line['wall_s']:.4f} s for "
+              f"{line['steps']} steps [{card}]", flush=True)
+    print(f"bench: movie refused (exit 1): {movie['error']}", flush=True)
+    return out
+
+
 
 def main():
     try:
@@ -1517,6 +1764,28 @@ def main():
     stream_runs = stream_main_phase(card)
     routing = stream_routing_phase(card)
 
+    # 16. the lane-packed kernel against its plain version, and its times
+    lanes_err = {}
+    for shape, mp, n in (("lanes3", LANES_MAX_POINTS, None),
+                         ("omega_ragged", LANES_MAX_POINTS, None),
+                         ("full", LANES_MAX_POINTS, 300),
+                         ("full", SWEEP_POINTS, 300)):
+        lanes_err[shape, mp] = check_lanes_vs_plain(shape, mp, n)
+    b4_ms, b4_plain_ms, _ = lanes_kernel_ms()
+    b4_one_ms, _, _ = lanes_kernel_ms(SWEEP_POINTS, n_plain=5)
+    print("lanes kernel: vs plain, split at step 151: " + ", ".join(
+        f"{s} max_points={mp} "
+        + ("bit for bit" if b else f"max abs err {e:.3e}")
+        for (s, mp), (e, b) in lanes_err.items()) + " ok; whole "
+        f"{SWEEP_POINTS}-point sweep f32 (CUDA events): kernel {b4_ms:.5f} "
+        f"ms/step at max_points={LANES_MAX_POINTS}, {b4_one_ms:.5f} in one "
+        f"chunk of {SWEEP_POINTS}; plain version {b4_plain_ms:.5f} ms/step "
+        f"[{card}]", flush=True)
+
+    # 17. the bench's sweep lanes mode; 18. every other bench mode
+    b4_launches, b4_wall, b4_steps, lanes_sweep = lanes_main_phase(card)
+    bench_modes_phase(card)
+
     # the bounds of each main path's run (B1: the tall grid, where impl=cuda
     # takes it; B2: the wide grid's impl=stream run, the same work as B1
     # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
@@ -1542,6 +1811,13 @@ def main():
                                av_steps=window_steps(wide, 10.0, wide_steps))
     b2_bound, b2_by = bound_ms(wide, wide_steps, b2_flops)
     b2_ms = routing["N=100 M=12000"][1]
+    # B4: the same function as B3 shared-omega on the same sweep; its
+    # per-lane accumulators are its design's overhead
+    b4_flops = main_path_flops(
+        lanes_sweep.base, b4_steps, points=lanes_sweep.B,
+        av_steps=int(expected_av_counts(lanes_sweep).sum()))
+    b4_bound, b4_by = bound_ms(lanes_sweep.base, b4_steps, b4_flops,
+                               points=lanes_sweep.B)
     print(f"bounds: operations per step B1 {b1_flops / tall_steps:.6e}, B3 "
           f"shared {b3_flops / sweep_steps:.6e}, B3 per-omega "
           f"{om_flops / omega_steps:.6e}, B2 {b2_flops / wide_steps:.6e} "
@@ -1551,7 +1827,9 @@ def main():
           f"{om_bound * 1e3:.4f} us ({om_by}), B2 {b2_bound * 1e3:.4f} us "
           f"({b2_by}) per step; share of the "
           f"bound B1 {b1_bound / b1_ms:.4f}, B3 shared {b3_bound / sk_ms:.4f},"
-          f" B3 per-omega {om_bound / pk_ms:.4f}, B2 {b2_bound / b2_ms:.4f}",
+          f" B3 per-omega {om_bound / pk_ms:.4f}, B2 {b2_bound / b2_ms:.4f};"
+          f" B4 {b4_flops / b4_steps:.6e} operations, bound "
+          f"{b4_bound * 1e3:.4f} us ({b4_by}), share {b4_bound / b4_ms:.4f}",
           flush=True)
     print(json.dumps({"kernels": [{
         "name": "slb_run_chunk (half_step<MAIN>, half_step<HALF>, av_step)",
@@ -1578,7 +1856,14 @@ def main():
         "replaces": STREAM_REPLACES, "launches": b2_launches,
         "max_abs_err": stream_err["N=100 M=12000", "f32"],
         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
-        "bound_by": b2_by, "library_ms": None}]}), flush=True)
+        "bound_by": b2_by, "library_ms": None}, {
+        "name": "slb_lanes_chunk (lanes_half_step<true>, "
+                "lanes_half_step<false>)",
+        "route": "cuda", "source": LANES_SOURCE, "replaces": LANES_REPLACES,
+        "launches": b4_launches,
+        "max_abs_err": lanes_err["full", LANES_MAX_POINTS][0],
+        "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound,
+        "bound_by": b4_by, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

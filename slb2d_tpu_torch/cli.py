@@ -1,7 +1,8 @@
 """Command-line entry point: `slb2d-torch key=value ...` or
 `python -m slb2d_tpu_torch.cli key=value ...` — the reference CLI surface
 (reference: src/boltzmann_cli.c, README.md:30-66) plus the extensions
-impl= (auto|torch|cuda|stream), dtype=, steps-per-chunk= and checkpoint=.
+impl= (auto|torch|cuda|stream), dtype=, steps-per-chunk=, checkpoint=,
+exact-time= and warmup=.
 The run uses CUDA device `device=` (default 0) for every impl; only
 device=cpu runs it on the CPU.  Without a CUDA device and without
 device=cpu it prints an error and returns 1.  Unless quiet, the closing
@@ -29,7 +30,10 @@ def main(argv=None):
 
     from .runtime.loop import Simulation
 
-    Simulation(cfg, device=device).run()
+    sim = Simulation(cfg, device=device)
+    if cfg.warmup:
+        sim.warmup()
+    sim.run()
     return 0
 
 

@@ -21,7 +21,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", f)
                 for f in ("stepper.cu", "sweep_stack.cu",
-                          "stepper_stream.cu"))
+                          "stepper_stream.cu", "sweep_lanes.cu"))
 HEADERS = (os.path.join(_PKG, "csrc", "half_step.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "slb2d_tpu_torch")
 # -fmad=false: no multiply-add contraction, so the kernel rounds as the
@@ -43,7 +43,12 @@ _ENTRY_ARGS = {
                               + [ctypes.c_void_p]),
     "slb_stream_chunk": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
                          + [ctypes.c_void_p]),
+    "slb_lanes_chunk": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p]),
 }
+# the float and double symbols of each entry; the lane-packed sweep kernel
+# is float-only, as the JAX kernel it replaces
+_ENTRY_TYPES = {"slb_lanes_chunk": ("_f32",)}
 
 
 class BuildError(RuntimeError):
@@ -102,7 +107,7 @@ def load() -> _Lib:
         seconds = time.perf_counter() - t0
     cdll = ctypes.CDLL(path)
     for entry, argtypes in _ENTRY_ARGS.items():
-        for suffix in ("_f32", "_f64"):
+        for suffix in _ENTRY_TYPES.get(entry, ("_f32", "_f64")):
             fn = getattr(cdll, entry + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

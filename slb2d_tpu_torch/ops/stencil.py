@@ -335,21 +335,38 @@ def capture_sums(state: State, w_d4, w_d4_phi, w_norm):
         torch.sum(state.a[..., 0, :] * w_norm, dim=-1)], dim=-1)
 
 
+def fast_step(c: StencilConsts, state: State, av_enabled: bool) -> State:
+    """One full step with the trig evaluated on the device from the
+    carried t (exact-time=0; the JAX package's make_step_fn with
+    exact_trig=False): where av_enabled (the display policy), av is gated
+    by E_omega > 0 (src/boltzmann_c_solver.c:188) and the window
+    [t_start, t_end) on the device, with no host read."""
+    do_av = ((c.E_omega > 0) & (state.t >= c.t_start) & (state.t < c.t_end)
+             if av_enabled else False)
+    return full_step(c, state, device_trig(c, state.t), do_av)
+
+
 XS_TRIG = ("cos_t", "cos_t_dt", "cos_hs", "cos_hs_dt", "cos_av", "sin_av")
 
 
 def run_chunk(c: StencilConsts, state: State, xs: dict, *,
-              collect_obs: bool):
+              collect_obs: bool, exact_trig: bool = True,
+              av_enabled: bool = True):
     """Advance len(xs["t"]) full steps over host schedule columns (from
     runtime/schedule.iter_chunks): the counterpart of the JAX package's
-    make_step_fn + lax.scan.  Returns (state, ys) where ys stacks one
-    emission_record per step when collect_obs, else None."""
+    make_step_fn + lax.scan.  exact_trig=False takes each step's trig and
+    av gate from fast_step (av_enabled: the display policy) instead of
+    the columns.  Returns (state, ys) where ys stacks one emission_record
+    per step when collect_obs, else None."""
     cols = [np.asarray(xs[k]) for k in XS_TRIG]
     do_av = np.asarray(xs["do_av"])
     records = []
     for i in range(len(xs["t"])):
-        trig = tuple(float(col[i]) for col in cols)
-        new = full_step(c, state, trig, bool(do_av[i]))
+        if exact_trig:
+            trig = tuple(float(col[i]) for col in cols)
+            new = full_step(c, state, trig, bool(do_av[i]))
+        else:
+            new = fast_step(c, state, av_enabled)
         if collect_obs:
             records.append(emission_record(c, state, new))
         state = new

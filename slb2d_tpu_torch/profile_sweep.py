@@ -1,8 +1,10 @@
 """Where a sweep's time goes on the card: the 64-point E_dc sweep of
 bench.py's sweep bench (N=40, M=500, f32, one drive period per point) on
 the sweep kernel, stage by stage, with the device's busy and idle share
-of the run under torch.profiler, and the kernel's time per step as the
-point count grows.
+of the run under torch.profiler, the kernel's time per step as the point
+count grows, and the lane-packed sweep kernel's whole run (the bench's
+`sweep lanes`) under the profiler in chunks of 16 points and in one chunk
+of 64.
 
     python -m slb2d_tpu_torch.profile_sweep [points ...]
 
@@ -103,6 +105,29 @@ def main(argv=None):
         sites = 2 * (sw.base.N + 1) * (sw.base.M + 1) * b
         print(f"  {b:4d} points: {ms * 1e3:8.2f} us/step, "
               f"{sites / (ms * 1e-3):.4e} site-updates/s")
+
+    # the lane-packed kernel's whole sweep (runner(), host sums included)
+    from .ops.sweep_lanes_cuda import make_sweep_lanes_runner
+    for max_points in (16, 64):
+        runner = make_sweep_lanes_runner(sweep, max_points=max_points)
+        runner()                                   # build, warm up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, _device_us(e))
+                for e in prof.key_averages()
+                if _device_us(e) > 0 and e.count > 0]
+        busy = sum(r[2] for r in rows) * 1e-6
+        print(f"  lanes max_points={max_points} ({len(runner.packs)} "
+              f"chunk(s)), runner(): wall {wall * 1e3:.3f} ms "
+              f"({wall / sweep.n_steps * 1e6:.2f} us/step), device busy "
+              f"{busy * 1e3:.3f} ms = {100 * busy / wall:.1f}%, idle "
+              f"{100 * (1 - busy / wall):.1f}%")
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:4]:
+            print(f"    {key[:58]:58s} x{count:6d} {us / 1e3:9.3f} ms "
+                  f"({us / count:.2f} us each)")
     return 0
 
 

@@ -5,15 +5,17 @@ on one explicit device.  The hot loop runs host-precomputed step
 schedules (runtime/schedule.py) chunk by chunk; the device is
 synchronised only at chunk and round boundaries, never per step.
 
-Ported: displays 4 and 77 (records batched per chunk on every engine)
-and ``checkpoint=``.  Engines: ``impl=torch`` the plain tensor path;
-``impl=stream`` the temporal-tiling kernel (B2, ops/stepper_stream_cuda);
-``impl=cuda`` and ``auto`` B1 (ops/stepper_cuda) or B2 by the crossover
-measured on an H100 (stepper_stream_cuda.stream_beats_b1).  Not yet
-ported (they raise NotImplementedError and are listed in ROADMAP.md queue
-A item 3, or item 9 for ``shards``): displays 3/7/8/9, the stdin
-parameter server, ``resume=``, ``warmup`` and ``exact-time=0`` on
-``impl=torch``.
+Ported: displays 4 and 77 (records batched per chunk on every engine),
+``checkpoint=``, ``warmup`` and ``exact-time=0``.  Engines: ``impl=torch``
+the plain tensor path; ``impl=stream`` the temporal-tiling kernel (B2,
+ops/stepper_stream_cuda); ``impl=cuda`` and ``auto`` B1 (ops/stepper_cuda)
+or B2 by the crossover measured on an H100
+(stepper_stream_cuda.stream_beats_b1).  ``exact-time=0`` evaluates the
+trig on the device from the carried t on ``impl=torch``; display 77 and
+the kernel engines keep the schedule's exact tables, as the JAX package's
+XLA and pallas paths do.  Not yet ported (they raise NotImplementedError
+and are listed in ROADMAP.md queue A item 3, or item 9 for ``shards``):
+displays 3/7/8/9, the stdin parameter server and ``resume=``.
 """
 
 from __future__ import annotations
@@ -58,12 +60,8 @@ def _unported(cfg: SimConfig):
         return "read-from=stdin (ROADMAP.md queue A item 3)"
     if cfg.resume:
         return "resume= (ROADMAP.md queue A item 3)"
-    if cfg.warmup:
-        return "warmup (ROADMAP.md queue A item 3)"
     if cfg.shards > 1:
         return "shards>1 (ROADMAP.md queue A item 9)"
-    if cfg.impl == "torch" and not cfg.exact_time:
-        return "exact-time=0 with impl=torch (ROADMAP.md queue A item 3)"
     return None
 
 
@@ -184,21 +182,50 @@ class Simulation:
             # written on the device and fetched once per chunk
             break_on_e77=False)
 
+    def warmup(self):
+        """Build and run, once each, what the coming round will run, on a
+        throwaway copy of the state (slb2d_tpu/runtime/loop.py:337-380).
+        Nothing here is jit-compiled: on a kernel engine this is the nvcc
+        build of the kernel library (at first use in the process) and one
+        run of the runner over the round's first chunk, on impl=torch one
+        run of each distinct chunk length.  Keeps the build and first-use
+        costs out of a timed run; it changes no result."""
+        seen = set()
+        steps = self.steps_done
+        for chunk in schedule.iter_chunks(**self._schedule_kwargs()):
+            # one runner serves every chunk length on the kernel engines
+            key = "kernel" if self.engine != "torch" else chunk.n_steps
+            parity = steps % 2
+            steps += chunk.n_steps
+            if key in seen:
+                continue
+            seen.add(key)
+            self._run_chunk(self.state.clone(), chunk, parity)
+        self._fetch_round_obs()
+
+    def _run_chunk(self, state, chunk, parity):
+        """(state after the chunk, its display-77 records) on the
+        engine."""
+        emit = chunk.emit_idx
+        if self.engine != "torch":
+            runner = self._kernel_runner()
+            state = runner.run_xs(state, chunk.xs, parity, emit_idx=emit)
+            return state, (runner.take_obs(len(emit)) if emit else ())
+        # exact-time=0 on the tensor path: trig from the carried t; display
+        # 77 averages only at emission steps, which only the schedule's
+        # tables know, so it keeps them (slb2d_tpu/runtime/loop.py:188-195)
+        exact = self.cfg.exact_time or self.cfg.display == 77
+        state, ys = stencil.run_chunk(
+            self.c, state, chunk.xs, collect_obs=bool(emit),
+            exact_trig=exact, av_enabled=self.cfg.display not in (7, 77, 8))
+        return state, (ys[list(emit)].cpu().numpy() if emit else ())
+
     def _run_round(self):
         carry: dict = {}
         for chunk in schedule.iter_chunks(
                 carry_out=carry, **self._schedule_kwargs()):
-            emit = chunk.emit_idx
-            if self.engine != "torch":
-                runner = self._kernel_runner()
-                self.state = runner.run_xs(self.state, chunk.xs,
-                                           self.steps_done % 2,
-                                           emit_idx=emit)
-                records = runner.take_obs(len(emit)) if emit else ()
-            else:
-                self.state, ys = stencil.run_chunk(
-                    self.c, self.state, chunk.xs, collect_obs=bool(emit))
-                records = ys[list(emit)].cpu().numpy() if emit else ()
+            self.state, records = self._run_chunk(
+                self.state, chunk, self.steps_done % 2)
             for rec in records:
                 writers.write_display77_from_record(
                     self.out, self.model, rec, quiet=self.quiet)

@@ -153,3 +153,32 @@ def test_stream_runner_validates_before_launch(card):
     assert runner.launches == 2 * -(-11 // runner.geom.K)
     assert int(out.step) == 11
     assert out.a.data_ptr() == state.a.data_ptr()   # updated in place
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_points", [("lanes3", 16),
+                                              ("omega_ragged", 2)])
+def test_lanes_kernel_matches_plain(card, shape, max_points):
+    """The lane-packed kernel against its plain version over the whole
+    sweep, split across calls at step 151 (the second call from parity 1),
+    as chip_smoke.py's lanes-kernel phase checks it (f32 rtol 1e-4 atol
+    1e-7 where not bit for bit; av counts equal to the schedule; every
+    capture fired; the dc-only point's av exactly 0).  max_points=2 pads
+    the ragged grid's last chunk with a dead lane."""
+    import chip_smoke
+    chip_smoke.check_lanes_vs_plain(shape, max_points)
+
+
+@pytest.mark.cuda
+def test_lanes_runner_validates_before_launch(card):
+    import chip_smoke
+    sweep, runner = chip_smoke._lanes_runner("lanes3")
+    st = runner.start(0)
+    bad = st.__class__(**{**vars(st), "cap": st.cap.t().contiguous().t()})
+    with pytest.raises(ValueError, match="contiguous"):
+        runner.advance(0, bad, 4)
+    assert runner.launches == 0
+    out = runner.advance(0, st, 6)
+    torch.cuda.synchronize()
+    assert runner.launches == 2 * 6 and out.a.data_ptr() == st.a.data_ptr()
+    assert bool(torch.all(out.av[0, :sweep.base.MP] == 0))   # t < t_start

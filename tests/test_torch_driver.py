@@ -182,9 +182,9 @@ def test_impl_cuda_without_cuda_raises(monkeypatch, capsys):
     (dict(display=3), "display=3"),
     (dict(read_from="stdin"), "read-from=stdin"),
     (dict(resume="x.npz"), "resume="),
-    (dict(warmup=True), "warmup"),
+    (dict(display=8), "display=8"),
     (dict(shards=2), "shards>1"),
-    (dict(exact_time=False), "exact-time=0"),
+    (dict(display=9), "display=9"),
 ])
 def test_unported_features_raise(kw, what):
     cfg = SimConfig(**{**COMMON, **TINY, **kw}, impl="torch")
@@ -235,3 +235,82 @@ def test_simulation_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     if impl == "torch":
         sim = Simulation(cfg.replace(device="cpu"))
         assert sim.device == CPU and sim.state.a.device == CPU
+
+
+def test_fast_time_matches_jax_simulation_f64(tmp_path, monkeypatch):
+    """exact-time=0 on impl=torch (trig on the device from the carried t,
+    the av gate E_omega > 0 and t in [t_start, t_end) on the device)
+    against JAX impl=xla exact-time=0, rtol 1e-12."""
+    port = run_port(tmp_path, monkeypatch, dtype="f64", exact_time=False,
+                    **TINY)
+    JSimulation(JConfig(out_file="jax.txt", **{**COMMON, **TINY},
+                        dtype="f64", impl="xla", exact_time=False)).run()
+    ref = (tmp_path / "jax.txt").read_text()
+    pl, rl = d4_values(port), d4_values(ref)
+    assert len(pl) == len(rl) == 1 and pl[0].shape == (13,)
+    np.testing.assert_allclose(pl[0], rl[0], rtol=1e-12, atol=1e-15)
+    assert headers(port) == headers(ref)
+    assert pl[0][3] != 0                      # the window averaged
+
+
+def test_fast_time_leaves_display77_on_the_exact_tables(tmp_path,
+                                                       monkeypatch):
+    """Display 77 averages only at emission steps, which only the
+    schedule's tables know: exact-time=0 does not change its output, as
+    in the JAX package."""
+    kw = dict(TINY, display=77, t_start=0.2, dtype="f32")
+    exact = run_port(tmp_path, monkeypatch, **kw)
+    fast = run_port(tmp_path, monkeypatch, exact_time=False, **kw)
+    assert fast == exact and len(d4_values(fast)) > 50
+    JSimulation(JConfig(out_file="jax.txt", **{**COMMON, **kw},
+                        impl="xla", exact_time=False)).run()
+    jax_fast = (tmp_path / "jax.txt").read_text()
+    JSimulation(JConfig(out_file="jax.txt", **{**COMMON, **kw},
+                        impl="xla")).run()
+    assert jax_fast == (tmp_path / "jax.txt").read_text()
+
+
+@pytest.mark.parametrize("impl,display", [("torch", 4), ("torch", 77),
+                                          ("stream", 4)])
+def test_warmup_leaves_the_output_unchanged(tmp_path, monkeypatch, impl,
+                                           display):
+    """warmup=1 through the CLI: the same output bytes and checkpoint as
+    without it (it runs on a throwaway copy of the state)."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["E_dc=1", "E_omega=2", "omega=10", "mu=1", "alpha=0.9495",
+            "n-harmonics=8", "PhiYmin=-10", "PhiYmax=10", "B=0.1",
+            "t-max=0.2", "g-grid=24", "dtype=f32", "quiet=1", "device=cpu",
+            f"impl={impl}", f"display={display}"]
+    outs = []
+    for extra in ([], ["warmup=1"]):
+        name = f"w{len(outs)}"
+        assert cli.main(argv + extra + [f"o={name}.txt",
+                                        f"checkpoint={name}.npz"]) == 0
+        outs.append(((tmp_path / f"{name}.txt").read_bytes(),
+                     dict(np.load(tmp_path / f"{name}.npz"))))
+    (text0, ck0), (text1, ck1) = outs
+    assert text1 == text0 and len(text0) > 0
+    assert ck0.keys() == ck1.keys()
+    for k in ck0:
+        np.testing.assert_array_equal(ck1[k], ck0[k], err_msg=k)
+
+
+def test_warmup_runs_each_chunk_length_once(monkeypatch):
+    """On impl=torch, warmup runs one chunk of each distinct length; on a
+    kernel engine one chunk (a runner serves every length).  Checked by
+    counting the chunk runs."""
+    cfg = SimConfig(**{**COMMON, **TINY}, impl="torch", steps_per_chunk=100)
+    sim = Simulation(cfg, device=CPU)
+    runs = []
+    monkeypatch.setattr(sim, "_run_chunk",
+                        lambda st, chunk, parity: runs.append(
+                            (chunk.n_steps, parity)) or (st, ()))
+    state = sim.state
+    sim.warmup()
+    lengths = [n for n, _ in runs]
+    assert len(lengths) == len(set(lengths)) == 2 and 100 in lengths
+    assert sim.state is state and sim.steps_done == 0
+    runs.clear()
+    sim.engine = "stream"
+    sim.warmup()
+    assert runs == [(100, 0)]

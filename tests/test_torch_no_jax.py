@@ -27,7 +27,9 @@ def test_port_imports_no_jax():
               "slb2d_tpu_torch.ops.sweep_stack_cuda",
               "slb2d_tpu_torch.sweep_cli",
               "slb2d_tpu_torch.ops.frames",
-              "slb2d_tpu_torch.absorption_map"):
+              "slb2d_tpu_torch.absorption_map",
+              "slb2d_tpu_torch.ops.sweep_lanes_cuda",
+              "slb2d_tpu_torch.bench"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
