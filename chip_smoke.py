@@ -89,12 +89,33 @@ Phases, one output line each (plus a few measurement lines):
               torch fast 4 at a small shape, cuda, stream, f64, torch 400
               20, sweep torch, sweep stack, sweep stack omega; the plain
               engines' modes at a cut depth), each one parseable line with
-              a finite value, and movie refused with exit 1.
+              a finite value, and movie refused with exit 1;
+ 19. P1:      the float32 chain kernel (csrc/probe_vpu.cu) against its
+              plain version at the probe's 104 x 4160, 3 turns, mul+add
+              and fma at every (ILP, block) pair it was built for, bit for
+              bit; the SASS of each instance (its turn loop FMUL + FADD, or
+              FFMA, and the loop control alone); then the probe's main
+              path (perf/vpu_roofline.run at 2000 turns, each variant at
+              its pair in vpu_roofline.CHOSEN) with its launches, the SM
+              clock sampled beside it: its rate as a share of the data
+              sheet's and of the FP32 pipes' at that clock;
+ 20. P2:      the roll kernels (csrc/probe_roll.cu, resident and one
+              launch per pass) against the plain version at 2 x 104 x
+              4096, 5 passes, both forms and axes, bit for bit; then the
+              probe's main path (perf/roll_cost_experiment.run) with its
+              launches: us per pass, stacked against split;
+ 21. P3:      the transposed step kernel (csrc/probe_transposed.cu)
+              against its plain version and B1's plain version (av off) at
+              BASELINE #4, 200 steps in two chunks, bit for bit; then the
+              probe's main path (perf/transposed_experiment.run: 1000
+              steps against B1, bit for bit, both timed) with its
+              launches, and each kernel's device time per launch.
 The last lines are the operation counts and bounds of the main paths, a
-JSON record of the kernels (ms, plain_ms and bound_ms per step; bound_ms
-is the larger of the main path's operations at F32_OPS_PEAK and its
-bytes, each input read once and each output written once, at 3.35 TB/s,
-over its steps) and
+JSON record of the kernels (ms, plain_ms and bound_ms per step, per turn
+for P1, per pass for P2; bound_ms is the larger of the main path's
+operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
+read once and each output written once, at 3.35 TB/s, over its steps;
+bound_ms_at_p1_rate the same at the rate P1 measured) and
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no ok line.  It needs no network and one card.
 """
@@ -144,6 +165,15 @@ STREAM_SOURCE = "slb2d_tpu_torch/csrc/stepper_stream.cu"
 STREAM_REPLACES = "slb2d_tpu/ops/stepper_stream.py:85"
 LANES_SOURCE = "slb2d_tpu_torch/csrc/sweep_lanes.cu"
 LANES_REPLACES = "slb2d_tpu/ops/sweep_pallas.py:50"
+# the tests/perf probes P1-P3 (slb2d_tpu_torch/perf/)
+VPU_SOURCE = "slb2d_tpu_torch/csrc/probe_vpu.cu"
+VPU_REPLACES = "tests/perf/vpu_roofline.py:60"
+ROLL_SOURCE = "slb2d_tpu_torch/csrc/probe_roll.cu"
+# each kernel runs both forms: _kernel_two (:35) and _kernel_one (:47)
+ROLL_REPLACES = "tests/perf/roll_cost_experiment.py:35"
+ROLL_REPLACES_ONE = "tests/perf/roll_cost_experiment.py:47"
+TRANSPOSED_SOURCE = "slb2d_tpu_torch/csrc/probe_transposed.cu"
+TRANSPOSED_REPLACES = "tests/perf/transposed_experiment.py:73"
 
 # the stream engine's shapes (docs/PERF.md "HBM-streaming engine"): the
 # wide grid N=100 M=12000 (NHP=104, MP=12032) and the tall-thin N=400
@@ -230,7 +260,9 @@ CHAIN_FLOPS = 12
 # the f32 envelope at BASELINE #4, PERF.md §6).  The H100's f32 rate
 # outside the tensor cores, 67 TFLOP/s, counts an FMA as two operations;
 # one add or multiply per lane and cycle is half of it.  HBM bandwidth:
-# 3.35 TB/s.  Both from NVIDIA's data sheet (SXM part at 700 W).
+# 3.35 TB/s.  Both from NVIDIA's data sheet (SXM part at 700 W).  Phase
+# 19 measures the rate P1's chain sustains for a separate multiply and add;
+# the bounds line prints the shares at that rate beside the data sheet's.
 F32_OPS_PEAK = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 
@@ -996,10 +1028,20 @@ def main_path_flops(m, steps, points=1, av_steps=0, captures=0,
             + CAPTURE_COLUMN_FLOPS * m.M * captures)
 
 
-def bound_ms(m, steps, flops, points=1, a0_arrays=2):
+def bound_of(ops, nbytes, units, ops_rate):
+    """(ms per unit, 'operations' or 'bytes'): the larger of `ops` at
+    ops_rate operations per second and `nbytes` at HBM_BYTES_PER_S,
+    divided by `units` (steps, turns or passes)."""
+    t_ops, t_bytes = ops / ops_rate, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3 / units,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_ms(m, steps, flops, points=1, a0_arrays=2, ops_rate=F32_OPS_PEAK):
     """(ms per step, 'operations' or 'bytes'): the least time the card
     could take for `steps` steps of a main path's kernel work, the larger
-    of its `flops` at F32_OPS_PEAK and its bytes at HBM_BYTES_PER_S (the
+    of its `flops` at ops_rate (F32_OPS_PEAK, the data sheet's, by
+    default) and its bytes at HBM_BYTES_PER_S (the
     state read once and written once, a0 and a0_ghost read once per
     point that has its own, the xs table read once), divided by the
     steps."""
@@ -1007,9 +1049,7 @@ def bound_ms(m, steps, flops, points=1, a0_arrays=2):
     cells = m.NHP * m.MP
     nbytes = esize * (2 * 4 * cells * points + a0_arrays * cells
                       + steps * 10)
-    t_ops, t_bytes = flops / F32_OPS_PEAK, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3 / steps,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return bound_of(flops, nbytes, steps, ops_rate)
 
 
 def window_steps(m, t_start, steps):
@@ -1031,10 +1071,13 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(lanes_half_step|half_step|av_step|record_step|"
-                          r"sweep_chunk|stream_tile|stream_replay)"
-                          r"I([fd])?(?:Lb([01]))?", m.group(1))
-            args = [a for a in (k.group(2), k.group(3)) if a] if k else []
+            k = re.search(r"(lanes_half_step|t_half_step|half_step|av_step|"
+                          r"record_step|sweep_chunk|stream_tile|"
+                          r"stream_replay|vpu_chain|roll_resident_rows|"
+                          r"roll_resident_cols|roll_pass)"
+                          r"(?:I([fd])?(?:Li(\d)E)?(?:Lb([01]))?)?",
+                          m.group(1))
+            args = [a for a in k.groups()[1:] if a] if k else []
             name = (f"{k.group(1)}<{','.join(args)}>" if k
                     else m.group(1))
             continue
@@ -1546,10 +1589,14 @@ def zero_counts():
     them)."""
     from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda,
                                      sweep_lanes_cuda, sweep_stack_cuda)
+    from slb2d_tpu_torch.perf import (roll_cost_experiment,
+                                      transposed_experiment, vpu_roofline)
     for mod in (stepper_cuda, stepper_stream_cuda, sweep_lanes_cuda,
-                sweep_stack_cuda):
+                sweep_stack_cuda, vpu_roofline, transposed_experiment):
         mod.launch_count = 0
     sweep_stack_cuda.omega_launch_count = 0
+    roll_cost_experiment.resident_launch_count = 0
+    roll_cost_experiment.pass_launch_count = 0
 
 
 def bench_modes_phase(card):
@@ -1596,6 +1643,177 @@ def bench_modes_phase(card):
     print(f"bench: movie refused (exit 1): {movie['error']}", flush=True)
     return out
 
+
+def vpu_phase(card, lib_path, reps=3):
+    """P1: the chain kernel against its plain version at the probe's full
+    shape over `reps` turns, both variants at every (ILP, block) pair it
+    was built for, bit for bit; the SASS of every instance (its turn loop
+    FMUL + FADD, or FFMA, and the loop control alone); then the probe's
+    main path, vpu_roofline.run at REPS turns with each variant at its
+    CHOSEN pair, its launches counted.  Returns (its result, its launches,
+    the plain version's ms per turn, the max abs error, the SASS counts,
+    the FP32 pipes' rate at the highest sampled SM clock)."""
+    import torch
+    from slb2d_tpu_torch.perf import (clock_line, time_ms, vpu_roofline as vr,
+                                      with_clocks)
+    coef, bias, x = vr.make_coeffs()
+    xt = torch.from_numpy(x).to(DEVICE)
+    err = 0.0
+    for fma in (False, True):
+        ref = vr.chain_plain(xt, coef, bias, reps, fma)
+        check(bool(torch.isfinite(ref).all()), "P1: the plain chain overflowed")
+        for ilp in vr.ILPS:
+            for block in vr.BLOCKS:
+                got = vr.chain(xt, coef, bias, reps, fma=fma, ilp=ilp,
+                               block=block)
+                e = float((got - ref).abs().max())
+                err = max(err, e)
+                check(torch.equal(got, ref),
+                      f"P1 {vr.VARIANTS[fma]} ilp={ilp} block={block}: not "
+                      f"bit for bit with its plain version, max abs err "
+                      f"{e:.3e}")
+    plain_ms = time_ms(lambda: vr.chain_plain(xt, coef, bias, 1), DEVICE, 1)
+    counts = vr.sass_counts(lib_path)
+    vr.check_sass(counts)
+    zero_counts()
+    res, samples = with_clocks(lambda: vr.run(
+        DEVICE, configs={v: [vr.CHOSEN[v]] for v in vr.VARIANTS}))
+    launches = vr.launch_count
+    want = len(vr.VARIANTS) * 4             # a warm-up and 3 timed calls
+    check(launches == want, f"P1 main path: {launches} launches, expected "
+          f"{want}")
+    mb, fb = res["best"]["mul+add"], res["best"]["fma"]
+    print(f"P1 vpu_chain: vs plain at {vr.NHP}x{vr.MP}, {reps} turns, "
+          f"mul+add and fma at ilp {'/'.join(map(str, vr.ILPS))} x block "
+          f"{'/'.join(map(str, vr.BLOCKS))}: bit for bit (max abs err "
+          f"{err:.3e}); SASS: {vr.sass_line(counts)} [{card}]", flush=True)
+    print(f"P1 rate: mul+add {res['rate']:.6e} op/s (ilp={mb['ilp']} "
+          f"block={mb['block']}, {mb['ms']:.4f} ms per call of {vr.REPS} "
+          f"turns; {vr.shares_line(res['rate'], samples)}), fma "
+          f"{res['fma_rate']:.6e} FMA/s = {2 * res['fma_rate']:.6e} flop/s "
+          f"(ilp={fb['ilp']} block={fb['block']}, {fb['ms']:.4f} ms; "
+          f"{vr.shares_line(res['fma_rate'], samples)}); plain version "
+          f"{plain_ms:.4f} ms per turn; {launches} launches; "
+          f"{clock_line(samples)} [{card}]", flush=True)
+    return res, launches, plain_ms, err, counts, vr.pipe_rate(samples)
+
+
+def roll_phase(card, k_check=5):
+    """P2: both kernels against the plain version at the probe's full
+    shape, k_check passes, both forms and axes, bit for bit; then the
+    probe's main path, roll_cost_experiment.run, with its launches counted.
+    Returns (its result, its launches per kernel, the plain version's ms
+    per pass of form two along axis 1, the max abs error per kernel)."""
+    import torch
+    from slb2d_tpu_torch.perf import roll_cost_experiment as rce, time_ms
+    x, y = (torch.from_numpy(a).to(DEVICE) for a in rce.make_inputs())
+    inputs = {"two": [x, y], "one": [torch.cat([x, y], 0)]}
+    err = {kernel: 0.0 for kernel in rce.KERNELS}
+    for axis in rce.AXES:
+        for form, arrays in inputs.items():
+            ref = rce.roll_plain(arrays, axis, k_check)
+            for kernel, fn in rce.KERNELS.items():
+                got = fn(arrays, axis, k_check)
+                e = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                err[kernel] = max(err[kernel], e)
+                check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                      f"P2 {kernel} axis {axis} form {form}: not bit for bit "
+                      f"with the plain version, max abs err {e:.3e}")
+    plain_ms = time_ms(lambda: rce.roll_plain(inputs["two"], 1, k_check),
+                       DEVICE, 1) / k_check
+    zero_counts()
+    res = rce.run(DEVICE)
+    launches = {"resident": rce.resident_launch_count,
+                "passes": rce.pass_launch_count}
+    calls = len(rce.AXES) * 4               # a warm-up and 3 timed calls
+    want = {"resident": calls * len(rce.FORMS), "passes": calls * 3 * rce.K}
+    check(launches == want, f"P2 main path launches {launches}, expected "
+          f"{want}")
+    t = {(r["kernel"], r["axis"], r["form"]): r["us_per_pass"]
+         for r in res["records"]}
+    print(f"P2 roll: vs plain at 2x{rce.NH}x{rce.MP}, {k_check} passes, "
+          f"both kernels, forms and axes: bit for bit (max abs err " +
+          ", ".join(f"{k} {e:.3e}" for k, e in err.items()) + "); us per "
+          "pass " +
+          "; ".join(f"{k} axis {a}: two {t[k, a, 'two']:.4f}, one "
+                    f"{t[k, a, 'one']:.4f} (one/two "
+                    f"{res['one_over_two'][f'{k} axis {a}']:.3f})"
+                    for k in rce.KERNELS for a in rce.AXES) +
+          f"; plain version {plain_ms * 1e3:.4f} us per pass; launches "
+          f"{launches} [{card}]", flush=True)
+    return res, launches, plain_ms, err
+
+
+def transposed_phase(card, n_steps=200, split=101):
+    """P3: the transposed kernel against its plain version, B1's plain
+    version (av off) transposed, at BASELINE #4 over n_steps in two chunks
+    (the second from parity 1): the state, transposed back, bit for bit;
+    then the probe's main path, transposed_experiment.run (K steps on the
+    kernel and on B1, bit for bit, then both timed), with its launches
+    counted.  Returns (its result, its launches, the plain version's ms per
+    step, the max abs error, the model, the TConsts)."""
+    import torch
+    from slb2d_tpu_torch.perf import transposed_experiment as te
+    model, c, tc, state0, xs = te.setup(DEVICE, steps=n_steps)
+    kern, plain = te.transpose_state(state0), te.transpose_state(state0)
+    plain_s, err = 0.0, 0.0
+    for part, parity in ((xs[:split], 0), (xs[split:], split % 2)):
+        launches0 = te.launch_count
+        kern = te.run_chunk(tc, kern, part, parity)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = te.run_chunk_plain(tc, plain, part, parity)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        check(te.launch_count - launches0 == te.LAUNCHES_PER_STEP * len(part),
+              f"P3: {te.launch_count - launches0} launches for {len(part)} "
+              f"steps")
+        got = te.untranspose(kern, model.NHP)
+        for f, v in te.untranspose(plain, model.NHP).items():
+            e = float((got[f] - v).abs().max())
+            err = max(err, e)
+            check(torch.equal(got[f], v), f"P3 {f}: not B1's plain version "
+                  f"bit for bit, max abs err {e:.3e}")
+    check(bool(plain.a.abs().max() > 0), "P3: the state is zero")
+    zero_counts()
+    res = te.run(DEVICE)
+    launches = te.launch_count
+    want = te.LAUNCHES_PER_STEP * te.K * 5  # the checked run, warm-up, 3
+    check(launches == want, f"P3 main path: {launches} launches, expected "
+          f"{want}")
+    plain_ms = plain_s * 1e3 / n_steps
+    per_kernel = te.kernel_us(DEVICE)
+    print(f"P3 transposed: vs its plain version, B1's (av off), at "
+          f"BASELINE#4 (MP={model.MP}, NHL={tc.NHL}), {n_steps} steps in 2 "
+          f"chunks: bit for bit (max abs err {err:.3e}); main path {te.K} "
+          f"steps vs B1 bit for bit, {res['us_per_step']:.4f} us/step "
+          f"against B1 (av off, 3 launches) {res['b1_us_per_step']:.4f}; "
+          f"device us per launch "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items()) +
+          f"; plain version {plain_ms:.4f} ms/step; {launches} launches "
+          f"[{card}]", flush=True)
+    return res, launches, plain_ms, err, model, tc
+
+
+def probe_bounds(p3_model, p3_tc, p1_rate):
+    """{probe: ((ms, by) at the data sheet, at P1's measured rate)} per
+    turn (P1), pass (P2) and step (P3): the larger of the operations the
+    probe's function needs on these inputs and its bytes, each input read
+    once and each output written once."""
+    from slb2d_tpu_torch.perf import roll_cost_experiment as rce
+    from slb2d_tpu_torch.perf import transposed_experiment as te
+    from slb2d_tpu_torch.perf import vpu_roofline as vr
+    n1 = vr.NHP * vr.MP
+    n2 = 2 * rce.NH * rce.MP
+    m, tc = p3_model, p3_tc
+    p3_flops = main_path_flops(m, te.K)
+    p3_bytes = 4 * (2 * 4 * m.MP * tc.NHL + 2 * m.MP * tc.NHL + te.K * 10
+                    + 2 * m.NHP + m.MP)
+    work = {"P1": (2 * n1 * vr.K * vr.REPS, 8 * n1, vr.REPS),
+            "P2": (n2 * rce.K, 8 * n2, rce.K),
+            "P3": (p3_flops, p3_bytes, te.K)}
+    return {k: (bound_of(*w, F32_OPS_PEAK), bound_of(*w, p1_rate))
+            for k, w in work.items()}
 
 
 def main():
@@ -1786,84 +2004,132 @@ def main():
     b4_launches, b4_wall, b4_steps, lanes_sweep = lanes_main_phase(card)
     bench_modes_phase(card)
 
+    # 19-21. the tests/perf probes: P1 (its rate is printed beside the data
+    # sheet's under the bounds below), P2, P3
+    p1, p1_launches, p1_plain_ms, p1_err, p1_sass, pipe = vpu_phase(
+        card, lib.path)
+    p1_rate = p1["rate"]
+    p2, p2_launches, p2_plain_ms, p2_err = roll_phase(card)
+    (p3, p3_launches, p3_plain_ms, p3_err, p3_model,
+     p3_tc) = transposed_phase(card)
+
     # the bounds of each main path's run (B1: the tall grid, where impl=cuda
     # takes it; B2: the wide grid's impl=stream run, the same work as B1
     # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
-    # paper: the paper map)
+    # paper: the paper map), at the data sheet's rate and at the rate P1
+    # measured
     tall, tall_steps, (b1_launches, _) = stream_runs["N=400 M=4000",
                                                      "cuda-b1"]
-    b1_flops = main_path_flops(tall, tall_steps,
-                               av_steps=window_steps(tall, 10.0, tall_steps))
-    b1_bound, b1_by = bound_ms(tall, tall_steps, b1_flops)
-    b1_ms = routing["N=400 M=4000"][0]
-    b3_flops = main_path_flops(sweep.base, sweep_steps, points=sweep.B,
-                               av_steps=int(expected_av_counts(sweep).sum()))
-    b3_bound, b3_by = bound_ms(sweep.base, sweep_steps, b3_flops,
-                               points=sweep.B)
-    om_flops = main_path_flops(paper.base, omega_steps, points=paper.B,
-                               av_steps=int(expected_av_counts(paper).sum()),
-                               captures=paper.B, chains=True)
-    om_bound, om_by = bound_ms(paper.base, omega_steps, om_flops,
-                               points=paper.B)
     wide, wide_steps, (_, b2_launches) = stream_runs["N=100 M=12000",
                                                      "stream"]
-    b2_flops = main_path_flops(wide, wide_steps,
-                               av_steps=window_steps(wide, 10.0, wide_steps))
-    b2_bound, b2_by = bound_ms(wide, wide_steps, b2_flops)
-    b2_ms = routing["N=100 M=12000"][1]
     # B4: the same function as B3 shared-omega on the same sweep; its
     # per-lane accumulators are its design's overhead
-    b4_flops = main_path_flops(
-        lanes_sweep.base, b4_steps, points=lanes_sweep.B,
-        av_steps=int(expected_av_counts(lanes_sweep).sum()))
-    b4_bound, b4_by = bound_ms(lanes_sweep.base, b4_steps, b4_flops,
-                               points=lanes_sweep.B)
-    print(f"bounds: operations per step B1 {b1_flops / tall_steps:.6e}, B3 "
-          f"shared {b3_flops / sweep_steps:.6e}, B3 per-omega "
-          f"{om_flops / omega_steps:.6e}, B2 {b2_flops / wide_steps:.6e} "
-          f"at {F32_OPS_PEAK:.4g} op/s; "
-          f"bound B1 {b1_bound * 1e3:.4f} us ({b1_by}), B3 shared "
-          f"{b3_bound * 1e3:.4f} us ({b3_by}), B3 per-omega "
-          f"{om_bound * 1e3:.4f} us ({om_by}), B2 {b2_bound * 1e3:.4f} us "
-          f"({b2_by}) per step; share of the "
-          f"bound B1 {b1_bound / b1_ms:.4f}, B3 shared {b3_bound / sk_ms:.4f},"
-          f" B3 per-omega {om_bound / pk_ms:.4f}, B2 {b2_bound / b2_ms:.4f};"
-          f" B4 {b4_flops / b4_steps:.6e} operations, bound "
-          f"{b4_bound * 1e3:.4f} us ({b4_by}), share {b4_bound / b4_ms:.4f}",
-          flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "slb_run_chunk (half_step<MAIN>, half_step<HALF>, av_step)",
-        "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": b1_launches,
-        "max_abs_err": max_err["N=400 M=4000", "f32"],
-        "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
-        "bound_by": b1_by, "library_ms": None}, {
-        "name": "slb_sweep_chunk (sweep_chunk<T, false>)",
-        "route": "cuda", "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
-        "launches": sweep_launches,
-        "max_abs_err": sweep_err["full", "f32"],
-        "ms": sk_ms, "plain_ms": sp_ms, "bound_ms": b3_bound,
-        "bound_by": b3_by, "library_ms": None}, {
-        "name": "slb_sweep_chunk_omega (sweep_chunk<T, true>)",
-        "route": "cuda", "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES,
-        "launches": omega_launches,
-        "max_abs_err": omega_err["paper", "f32"][0],
-        "capture_max_abs_err": omega_err["paper", "f32"][1],
-        "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": om_bound,
-        "bound_by": om_by, "library_ms": None}, {
-        "name": "slb_stream_chunk (stream_tile, stream_replay)",
-        "route": "cuda", "source": STREAM_SOURCE,
-        "replaces": STREAM_REPLACES, "launches": b2_launches,
-        "max_abs_err": stream_err["N=100 M=12000", "f32"],
-        "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
-        "bound_by": b2_by, "library_ms": None}, {
-        "name": "slb_lanes_chunk (lanes_half_step<true>, "
-                "lanes_half_step<false>)",
-        "route": "cuda", "source": LANES_SOURCE, "replaces": LANES_REPLACES,
-        "launches": b4_launches,
-        "max_abs_err": lanes_err["full", LANES_MAX_POINTS][0],
-        "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound,
-        "bound_by": b4_by, "library_ms": None}]}), flush=True)
+    work = {
+        "B1": (tall, tall_steps, main_path_flops(
+            tall, tall_steps, av_steps=window_steps(tall, 10.0, tall_steps)),
+            1),
+        "B3 shared": (sweep.base, sweep_steps, main_path_flops(
+            sweep.base, sweep_steps, points=sweep.B,
+            av_steps=int(expected_av_counts(sweep).sum())), sweep.B),
+        "B3 per-omega": (paper.base, omega_steps, main_path_flops(
+            paper.base, omega_steps, points=paper.B,
+            av_steps=int(expected_av_counts(paper).sum()),
+            captures=paper.B, chains=True), paper.B),
+        "B2": (wide, wide_steps, main_path_flops(
+            wide, wide_steps, av_steps=window_steps(wide, 10.0, wide_steps)),
+            1),
+        "B4": (lanes_sweep.base, b4_steps, main_path_flops(
+            lanes_sweep.base, b4_steps, points=lanes_sweep.B,
+            av_steps=int(expected_av_counts(lanes_sweep).sum())),
+            lanes_sweep.B)}
+    bounds = {k: (bound_ms(m, n, f, points=b),
+                  bound_ms(m, n, f, points=b, ops_rate=p1_rate))
+              for k, (m, n, f, b) in work.items()}
+    bounds.update(probe_bounds(p3_model, p3_tc, p1_rate))
+    b1_ms = routing["N=400 M=4000"][0]
+    b2_ms = routing["N=100 M=12000"][1]
+    times = {"B1": b1_ms, "B3 shared": sk_ms, "B3 per-omega": pk_ms,
+             "B2": b2_ms, "B4": b4_ms}
+
+    def shares(i):
+        return ", ".join(f"{k} {bounds[k][i][0] / ms:.4f}"
+                         for k, ms in times.items())
+
+    print(f"bounds: operations per step " + ", ".join(
+        f"{k} {f / n:.6e}" for k, (m, n, f, b) in work.items()) +
+        f"; at the data sheet's {F32_OPS_PEAK:.4g} op/s (the bound): " +
+        ", ".join(f"{k} {v[0][0] * 1e3:.4f} us ({v[0][1]})"
+                  for k, v in bounds.items() if k in times) +
+        f" per step, share {shares(0)}; at P1's measured mul+add rate "
+        f"{p1_rate:.6e} op/s: " +
+        ", ".join(f"{k} {v[1][0] * 1e3:.4f} us ({v[1][1]})"
+                  for k, v in bounds.items() if k in times) +
+        f", share {shares(1)}; probes: P1 {bounds['P1'][0][0] * 1e3:.4f} us "
+        f"per turn ({bounds['P1'][0][1]}), P2 "
+        f"{bounds['P2'][0][0] * 1e3:.4f} us per pass ({bounds['P2'][0][1]}), "
+        f"P3 {bounds['P3'][0][0] * 1e3:.4f} us per step "
+        f"({bounds['P3'][0][1]}); P1's FMA rate {2 * p1['fma_rate']:.6e} "
+        f"flop/s [{card}]", flush=True)
+
+    def entry(key, **kw):
+        (ms, by), (ms_p1, _) = bounds[key]
+        return {**kw, "bound_ms": ms, "bound_by": by,
+                "bound_ms_at_p1_rate": ms_p1, "library_ms": None}
+
+    from slb2d_tpu_torch.perf import vpu_roofline as vr
+    p2t = {(r["kernel"], r["axis"], r["form"]): r["us_per_pass"] * 1e-3
+           for r in p2["records"]}
+    print(json.dumps({"kernels": [entry(
+        "B1", name="slb_run_chunk (half_step<MAIN>, half_step<HALF>, "
+                   "av_step)",
+        route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
+        launches=b1_launches, max_abs_err=max_err["N=400 M=4000", "f32"],
+        ms=b1_ms, plain_ms=b1_plain_ms), entry(
+        "B3 shared", name="slb_sweep_chunk (sweep_chunk<T, false>)",
+        route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
+        launches=sweep_launches, max_abs_err=sweep_err["full", "f32"],
+        ms=sk_ms, plain_ms=sp_ms), entry(
+        "B3 per-omega", name="slb_sweep_chunk_omega (sweep_chunk<T, true>)",
+        route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
+        launches=omega_launches, max_abs_err=omega_err["paper", "f32"][0],
+        capture_max_abs_err=omega_err["paper", "f32"][1],
+        ms=pk_ms, plain_ms=pp_ms), entry(
+        "B2", name="slb_stream_chunk (stream_tile, stream_replay)",
+        route="cuda", source=STREAM_SOURCE, replaces=STREAM_REPLACES,
+        launches=b2_launches, max_abs_err=stream_err["N=100 M=12000", "f32"],
+        ms=b2_ms, plain_ms=b2_plain_ms), entry(
+        "B4", name="slb_lanes_chunk (lanes_half_step<true>, "
+                   "lanes_half_step<false>)",
+        route="cuda", source=LANES_SOURCE, replaces=LANES_REPLACES,
+        launches=b4_launches, max_abs_err=lanes_err["full",
+                                                    LANES_MAX_POINTS][0],
+        ms=b4_ms, plain_ms=b4_plain_ms), entry(
+        "P1", name="slb_vpu_chain (vpu_chain<ILP, false>), per turn",
+        route="cuda", source=VPU_SOURCE, replaces=VPU_REPLACES,
+        launches=p1_launches, max_abs_err=p1_err,
+        ms=p1["best"]["mul+add"]["ms"] / vr.REPS, plain_ms=p1_plain_ms,
+        rate_op_s=p1_rate, pipe_rate_op_s=pipe, fma_per_s=p1["fma_rate"],
+        chosen={k: {"ilp": v[0], "block": v[1]} for k, v in
+                vr.CHOSEN.items()}, sass=p1_sass), entry(
+        "P2", name="slb_roll_resident (roll_resident_rows, "
+                   "roll_resident_cols), per pass, form two, axis 1",
+        route="cuda", source=ROLL_SOURCE, replaces=ROLL_REPLACES,
+        replaces_also=ROLL_REPLACES_ONE,
+        launches=p2_launches["resident"], max_abs_err=p2_err["resident"],
+        ms=p2t["resident", 1, "two"], plain_ms=p2_plain_ms,
+        us_per_pass=p2["records"]), entry(
+        "P2", name="slb_roll_passes (roll_pass), per pass, form two, axis 1",
+        route="cuda", source=ROLL_SOURCE, replaces=ROLL_REPLACES,
+        replaces_also=ROLL_REPLACES_ONE,
+        launches=p2_launches["passes"], max_abs_err=p2_err["passes"],
+        ms=p2t["passes", 1, "two"], plain_ms=p2_plain_ms), entry(
+        "P3", name="slb_transposed_chunk (t_half_step<true>, "
+                   "t_half_step<false>), per step",
+        route="cuda", source=TRANSPOSED_SOURCE,
+        replaces=TRANSPOSED_REPLACES, launches=p3_launches,
+        max_abs_err=p3_err,
+        ms=p3["us_per_step"] * 1e-3, plain_ms=p3_plain_ms,
+        b1_av_off_ms=p3["b1_us_per_step"] * 1e-3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

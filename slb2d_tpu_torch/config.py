@@ -69,6 +69,7 @@ class SimConfig:
     resume: Optional[str] = None       # load initial state from .npz
     shards: int = 1          # spatial shards of the phi_y axis
     warmup: bool = False     # build every step runner before the timed run
+    profile_dir: Optional[str] = None  # torch.profiler Chrome trace output
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)
@@ -112,6 +113,7 @@ _KEYMAP = {
     "resume": ("resume", str),
     "shards": ("shards", int),
     "warmup": ("warmup", lambda v: v not in ("0", "false", "no")),
+    "profile-dir": ("profile_dir", str),
 }
 
 _REQUIRED = (

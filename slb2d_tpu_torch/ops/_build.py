@@ -21,7 +21,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", f)
                 for f in ("stepper.cu", "sweep_stack.cu",
-                          "stepper_stream.cu", "sweep_lanes.cu"))
+                          "stepper_stream.cu", "sweep_lanes.cu",
+                          "probe_vpu.cu", "probe_roll.cu",
+                          "probe_transposed.cu"))
 HEADERS = (os.path.join(_PKG, "csrc", "half_step.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "slb2d_tpu_torch")
 # -fmad=false: no multiply-add contraction, so the kernel rounds as the
@@ -45,10 +47,21 @@ _ENTRY_ARGS = {
                          + [ctypes.c_void_p]),
     "slb_lanes_chunk": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),
+    # the tests/perf probes P1-P3 (slb2d_tpu_torch/perf/)
+    "slb_vpu_chain": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p]),
+    "slb_roll_resident": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p]),
+    "slb_roll_passes": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p]),
+    "slb_transposed_chunk": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                             + [ctypes.c_void_p]),
 }
 # the float and double symbols of each entry; the lane-packed sweep kernel
-# is float-only, as the JAX kernel it replaces
-_ENTRY_TYPES = {"slb_lanes_chunk": ("_f32",)}
+# and the probes are float-only, as the JAX kernels they replace
+_ENTRY_TYPES = {name: ("_f32",) for name in (
+    "slb_lanes_chunk", "slb_vpu_chain", "slb_roll_resident",
+    "slb_roll_passes", "slb_transposed_chunk")}
 
 
 class BuildError(RuntimeError):

@@ -30,6 +30,9 @@ grid's results are written, one line of new `sweep:` specs (optionally
 with `key=value` scalar overrides) is read from stdin and run as the next
 grid (its frames go to the next grid%02d).  `exit` or EOF quits.
 
+`profile-dir=DIR` runs each grid under torch.profiler and writes its
+Chrome trace under DIR (slb2d-torch's profile-dir=).
+
 The run uses CUDA device `device=` (default 0) for every impl; only
 device=cpu runs it on the CPU.  Not ported yet (NotImplementedError):
 `shards>1` (ROADMAP.md queue A item 9).
@@ -119,6 +122,7 @@ def _write_point_frames(cfg, sweep, res, frames_dir, grid_no):
 
 def _run_one_grid(cfg, sweeps, out, device, frames_dir=None, grid_no=0):
     """Build, run, and write one sweep grid; returns the point count."""
+    from .cli import profiled
     from .parallel.sweep import ParameterSweep
 
     grids = np.meshgrid(*sweeps.values(), indexing="ij")
@@ -133,8 +137,10 @@ def _run_one_grid(cfg, sweeps, out, device, frames_dir=None, grid_no=0):
               f"[{sweep.engine} engine]", file=sys.stderr)
     # checkpoint= saves the batch state every steps-per-chunk steps (and
     # at the end); resume= continues an interrupted sweep of the same grid
-    res = sweep.run(checkpoint=cfg.checkpoint, resume=cfg.resume,
-                    checkpoint_every=cfg.steps_per_chunk)
+    # profile-dir=DIR: each grid's run under torch.profiler, one trace each
+    with profiled(cfg.profile_dir, sweep.device):
+        res = sweep.run(checkpoint=cfg.checkpoint, resume=cfg.resume,
+                        checkpoint_every=cfg.steps_per_chunk)
     out.write(HEADER)
     for i in range(B):
         vals = [v for _, v in _point_params(cfg, sweep.params, i)]

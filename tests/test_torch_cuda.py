@@ -182,3 +182,88 @@ def test_lanes_runner_validates_before_launch(card):
     torch.cuda.synchronize()
     assert runner.launches == 2 * 6 and out.a.data_ptr() == st.a.data_ptr()
     assert bool(torch.all(out.av[0, :sweep.base.MP] == 0))   # t < t_start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fma", [False, True])
+def test_vpu_kernel_matches_plain(card, fma):
+    """P1's chain kernel against its plain version, 2 turns at a ragged
+    13 x 1000 cut of the probe's input (the tail masked) and at its full
+    shape: bit for bit at every ILP, at two block sizes."""
+    from slb2d_tpu_torch.perf import vpu_roofline as vr
+    for shape in ((13, 1000), (vr.NHP, vr.MP)):
+        coef, bias, x = vr.make_coeffs(shape)
+        xt = torch.from_numpy(x).to(card)
+        ref = vr.chain_plain(xt, coef, bias, 2, fma)
+        for ilp in vr.ILPS:
+            for block in (64, 256):
+                got = vr.chain(xt, coef, bias, 2, fma=fma, ilp=ilp,
+                               block=block)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (shape, ilp, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_roll_kernels_match_plain(card, axis):
+    """P2's resident and per-pass kernels against the plain version, 5
+    passes, forms two and one, at the probe's shape and at 8 x 128: bit
+    for bit; the inputs unchanged."""
+    from slb2d_tpu_torch.perf import roll_cost_experiment as rce
+    for shape in ((8, 128), (rce.NH, rce.MP)):
+        x, y = (torch.from_numpy(a).to(card) for a in rce.make_inputs(shape))
+        x0 = x.clone()
+        for arrays in ([x, y], [torch.cat([x, y], 0)]):
+            ref = rce.roll_plain(arrays, axis, 5)
+            for fn in (rce.roll_resident, rce.roll_passes):
+                got = fn(arrays, axis, 5)
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert torch.equal(x, x0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nhl", [16, 32])
+def test_transposed_kernel_matches_b1_plain(card, nhl):
+    """P3's kernel against its plain version, B1's plain version (av off)
+    transposed, 41 steps in two chunks (the second from parity 1), N=8
+    M=64: the state, transposed back, bit for bit; padding columns stay
+    0."""
+    from slb2d_tpu_torch.perf import transposed_experiment as te
+    model, c, tc, state0, xs = te.setup(card, 8, 64, nhl, 41)
+    kern, plain = te.transpose_state(state0, nhl), te.transpose_state(
+        state0, nhl)
+    launches0 = te.launch_count
+    for part, parity in ((xs[:21], 0), (xs[21:], 1)):
+        kern = te.run_chunk(tc, kern, part, parity)
+        plain = te.run_chunk_plain(tc, plain, part, parity)
+    torch.cuda.synchronize()
+    assert te.launch_count - launches0 == 2 * 41
+    got, mine = (te.untranspose(s, model.NHP) for s in (kern, plain))
+    for f, v in got.items():
+        assert torch.equal(v, mine[f]), f
+    assert bool((kern.a[:, model.NHP:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_validate_before_launch(card):
+    from slb2d_tpu_torch.perf import roll_cost_experiment as rce
+    from slb2d_tpu_torch.perf import transposed_experiment as te
+    from slb2d_tpu_torch.perf import vpu_roofline as vr
+    coef, bias, x = vr.make_coeffs((4, 128))
+    xt = torch.from_numpy(x).to(card)
+    counts = (vr.launch_count, rce.resident_launch_count,
+              rce.pass_launch_count, te.launch_count)
+    with pytest.raises(ValueError, match="float32"):
+        vr.chain(xt.double(), coef, bias, 1)
+    with pytest.raises(ValueError, match="ilp"):
+        vr.chain(xt, coef, bias, 1, ilp=3)
+    with pytest.raises(ValueError, match="columns"):
+        rce.roll_resident([torch.zeros((8, 100), device=card)], 0, 2)
+    model, c, tc, state0, xs = te.setup(card, 8, 64, 16, 4)
+    st = te.transpose_state(state0, 16)
+    bad = te.TState(**{**vars(st), "b": st.b.t().contiguous().t()})
+    with pytest.raises(ValueError, match="contiguous"):
+        te.run_chunk(tc, bad, xs, 0)
+    assert counts == (vr.launch_count, rce.resident_launch_count,
+                      rce.pass_launch_count, te.launch_count)

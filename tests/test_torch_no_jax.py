@@ -29,7 +29,10 @@ def test_port_imports_no_jax():
               "slb2d_tpu_torch.ops.frames",
               "slb2d_tpu_torch.absorption_map",
               "slb2d_tpu_torch.ops.sweep_lanes_cuda",
-              "slb2d_tpu_torch.bench"):
+              "slb2d_tpu_torch.bench",
+              "slb2d_tpu_torch.perf.vpu_roofline",
+              "slb2d_tpu_torch.perf.roll_cost_experiment",
+              "slb2d_tpu_torch.perf.transposed_experiment"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
