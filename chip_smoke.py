@@ -19,15 +19,21 @@ Phases, one output line each (plus a few measurement lines):
               f32, impl=cuda (on the engine the routing picks), with the
               kernel launch counts checked, and the plain path's rate
               beside the kernel's;
-  6. sweep kernel: the sweep kernel against its plain version, 300 steps
-              in two chunks, at the 64-point N=40 M=500 sweep shape and at
-              a ragged 6-point shape with a dc-only point and mu swept, in
-              f64 and f32; its time per step beside the plain version's;
+  6. sweep kernel: the sweep kernel (B3) against its plain version, 300
+              steps in two chunks, at the 64-point N=40 M=500 sweep shape
+              and at a ragged 6-point shape with a dc-only point and mu
+              swept, in f64 and f32, on the cluster form cluster_plan
+              picks (state and edges bit for bit); what each form takes
+              on the card (registers, spills, shared memory, clusters at
+              once) at both shapes for every cluster size that holds a
+              point; its time per step in the cluster and the streaming
+              form, in turns, beside the plain version's;
   7. sweep main: the sweep CLI (slb2d_tpu_torch.sweep_cli.main) on the
               64-point E_dc sweep of bench.py's sweep bench, f32,
-              impl=cuda, with the launch count, the table and every
-              point's norm checked, and the batched torch engine's rate
-              beside the kernel path's;
+              impl=cuda, with the launch counts (per mode and per form:
+              the cluster form), the table and every point's norm
+              checked, and the batched torch engine's rate beside the
+              kernel path's;
   8. omega kernel: the sweep kernel's per-omega mode against its plain
               version with the frames capture on, in two chunks (151
               steps, then the rest from parity 1), on the ragged 5-point
@@ -35,19 +41,21 @@ Phases, one output line each (plus a few measurement lines):
               N=40 M=500, each run to its end so every point's loop-exit
               capture fires, in f64 and f32, and on the 16 x 16 paper map
               from step 4990 across its window start and first exits, in
-              f32; its time per step over the whole sweep beside the
-              plain version's and the batched torch engine's;
+              f32 (cluster form; state, edges and frames bit for bit);
+              its time per step over the whole sweep in both forms, in
+              turns, beside the plain version's and the batched torch
+              engine's;
   9. omega sweep: the 16 x 4 grid at t-max=0.05 through the per-omega
               kernel against the batched torch engine on the card (av
               counts exact, observables at 2e-4 rel / 2e-5 abs);
  10. omega main: the sweep CLI on the 16 x 16 paper absorption map
               (examples/absorption_map.py paper), f32, impl=cuda: launch
-              counts, 256 finite lines, norms, every point's av count
-              against the host schedule; then the measurement behind
-              impl=auto's routing of omega sweeps to the kernel: the
-              kernel path end to end against the batched engine's time
-              per step, at the 64-point omega sweep of bench.py and at
-              the paper map;
+              counts (the cluster form), 256 finite lines, norms, every
+              point's av count against the host schedule; then the
+              measurement behind impl=auto's routing of omega sweeps to
+              the kernel: the kernel path end to end against the batched
+              engine's time per step, at the 64-point omega sweep of
+              bench.py and at the paper map;
  11. frames:  sweep_cli frames-dir= on the card, a shared-omega grid
               through the kernel and an omega grid through the per-omega
               kernel (impl=cuda and impl=auto) and through the batched
@@ -109,10 +117,20 @@ Phases, one output line each (plus a few measurement lines):
               BASELINE #4, 200 steps in two chunks, bit for bit; then the
               probe's main path (perf/transposed_experiment.run: 1000
               steps against B1, bit for bit, both timed) with its
-              launches, and each kernel's device time per launch.
+              launches, and each kernel's device time per launch;
+ 22. forms vs: B3's cluster form against its streaming form over the
+              whole 64-point sweep and the whole paper map, f32: state and
+              edges (and the map's frames) bit for bit, av and captures at
+              TOL;
+ 23. streaming: B3's streaming form where no cluster holds a point, 8
+              points at N=100 M=4000 f32, against its plain version (an
+              E_dc sweep 300 steps, an omega sweep to its end with
+              frames).
 The last lines are the operation counts and bounds of the main paths, a
 JSON record of the kernels (ms, plain_ms and bound_ms per step, per turn
-for P1, per pass for P2; bound_ms is the larger of the main path's
+for P1, per pass for P2; B3's with its form, cluster size, shared
+bytes, registers, clusters at once and ms_streaming, the streaming form's
+time in the same run; bound_ms is the larger of the main path's
 operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
 read once and each output written once, at 3.35 TB/s, over its steps;
 bound_ms_at_p1_rate the same at the rate P1 measured) and
@@ -228,6 +246,16 @@ LANES_MAX_POINTS = 16
 # bench.py:177-182's omega sweep: omega = linspace(0.8, 1.2, 64) at the
 # 64-point E_dc sweep's config (t-max=0.1, one period, ~7,950 steps)
 OMEGA64_ARGV = SWEEP_ARGV[:-1] + ["sweep:omega=0.8,1.2,64"]
+# sweeps of points past cluster residency, on B3's streaming form: 8
+# points at BASELINE #4's N=100 M=4000 (6.8 MB a point in float), E_dc
+# swept, and 8 omegas (periods 0.21-0.31, t-max=0.01, so a run to the end,
+# 321 steps, crosses every loop exit)
+WIDE8 = dict(t_start=0.1, **BASELINE4)
+OMEGA_WIDE8 = dict(t_start=0.01, **BASELINE4)
+# the ragged grids' points at the sweeps' N=40 M=500 (NHP=48, MP=512),
+# where a cluster of 2 (float) or 4 (double) blocks is the smallest to
+# hold a point
+GRID40 = dict(n_harmonics=40, g_grid=500)
 
 # The least time the card could take for a main path's kernel work
 # (bound_ms).  Its operations are the floating-point adds, multiplies and
@@ -353,10 +381,12 @@ def check_kernel_vs_plain(shape, dtype, n_steps=500):
     return err
 
 
-def time_per_step(fn, n_steps, reps=1):
-    """ms per step of fn() (which runs n_steps), by CUDA events."""
+def time_per_step(fn, n_steps, reps=1, warm=True):
+    """ms per step of fn() (which runs n_steps), by CUDA events, after one
+    warm-up call when `warm`."""
     import torch
-    fn()                                     # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -501,6 +531,9 @@ def sweep_grid(shape):
         params = {"E_dc": np.linspace(0.3, 2.0, 6),
                   **{k: np.asarray(v) for k, v in RAGGED_PARAMS.items()}}
         return {**PHYS, **SWEEP_RAGGED}, params
+    if shape in ("ragged40", "omega_ragged40"):
+        kw, params = sweep_grid(shape[:-2])
+        return {**kw, **GRID40}, params
     if shape == "omega_ragged":
         return ({**PHYS, **OMEGA_RAGGED},
                 {k: np.asarray(v) for k, v in OMEGA_RAGGED_PARAMS.items()})
@@ -514,11 +547,19 @@ def sweep_grid(shape):
     if shape == "omega64":
         return ({**PHYS, **SWEEP_FULL},
                 {"omega": np.linspace(0.8, 1.2, SWEEP_POINTS)})
+    if shape == "wide8":
+        return {**PHYS, **WIDE8}, {"E_dc": np.linspace(0.5, 2.0, 8)}
+    if shape == "omega_wide8":
+        return ({**PHYS, **OMEGA_WIDE8},
+                {"omega": np.linspace(20.0, 30.0, 8)})
     return ({**PHYS, **SWEEP_FULL},
             {"E_dc": np.linspace(0.1, 3.0, SWEEP_POINTS)})
 
 
-def _sweep_setup(shape, dtype, impl="cuda"):
+def _sweep_setup(shape, dtype, impl="cuda", cluster_size=None):
+    """(sweep, its B3 runner) at one sweep check shape; cluster_size as
+    SweepStackRunner takes it (None: cluster_plan's form, 0: the
+    streaming form)."""
     import torch
     from slb2d_tpu_torch.config import SimConfig
     from slb2d_tpu_torch.ops import sweep_stack_cuda
@@ -529,22 +570,32 @@ def _sweep_setup(shape, dtype, impl="cuda"):
     if impl == "torch":
         return sweep, None
     check(sweep.engine == "cuda", f"sweep engine {sweep.engine}, not cuda")
-    return sweep, sweep_stack_cuda.SweepStackRunner(sweep)
+    return sweep, sweep_stack_cuda.SweepStackRunner(
+        sweep, cluster_size=cluster_size)
 
 
-def check_sweep_kernel_vs_plain(shape, dtype, n_steps=300):
-    """Run the sweep kernel and its plain version from one batched state
+def form_name(runner):
+    """'cluster CS=2' or 'streaming': the B3 form a runner launches."""
+    return (f"cluster CS={runner.cluster_size}" if runner.form == "cluster"
+            else "streaming")
+
+
+def check_sweep_kernel_vs_plain(shape, dtype, n_steps=300,
+                                cluster_size=None):
+    """Run the sweep kernel (in the form cluster_size picks, as
+    _sweep_setup takes it) and its plain version from one batched state
     over the same exact tables, in two chunks (the first odd, so the
-    second starts at parity 1); raise on disagreement.  Returns the
-    largest abs difference of the state arrays."""
+    second starts at parity 1); raise on disagreement: the state arrays
+    and edges bit for bit, av at TOL.  Returns (the largest abs difference
+    of av, the runner)."""
     import torch
     from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
-    sweep, runner = _sweep_setup(shape, dtype)
+    sweep, runner = _sweep_setup(shape, dtype, cluster_size=cluster_size)
     state0 = sweep._initial_states()
     kern, plain = state0.clone(), state0.clone()
     torch.cuda.synchronize()
     tol = TOL[dtype]
-    what = f"sweep {dtype} {shape} B={sweep.B}"
+    what = f"sweep {dtype} {shape} B={sweep.B} {form_name(runner)}"
     dc_only = ~runner.egate
     err = 0.0
     n1 = n_steps // 2 + 1
@@ -560,31 +611,47 @@ def check_sweep_kernel_vs_plain(shape, dtype, n_steps=300):
         check(runner.launches - launches0 == want,
               f"{what}: {runner.launches - launches0} launches for {n} "
               f"steps (expected {want})")
-        for f in ("a", "b", "a_hs", "b_hs"):
-            err = max(err, allclose(getattr(kern, f), getattr(plain, f),
-                                    what=f"{what} {f}", **tol))
-        allclose(kern.av, plain.av, what=f"{what} av", **tol)
-        for f in ("hs_edge_a", "hs_edge_b"):
-            check(torch.equal(getattr(kern, f), getattr(plain, f)),
-                  f"{what} {f} not bit for bit")
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            k, p = getattr(kern, f), getattr(plain, f)
+            allclose(k, p, what=f"{what} {f}", **tol)
+            check(torch.equal(k, p), f"{what} {f} not bit for bit")
+        err = max(err, allclose(kern.av, plain.av, what=f"{what} av", **tol))
         for st, name in ((kern, "kernel"), (plain, "plain")):
             check(bool(torch.all(st.av[dc_only] == 0)),
                   f"{what}: the dc-only point's av is not 0 ({name})")
         check(torch.equal(kern.step, plain.step), f"{what}: step count")
         check(torch.equal(kern.t, plain.t), f"{what}: loop t")
-    if shape == "ragged":
+    if shape in ("ragged", "ragged40"):
         check(bool(dc_only.any()), "the ragged grid has no dc-only point")
-    return err
+    return err, runner
+
+
+def in_turns(cluster_fn, streaming_fn, n_steps):
+    """ms per step of the cluster and the streaming form, each timed
+    twice by CUDA events in turns (cluster, streaming, streaming,
+    cluster) after one warm-up call each: ([cluster ms], [streaming
+    ms])."""
+    out = {cluster_fn: [], streaming_fn: []}
+    for fn in (cluster_fn, streaming_fn):
+        fn()
+    for fn in (cluster_fn, streaming_fn, streaming_fn, cluster_fn):
+        out[fn].append(time_per_step(fn, n_steps, warm=False))
+    return out[cluster_fn], out[streaming_fn]
 
 
 def sweep_kernel_ms(n_kernel=1000, n_plain=30, n_engine=300):
-    """ms per step of the sweep kernel (CUDA events, one launch for
-    n_kernel steps), of its plain version and of the batched torch engine
-    (host clock to a synchronise), at the 64-point shape in f32."""
+    """ms per step of the sweep kernel in its cluster and its streaming
+    form (CUDA events, one launch for n_kernel steps, in turns), of its
+    plain version and of the batched torch engine (host clock to a
+    synchronise), at the 64-point shape in f32: (cluster [ms], streaming
+    [ms], plain, engine, the sweep)."""
     import torch
     from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
     from slb2d_tpu_torch.parallel import sweep as swmod
     sweep, runner = _sweep_setup("full", "f32")
+    check(runner.form == "cluster", f"the 64-point sweep's form is "
+          f"{runner.form}")
+    streaming = ssc.SweepStackRunner(sweep, cluster_size=0)
     st = sweep._initial_states()
     xs = runner.chunk_table(n_plain)
     torch.cuda.synchronize()
@@ -592,8 +659,8 @@ def sweep_kernel_ms(n_kernel=1000, n_plain=30, n_engine=300):
     ssc.run_chunk_plain(sweep.consts, st.clone(), xs, 0, runner.egate)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
-    k_ms = time_per_step(lambda: runner.advance(st, n_kernel), n_kernel,
-                         reps=2)
+    k_ms, s_ms = in_turns(lambda: runner.advance(st, n_kernel),
+                          lambda: streaming.advance(st, n_kernel), n_kernel)
     cap = _zero_cap(sweep)
     weights = sweep._weights()
     eng = sweep._initial_states()
@@ -603,34 +670,20 @@ def sweep_kernel_ms(n_kernel=1000, n_plain=30, n_engine=300):
     swmod._run_sweep(sweep.consts, eng, cap, weights, n_engine)
     torch.cuda.synchronize()
     e_ms = (time.perf_counter() - t0) * 1e3 / n_engine
-    return k_ms, p_ms, e_ms, sweep
+    return k_ms, s_ms, p_ms, e_ms, sweep
 
 
 def sweep_main_phase(card):
-    """The sweep CLI on the 64-point sweep; returns (kernel launches, wall
-    seconds, steps per point)."""
+    """The sweep CLI on the 64-point sweep, on B3's cluster form; returns
+    (kernel launches, wall seconds, steps per point)."""
     import numpy as np
-    import torch
     from slb2d_tpu_torch import sweep_cli
-    from slb2d_tpu_torch.ops import stepper_cuda, sweep_stack_cuda as ssc
-    sweep, _ = _sweep_setup("full", "f32")
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    (_, wall, text, sweep, _, (omega_launches, launches, step_launches,
+                               cluster, streaming)) = \
+        _run_cli_keeping_results(SWEEP_ARGV)
     steps = sweep.n_steps
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "sweep.txt")
-        torch.cuda.synchronize()
-        stepper_cuda.launch_count = 0
-        ssc.launch_count = 0
-        ssc.omega_launch_count = 0
-        t0 = time.perf_counter()
-        rc = sweep_cli.main(SWEEP_ARGV + [f"o={path}"])
-        wall = time.perf_counter() - t0      # ends in the result fetch,
-                                             # which synchronises
-        launches = ssc.launch_count
-        step_launches = stepper_cuda.launch_count
-        omega_launches = ssc.omega_launch_count
-        check(rc == 0, f"sweep_cli.main returned {rc}")
-        with open(path) as fh:
-            text = fh.read()
+    runner = sweep._stack_runner
     lines = text.splitlines()
     check(lines[0] + "\n" == sweep_cli.HEADER,
           f"sweep header {lines[0]!r}")
@@ -649,10 +702,14 @@ def sweep_main_phase(card):
     check(step_launches == 0, "the sweep path launched the step kernel")
     check(omega_launches == 0,
           "the shared-omega sweep launched the per-omega kernel")
+    check(runner.form == "cluster" and (cluster, streaming) == (want, 0),
+          f"the sweep ran on the {runner.form} form; (cluster, streaming) "
+          f"launches {(cluster, streaming)}, expected {(want, 0)}")
     sites = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * steps * sweep.B
     print(f"sweep main: sweep_cli {SWEEP_POINTS}-point E_dc sweep N=40 "
-          f"M=500 f32 impl=cuda: {steps} steps, {launches} launch(es), "
-          f"max |norm-1| {norm_err:.3e}, wall {wall:.3f} s, "
+          f"M=500 f32 impl=cuda: {form_name(runner)}, {steps} steps, "
+          f"{launches} launch(es) (cluster {cluster}, streaming "
+          f"{streaming}), max |norm-1| {norm_err:.3e}, wall {wall:.3f} s, "
           f"{sites / wall:.4e} site-updates/s [{card}]", flush=True)
     return launches, wall, steps
 
@@ -671,19 +728,21 @@ def _zero_cap(sweep, frames=False):
     return cap
 
 
-def check_omega_kernel_vs_plain(shape, dtype, n_steps=None, start=0):
-    """Run the per-omega sweep kernel and its plain version from one
-    batched state over the same tables, in two chunks (151 steps, so the
-    second starts at parity 1; both cross resync steps), with the frames
-    capture on; raise on disagreement.  The state is first advanced
-    `start` steps by the kernel.  n_steps=None runs to the sweep's end,
-    past every point's loop exit.  Returns (largest abs difference of the
-    state arrays, of the four capture sums, whether the state arrays and
-    the frames agreed bit for bit, points whose capture fired)."""
+def check_omega_kernel_vs_plain(shape, dtype, n_steps=None, start=0,
+                                cluster_size=None):
+    """Run the per-omega sweep kernel (in the form cluster_size picks, as
+    _sweep_setup takes it) and its plain version from one batched state
+    over the same tables, in two chunks (151 steps, so the second starts
+    at parity 1; both cross resync steps), with the frames capture on;
+    raise on disagreement: the state arrays, edges and frames bit for bit,
+    av and the capture sums at TOL.  The state is first advanced `start`
+    steps by the kernel.  n_steps=None runs to the sweep's end, past every
+    point's loop exit.  Returns (largest abs difference of av, of the four
+    capture sums, points whose capture fired, the runner)."""
     import torch
     from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
     from slb2d_tpu_torch.ops.stencil import CAP_KEYS
-    sweep, runner = _sweep_setup(shape, dtype)
+    sweep, runner = _sweep_setup(shape, dtype, cluster_size=cluster_size)
     check(runner.per_omega, f"{shape}: the runner is not in per-omega mode")
     n_steps = n_steps or sweep.n_steps - start
     state0, cap0 = sweep._initial_states(), _zero_cap(sweep, frames=True)
@@ -695,10 +754,10 @@ def check_omega_kernel_vs_plain(shape, dtype, n_steps=None, start=0):
     fired0 = cap0["norm"] != 0
     torch.cuda.synchronize()
     tol = TOL[dtype]
-    what = f"omega {dtype} {shape} B={sweep.B} from step {start}"
+    what = (f"omega {dtype} {shape} B={sweep.B} from step {start} "
+            f"{form_name(runner)}")
     dc_only = ~runner.egate
     err = cap_err = 0.0
-    bitwise = True
     for n in (151, n_steps - 151):
         xs = runner.chunk_table(n)
         parity0 = runner.step0 % 2
@@ -712,21 +771,19 @@ def check_omega_kernel_vs_plain(shape, dtype, n_steps=None, start=0):
         check(runner.launches - launches0 == want,
               f"{what}: {runner.launches - launches0} launches for {n} "
               f"steps (expected {want})")
-        for f in ("a", "b", "a_hs", "b_hs"):
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
             k, p = getattr(kern, f), getattr(plain, f)
-            err = max(err, allclose(k, p, what=f"{what} {f}", **tol))
-            bitwise = bitwise and torch.equal(k, p)
-        allclose(kern.av, plain.av, what=f"{what} av", **tol)
+            allclose(k, p, what=f"{what} {f}", **tol)
+            check(torch.equal(k, p), f"{what} {f} not bit for bit")
+        err = max(err, allclose(kern.av, plain.av, what=f"{what} av", **tol))
         for k in CAP_KEYS:
             cap_err = max(cap_err, allclose(kcap[k], pcap[k],
                                             what=f"{what} capture {k}",
                                             **tol))
         for k in ("a", "b"):
             allclose(kcap[k], pcap[k], what=f"{what} frames {k}", **tol)
-            bitwise = bitwise and torch.equal(kcap[k], pcap[k])
-        for f in ("hs_edge_a", "hs_edge_b"):
-            check(torch.equal(getattr(kern, f), getattr(plain, f)),
-                  f"{what} {f} not bit for bit")
+            check(torch.equal(kcap[k], pcap[k]),
+                  f"{what} frames {k} not bit for bit")
         for st, name in ((kern, "kernel"), (plain, "plain")):
             check(bool(torch.all(st.av[dc_only] == 0)),
                   f"{what}: the dc-only point's av is not 0 ({name})")
@@ -742,9 +799,9 @@ def check_omega_kernel_vs_plain(shape, dtype, n_steps=None, start=0):
         # run to the end: every point's capture fired (norm ~1, not 0)
         check(bool(torch.all(kcap["norm"] != 0)),
               f"{what}: a point's loop-exit capture never fired")
-    if shape == "omega_ragged":
+    if shape in ("omega_ragged", "omega_ragged40"):
         check(bool(dc_only.any()), "the omega grid has no dc-only point")
-    return err, cap_err, bitwise, int(fired.sum())
+    return err, cap_err, int(fired.sum()), runner
 
 
 def batched_engine_ms(shape, n_steps=300):
@@ -764,13 +821,17 @@ def batched_engine_ms(shape, n_steps=300):
 
 
 def omega_kernel_ms(shape, n_kernel=None, n_plain=30):
-    """ms per step of the per-omega sweep kernel (CUDA events, the first
-    n_kernel steps of the sweep, by default all of them, in one launch
-    per chunk as the main path runs them) and of its plain version (host
-    clock, n_plain steps from step 0), f32."""
+    """ms per step of the per-omega sweep kernel in its cluster and its
+    streaming form (CUDA events, the first n_kernel steps of the sweep, by
+    default all of them, in one launch per chunk as the main path runs
+    them, the forms in turns) and of its plain version (host clock,
+    n_plain steps from step 0), f32: (cluster [ms], streaming [ms],
+    plain, the sweep)."""
     import torch
     from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
     sweep, runner = _sweep_setup(shape, "f32")
+    check(runner.form == "cluster", f"{shape}'s form is {runner.form}")
+    streaming = ssc.SweepStackRunner(sweep, cluster_size=0)
     n_kernel = n_kernel or sweep.n_steps
     st = sweep._initial_states()
     xs = runner.chunk_table(n_plain)
@@ -782,12 +843,13 @@ def omega_kernel_ms(shape, n_kernel=None, n_plain=30):
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
 
-    def kernel():
-        runner.seek(0)              # the same steps, windows and exits
-        runner.advance(st.clone(), n_kernel, cap=_zero_cap(sweep))
+    def kernel(r):
+        r.seek(0)                   # the same steps, windows and exits
+        r.advance(st.clone(), n_kernel, cap=_zero_cap(sweep))
 
-    k_ms = time_per_step(kernel, n_kernel)
-    return k_ms, p_ms, sweep
+    k_ms, s_ms = in_turns(lambda: kernel(runner), lambda: kernel(streaming),
+                          n_kernel)
+    return k_ms, s_ms, p_ms, sweep
 
 
 def omega_sweep_phase(card):
@@ -833,7 +895,8 @@ def expected_av_counts(sweep):
 def _run_cli_keeping_results(argv):
     """sweep_cli.main(argv) with the launch counts zeroed just before and
     read just after; returns (rc, wall, table text, the ParameterSweep,
-    its results, (per-omega, shared, step kernel launches))."""
+    its results, (per-omega, shared, step kernel launches, B3 launches on
+    the cluster form, on the streaming form))."""
     import torch
     from slb2d_tpu_torch import sweep_cli
     from slb2d_tpu_torch.ops import stepper_cuda, sweep_stack_cuda as ssc
@@ -852,13 +915,14 @@ def _run_cli_keeping_results(argv):
             path = os.path.join(tmp, "sweep.txt")
             torch.cuda.synchronize()
             stepper_cuda.launch_count = 0
-            ssc.launch_count = 0
-            ssc.omega_launch_count = 0
+            ssc.launch_count = ssc.omega_launch_count = 0
+            ssc.cluster_launch_count = ssc.streaming_launch_count = 0
             t0 = time.perf_counter()
             rc = sweep_cli.main(argv + [f"o={path}"])
             wall = time.perf_counter() - t0  # ends in the result fetch
             counts = (ssc.omega_launch_count, ssc.launch_count,
-                      stepper_cuda.launch_count)
+                      stepper_cuda.launch_count, ssc.cluster_launch_count,
+                      ssc.streaming_launch_count)
             with open(path) as fh:
                 text = fh.read()
     finally:
@@ -873,9 +937,11 @@ def omega_main_phase(card):
     import numpy as np
     from slb2d_tpu_torch import sweep_cli
     from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
-    _, wall, text, sweep, res, (launches, shared, step) = \
+    (_, wall, text, sweep, res, (launches, shared, step, cluster,
+                                 streaming)) = \
         _run_cli_keeping_results(PAPER_ARGV)
     steps = sweep.n_steps
+    runner = sweep._stack_runner
     check(sweep.engine == "cuda", f"paper map on the {sweep.engine} engine")
     lines = text.splitlines()
     check(lines[0] + "\n" == sweep_cli.HEADER, f"header {lines[0]!r}")
@@ -899,9 +965,13 @@ def omega_main_phase(card):
           f"{steps} steps (expected {want})")
     check(shared == 0, "the omega map launched the shared-omega kernel")
     check(step == 0, "the omega map launched the step kernel")
+    check(runner.form == "cluster" and (cluster, streaming) == (want, 0),
+          f"the map ran on the {runner.form} form; (cluster, streaming) "
+          f"launches {(cluster, streaming)}, expected {(want, 0)}")
     sites = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * steps * sweep.B
     print(f"omega main: sweep_cli 16x16 paper map N=40 M=500 f32 impl=cuda: "
-          f"{steps} steps, {launches} launch(es), av_count = schedule for "
+          f"{form_name(runner)}, {steps} steps, {launches} launch(es) "
+          f"(cluster {cluster}, streaming {streaming}), av_count = schedule for "
           f"all {sweep.B} points, max |norm-1| {norm_err:.3e}, wall "
           f"{wall:.3f} s, {sites / wall:.4e} site-updates/s [{card}]",
           flush=True)
@@ -914,7 +984,7 @@ def omega_routing_phase(card, paper_wall, paper_steps):
     times the steps (a lower bound of its wall), at bench.py's 64-point
     omega sweep and at the paper map."""
     rows = []
-    _, wall64, _, sw64, _, (n64, _, _) = \
+    _, wall64, _, sw64, _, (n64, *_) = \
         _run_cli_keeping_results(OMEGA64_ARGV)
     check(sw64.engine == "cuda" and n64 >= 1,
           "the 64-point omega sweep did not launch the per-omega kernel")
@@ -979,20 +1049,24 @@ def frames_phase(card):
              "n-harmonics=8", "PhiYmin=-10", "PhiYmax=10", "B=0.1",
              "t-max=0.3", "dt=1e-3", "g-grid=24", "quiet=1"]
     omega = ["sweep:omega=8;12", "sweep:E_dc=0.5;1.5"]
-    runs = (("fa", "cuda", ["sweep:E_dc=0.5;1.5"], 2, (1, 0)),
-            ("fc", "cuda", omega, 4, (0, 1)),
-            ("fu", "auto", omega, 4, (0, 1)),
-            ("fb", "torch", omega, 4, (0, 0)))
+    # (shared, per-omega, cluster-form, streaming-form) launches
+    runs = (("fa", "cuda", ["sweep:E_dc=0.5;1.5"], 2, (1, 0, 1, 0)),
+            ("fc", "cuda", omega, 4, (0, 1, 1, 0)),
+            ("fu", "auto", omega, 4, (0, 1, 1, 0)),
+            ("fb", "torch", omega, 4, (0, 0, 0, 0)))
     with tempfile.TemporaryDirectory() as tmp:
         for name, impl, grid, n, want in runs:
             ssc.launch_count = ssc.omega_launch_count = 0
+            ssc.cluster_launch_count = ssc.streaming_launch_count = 0
             rc = sweep_cli.main(small + [f"impl={impl}", *grid,
                                          f"o={tmp}/{name}.txt",
                                          f"frames-dir={tmp}/{name}"])
-            got = (ssc.launch_count, ssc.omega_launch_count)
+            got = (ssc.launch_count, ssc.omega_launch_count,
+                   ssc.cluster_launch_count, ssc.streaming_launch_count)
             check(rc == 0 and got == want,
                   f"frames run {name} (impl={impl}): rc {rc}, (shared, "
-                  f"per-omega) kernel launches {got}, expected {want}")
+                  f"per-omega, cluster, streaming) kernel launches {got}, "
+                  f"expected {want}")
             _check_frames(os.path.join(tmp, name, "grid00"), n, 24)
         ref = _frame_values(os.path.join(tmp, "fb", "grid00"), 4)
         worst = 0.0
@@ -1007,10 +1081,88 @@ def frames_phase(card):
                 worst = max(worst, float(err.max() / np.abs(want).max()))
     print(f"frames: sweep_cli frames-dir= shared omega on the kernel (1 "
           f"launch), omega grid on the per-omega kernel (impl=cuda, "
-          f"impl=auto; 1 launch each) and on the batched engine "
+          f"impl=auto; 1 launch each, cluster form) and on the batched engine "
           f"(impl=torch); files and norms ok; kernel vs batched engine "
           f"frames max abs err {worst:.3e} of the frame's largest value "
           f"[{card}]", flush=True)
+
+
+def forms_phase(card):
+    """What each form of B3 takes on the card, both modes, float and
+    double, at N=40 M=500 (NHP=48, MP=512) and at the ragged grids'
+    NHP=16 MP=128: registers and spill bytes a thread, shared memory a
+    block and the clusters (streaming form: blocks) that run at once, for
+    the streaming form and every cluster size that holds the point.
+    Raises where a cluster the plan allows cannot run on the card.
+    Returns {(shape, dtype, per_omega, cluster size): form_info}."""
+    import numpy as np
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    out = {}
+    for shape, NHP, MP in (("N=40 M=500", 48, 512), ("NHP=16 MP=128", 16,
+                                                     128)):
+        for dtype in ("f32", "f64"):
+            D = np.float32 if dtype == "f32" else np.float64
+            sizes = [cs for cs in ssc.CLUSTER_SIZES
+                     if ssc.cluster_smem_bytes(NHP, MP, D, cs) is not None]
+            for per_omega in (False, True):
+                for cs in [0] + sizes:
+                    info = ssc.form_info(D, per_omega, cs, NHP, MP)
+                    check(info["active_clusters"] > 0,
+                          f"B3 {shape} {dtype} cluster size {cs}: no "
+                          f"cluster runs on the card")
+                    out[shape, dtype, per_omega, cs] = info
+    print("forms: B3 on the card, (shape, dtype, mode, cluster size (0: "
+          "streaming)): registers, spill bytes, shared bytes a block, "
+          "clusters at once: " + "; ".join(
+              f"{sh} {d} {'per-omega' if po else 'shared'} {cs}: "
+              f"{v['registers']}, {v['local_bytes']}, {v['smem_bytes']}, "
+              f"{v['active_clusters']}"
+              for (sh, d, po, cs), v in out.items()) + f" [{card}]",
+          flush=True)
+    return out
+
+
+def check_cluster_vs_streaming(shape):
+    """B3's cluster form (the plan's) against its streaming form over the
+    whole sweep from one state, f32, one launch per chunk as the main path
+    runs it: the state arrays and edges (per-omega mode: and the frames)
+    bit for bit, av and the capture sums at TOL.  Returns (largest abs
+    difference of av, of the capture sums, the cluster-form runner)."""
+    import torch
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    from slb2d_tpu_torch.ops.stencil import CAP_KEYS
+    sweep, clu = _sweep_setup(shape, "f32")
+    check(clu.form == "cluster", f"{shape}: the {clu.form} form")
+    stm = ssc.SweepStackRunner(sweep, cluster_size=0)
+    state0 = sweep._initial_states()
+    n, tol = sweep.n_steps, TOL["f32"]
+    what = f"{shape} cluster form vs streaming form"
+    if clu.per_omega:
+        got, gcap = clu.advance(state0.clone(), n,
+                                cap=_zero_cap(sweep, frames=True))
+        ref, rcap = stm.advance(state0.clone(), n,
+                                cap=_zero_cap(sweep, frames=True))
+    else:
+        got, ref = clu.advance(state0.clone(), n), stm.advance(
+            state0.clone(), n)
+        gcap = rcap = {}
+    torch.cuda.synchronize()
+    want = -(-n // ssc.CHUNK_STEPS) * ssc.LAUNCHES_PER_CHUNK
+    check(clu.launches == stm.launches == want,
+          f"{what}: launches {clu.launches}, {stm.launches} (expected "
+          f"{want})")
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+        check(torch.equal(getattr(got, f), getattr(ref, f)),
+              f"{what}: {f} not bit for bit")
+    err = allclose(got.av, ref.av, what=f"{what} av", **tol)
+    cap_err = 0.0
+    for k in CAP_KEYS if clu.per_omega else ():
+        cap_err = max(cap_err, allclose(gcap[k], rcap[k],
+                                        what=f"{what} capture {k}", **tol))
+    for k in ("a", "b") if clu.per_omega else ():
+        check(torch.equal(gcap[k], rcap[k]),
+              f"{what}: frames {k} not bit for bit")
+    return err, cap_err, clu
 
 
 def main_path_flops(m, steps, points=1, av_steps=0, captures=0,
@@ -1072,7 +1224,8 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(lanes_half_step|t_half_step|half_step|av_step|"
-                          r"record_step|sweep_chunk|stream_tile|"
+                          r"record_step|sweep_chunk|sweep_cluster|"
+                          r"stream_tile|"
                           r"stream_replay|vpu_chain|roll_resident_rows|"
                           r"roll_resident_cols|roll_pass)"
                           r"(?:I([fd])?(?:Li(\d)E)?(?:Lb([01]))?)?",
@@ -1595,6 +1748,8 @@ def zero_counts():
                 sweep_stack_cuda, vpu_roofline, transposed_experiment):
         mod.launch_count = 0
     sweep_stack_cuda.omega_launch_count = 0
+    sweep_stack_cuda.cluster_launch_count = 0
+    sweep_stack_cuda.streaming_launch_count = 0
     roll_cost_experiment.resident_launch_count = 0
     roll_cost_experiment.pass_launch_count = 0
 
@@ -1887,21 +2042,30 @@ def main():
           f"{per_step * 2000 / plain_wall:.4e} site-updates/s; kernel path "
           f"{per_step * steps / wall:.4e} [{card}]", flush=True)
 
-    # 6. the sweep kernel against its plain version, and its times
+    # 6. the sweep kernel against its plain version (the form the plan
+    # picks: clusters at both shapes), what each form takes on the card,
+    # and the two forms' times in turns
     sweep_err = {}
     for shape in ("full", "ragged"):
         for dtype in ("f64", "f32"):
-            sweep_err[shape, dtype] = check_sweep_kernel_vs_plain(shape,
-                                                                  dtype)
-    print("sweep kernel: vs plain, 300 steps in 2 chunks, edges bit for "
-          "bit, dc-only av 0: " +
-          ", ".join(f"{s} {d} max abs err {e:.3e}"
-                    for (s, d), e in sweep_err.items()) + " ok", flush=True)
-    sk_ms, sp_ms, se_ms, sweep = sweep_kernel_ms()
+            err, runner = check_sweep_kernel_vs_plain(shape, dtype)
+            check(runner.form == "cluster", f"{shape} {dtype}: the "
+                  f"{runner.form} form, not the cluster form")
+            sweep_err[shape, dtype] = err, form_name(runner)
+    print("sweep kernel: vs plain, 300 steps in 2 chunks, state and edges "
+          "bit for bit, dc-only av 0: " +
+          ", ".join(f"{s} {d} {f} av max abs err {e:.3e}"
+                    for (s, d), (e, f) in sweep_err.items()) + " ok",
+          flush=True)
+    forms = forms_phase(card)
+    sk, ss, sp_ms, se_ms, sweep = sweep_kernel_ms()
+    sk_ms, ss_ms = sum(sk) / len(sk), sum(ss) / len(ss)
     per_step = 2 * (sweep.base.N + 1) * (sweep.base.M + 1) * sweep.B
-    print(f"sweep kernel time {SWEEP_POINTS}-point N=40 M=500 f32: kernel "
-          f"{sk_ms:.5f} ms/step (1 launch per chunk, CUDA events), plain "
-          f"version {sp_ms:.5f} ms/step, batched torch engine "
+    print(f"sweep kernel time {SWEEP_POINTS}-point N=40 M=500 f32 (1 launch "
+          f"per chunk, CUDA events, in turns): cluster form "
+          f"{', '.join(f'{v:.5f}' for v in sk)} ms/step, streaming form "
+          f"{', '.join(f'{v:.5f}' for v in ss)} ms/step; plain version "
+          f"{sp_ms:.5f} ms/step, batched torch engine "
           f"{se_ms:.5f} ms/step = {per_step / (se_ms * 1e-3):.4e} "
           f"site-updates/s (host clock) [{card}]", flush=True)
 
@@ -1918,26 +2082,34 @@ def main():
     # ~5000) across its first loop exits (steps ~5449 on)
     omega_err["paper", "f32"] = check_omega_kernel_vs_plain(
         "paper", "f32", n_steps=751, start=4990)
+    for (shape, dtype), (*_, runner) in omega_err.items():
+        check(runner.form == "cluster", f"omega {shape} {dtype}: the "
+              f"{runner.form} form, not the cluster form")
     print("omega kernel: vs plain with frames, 151 steps + the rest from "
-          "parity 1, edges bit for bit, dc-only av 0: " +
-          ", ".join(f"{s} {d} max abs err {e:.3e} (capture {c:.3e}, {n} "
-                    f"exits{', state and frames bit for bit' if b else ''})"
-                    for (s, d), (e, c, b, n) in omega_err.items()) + " ok",
+          "parity 1, state, edges and frames bit for bit, dc-only av 0: " +
+          ", ".join(f"{s} {d} {form_name(r)} av max abs err {e:.3e} "
+                    f"(capture {c:.3e}, {n} exits)"
+                    for (s, d), (e, c, n, r) in omega_err.items()) + " ok",
           flush=True)
-    ok_ms, op_ms, osweep = omega_kernel_ms("omega16x4")
+    ok, os_, op_ms, osweep = omega_kernel_ms("omega16x4")
+    ok_ms = sum(ok) / len(ok)
     oe_ms, _ = batched_engine_ms("omega16x4")
     per_step = 2 * (osweep.base.N + 1) * (osweep.base.M + 1) * osweep.B
     print(f"omega kernel time 16x4 N=40 M=500 f32, whole sweep "
-          f"({osweep.n_steps} steps): kernel {ok_ms:.5f} ms/step (CUDA "
-          f"events), plain version {op_ms:.5f} ms/step, batched torch "
-          f"engine {oe_ms:.5f} ms/step; kernel "
-          f"{per_step / (ok_ms * 1e-3):.4e} site-updates/s [{card}]",
-          flush=True)
-    pk_ms, pp_ms, psweep = omega_kernel_ms("paper")
+          f"({osweep.n_steps} steps, CUDA events, in turns): cluster form "
+          f"{', '.join(f'{v:.5f}' for v in ok)} ms/step, streaming form "
+          f"{', '.join(f'{v:.5f}' for v in os_)} ms/step; plain version "
+          f"{op_ms:.5f} ms/step, batched torch engine {oe_ms:.5f} ms/step; "
+          f"cluster form {per_step / (ok_ms * 1e-3):.4e} site-updates/s "
+          f"[{card}]", flush=True)
+    pk, ps, pp_ms, psweep = omega_kernel_ms("paper")
+    pk_ms, ps_ms = sum(pk) / len(pk), sum(ps) / len(ps)
     print(f"omega kernel time 16x16 paper map f32, whole sweep "
-          f"({psweep.n_steps} steps, windows and exits included): kernel "
-          f"{pk_ms:.5f} ms/step (CUDA events), plain version {pp_ms:.5f} "
-          f"ms/step [{card}]", flush=True)
+          f"({psweep.n_steps} steps, windows and exits included; CUDA "
+          f"events, in turns): cluster form "
+          f"{', '.join(f'{v:.5f}' for v in pk)} ms/step, streaming form "
+          f"{', '.join(f'{v:.5f}' for v in ps)} ms/step; plain version "
+          f"{pp_ms:.5f} ms/step [{card}]", flush=True)
 
     # 9. the omega sweep through the kernel against the batched engine
     omega_sweep_phase(card)
@@ -2013,6 +2185,30 @@ def main():
     (p3, p3_launches, p3_plain_ms, p3_err, p3_model,
      p3_tc) = transposed_phase(card)
 
+    # 22. B3's cluster form against its streaming form over whole sweeps
+    vs_stream = {shape: check_cluster_vs_streaming(shape)
+                 for shape in ("full", "paper")}
+    print("forms vs: B3 cluster form against its streaming form over the "
+          "whole sweep, f32, state and edges (and frames) bit for bit: " +
+          ", ".join(f"{s} {form_name(r)} av max abs err {e:.3e}"
+                    + (f" capture {c:.3e}" if r.per_omega else "")
+                    for s, (e, c, r) in vs_stream.items()) + f" ok [{card}]",
+          flush=True)
+
+    # 23. the streaming form, where no cluster holds a point, against its
+    # plain version
+    w_err, w_runner = check_sweep_kernel_vs_plain("wide8", "f32")
+    ow_err, ow_cap, ow_exits, ow_runner = check_omega_kernel_vs_plain(
+        "omega_wide8", "f32")
+    check(w_runner.form == ow_runner.form == "streaming",
+          f"8 points at N=100 M=4000 ran on the {w_runner.form} and "
+          f"{ow_runner.form} forms")
+    print(f"streaming: B3's streaming form past cluster residency, 8 points "
+          f"at N=100 M=4000 f32 vs plain, state and edges bit for bit: "
+          f"E_dc sweep 300 steps av max abs err {w_err:.3e}; omega sweep "
+          f"to its end with frames av max abs err {ow_err:.3e} (capture "
+          f"{ow_cap:.3e}, {ow_exits} exits) ok [{card}]", flush=True)
+
     # the bounds of each main path's run (B1: the tall grid, where impl=cuda
     # takes it; B2: the wide grid's impl=stream run, the same work as B1
     # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
@@ -2050,6 +2246,17 @@ def main():
     b2_ms = routing["N=100 M=12000"][1]
     times = {"B1": b1_ms, "B3 shared": sk_ms, "B3 per-omega": pk_ms,
              "B2": b2_ms, "B4": b4_ms}
+    # B3's form on each main path, and what it takes on the card
+    b3_form = {}
+    for key, shape, per_omega in (("B3 shared", "full", False),
+                                  ("B3 per-omega", "paper", True)):
+        runner = vs_stream[shape][2]
+        info = forms["N=40 M=500", "f32", per_omega, runner.cluster_size]
+        b3_form[key] = dict(form=runner.form,
+                            cluster_size=runner.cluster_size,
+                            smem_bytes=info["smem_bytes"],
+                            registers=info["registers"],
+                            active_clusters=info["active_clusters"])
 
     def shares(i):
         return ", ".join(f"{k} {bounds[k][i][0] / ms:.4f}"
@@ -2085,15 +2292,19 @@ def main():
         route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
         launches=b1_launches, max_abs_err=max_err["N=400 M=4000", "f32"],
         ms=b1_ms, plain_ms=b1_plain_ms), entry(
-        "B3 shared", name="slb_sweep_chunk (sweep_chunk<T, false>)",
+        "B3 shared", name="slb_sweep_chunk (sweep_cluster<T, false>; "
+                          "streaming form sweep_chunk<T, false>)",
         route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
-        launches=sweep_launches, max_abs_err=sweep_err["full", "f32"],
-        ms=sk_ms, plain_ms=sp_ms), entry(
-        "B3 per-omega", name="slb_sweep_chunk_omega (sweep_chunk<T, true>)",
+        launches=sweep_launches, max_abs_err=sweep_err["full", "f32"][0],
+        ms=sk_ms, plain_ms=sp_ms, ms_streaming=ss_ms,
+        **b3_form["B3 shared"]), entry(
+        "B3 per-omega", name="slb_sweep_chunk_omega (sweep_cluster<T, "
+                             "true>; streaming form sweep_chunk<T, true>)",
         route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
         launches=omega_launches, max_abs_err=omega_err["paper", "f32"][0],
         capture_max_abs_err=omega_err["paper", "f32"][1],
-        ms=pk_ms, plain_ms=pp_ms), entry(
+        ms=pk_ms, plain_ms=pp_ms, ms_streaming=ps_ms,
+        **b3_form["B3 per-omega"]), entry(
         "B2", name="slb_stream_chunk (stream_tile, stream_replay)",
         route="cuda", source=STREAM_SOURCE, replaces=STREAM_REPLACES,
         launches=b2_launches, max_abs_err=stream_err["N=100 M=12000", "f32"],

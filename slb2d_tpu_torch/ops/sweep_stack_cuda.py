@@ -22,7 +22,12 @@ point's end.
     kernel into arrays that ``advance`` threads through, as the JAX
     runner threads its ``cap``.
 
-The state's tensors are updated in place on the card.
+Two forms of the kernel compute the same function (csrc/sweep_stack.cu):
+the cluster form keeps each point's state in the shared memory of a
+thread-block cluster for the whole chunk; the streaming form, one block
+per point with its state in device memory, serves points no portable
+cluster holds.  ``cluster_plan`` decides which runs.  The state's tensors
+are updated in place on the card.
 
 On CPU tensors the runner runs the kernel's plain version
 (``run_chunk_plain``, ``run_chunk_plain_omega``); on CUDA tensors it
@@ -51,8 +56,23 @@ SCALAR_FIELDS = ("dt", "nu", "nu2", "nu_tilde")
 # (slb2d_tpu/ops/sweep_stack.py TRIG_RESYNC; csrc/sweep_stack.cu)
 TRIG_RESYNC = 32
 
-# one thread block per point loops over the whole chunk: one launch
+# one cluster (or block) per point loops over the whole chunk: one launch
 LAUNCHES_PER_CHUNK = 1
+
+# The cluster form's shared-memory budget (csrc/sweep_stack.cu, whose
+# constants of the same names tests/test_torch_sweep_cluster.py holds to
+# these): a block's opt-in shared memory on an H100 (227 KB, the device's
+# sharedMemPerBlockOptin), the portable cluster sizes, a rank's slab
+# arrays (a, b, a_hs, b_hs) and edge arrays (hs_edge_a, hs_edge_b), and
+# the elements of static scratch of the kernel's two block sums (32 warps
+# x 3 and x 4).
+SMEM_LIMIT = 232448
+CLUSTER_SIZES = (1, 2, 4, 8)
+SLAB_ARRAYS = 4
+EDGE_ARRAYS = 2
+SUM_SCRATCH = 224
+# the kernel's return code when no cluster of a launch fits on the card
+NO_ACTIVE_CLUSTER = -1
 
 # Steps per launch.  The JAX kernel chunks at 512 steps because its xs
 # table lives in TPU SMEM; here the table is device memory every block
@@ -68,8 +88,63 @@ CHUNK_STEPS = 16384
 # runner also counts its own in .launches): a caller that wants to show
 # the main path ran on a kernel resets these before the run and reads
 # them after
-launch_count = 0          # sweep_chunk (shared omega)
-omega_launch_count = 0    # sweep_chunk_omega (omega swept)
+launch_count = 0            # slb_sweep_chunk (shared omega)
+omega_launch_count = 0      # slb_sweep_chunk_omega (omega swept)
+# the same launches counted by form, either mode
+cluster_launch_count = 0    # sweep_cluster
+streaming_launch_count = 0  # sweep_chunk
+
+
+def cluster_smem_bytes(NHP: int, MP: int, dtype, cluster_size: int):
+    """The dynamic shared memory of one rank of a cluster of cluster_size
+    blocks holding an (NHP, MP) point of dtype, or None where that cluster
+    cannot hold it: not a portable size, NHP not split into slabs of at
+    least 2 rows (rank 0 holds rows 0 and 1, which the av and capture sums
+    read), or the slab and the sums' scratch past SMEM_LIMIT."""
+    if cluster_size not in CLUSTER_SIZES or NHP % cluster_size:
+        return None
+    rows = NHP // cluster_size
+    if rows < 2:
+        return None
+    itemsize = np.dtype(dtype).itemsize
+    smem = (SLAB_ARRAYS * rows * MP + EDGE_ARRAYS * rows) * itemsize
+    if smem + SUM_SCRATCH * itemsize > SMEM_LIMIT:
+        return None
+    return smem
+
+
+def cluster_plan(NHP: int, MP: int, dtype):
+    """(cluster size, shared-memory bytes a block) of the cluster form for
+    an (NHP, MP) point of dtype: the smallest portable cluster whose ranks
+    hold the point's state in shared memory, or None where none does (the
+    streaming form runs those; e.g. N=100 M=4000, 6.8 MB a point in
+    float).  At N=40 M=500 (NHP=48, MP=512): 2 blocks of 196,800 bytes in
+    float, 4 in double."""
+    for cs in CLUSTER_SIZES:
+        smem = cluster_smem_bytes(NHP, MP, dtype, cs)
+        if smem is not None:
+            return cs, smem
+    return None
+
+
+def form_info(dtype, per_omega: bool, cluster_size: int, NHP: int,
+              MP: int) -> dict:
+    """What a form of the kernel takes on the current card: registers and
+    local (spill) bytes a thread, dynamic shared memory a block, and the
+    clusters (the streaming form, cluster_size 0: blocks) that run at once
+    on the whole card.  Builds the kernels first; needs a card."""
+    import ctypes
+    from . import _build
+    out = (ctypes.c_int * 4)()
+    rc = _build.load().cdll.slb_sweep_form_info(
+        int(np.dtype(dtype) == np.float64), int(per_omega), cluster_size,
+        NHP, MP, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"sweep kernel form query (cluster_size="
+                           f"{cluster_size}, NHP={NHP}, MP={MP}) failed: "
+                           f"cudaError_t {rc}")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                active_clusters=out[3])
 
 
 def _check_parity(state, parity0):
@@ -149,14 +224,34 @@ def run_chunk_plain_omega(c: stencil.StencilConsts, state: stencil.State,
 class SweepStackRunner:
     """advance(states, n_steps[, cap]) for a ParameterSweep batch.  Tracks
     step parity and loop t on the host, so no device scalar is read per
-    chunk.  per_omega (omega swept) selects sweep_chunk_omega."""
+    chunk.  per_omega (omega swept) selects sweep_chunk_omega.
 
-    def __init__(self, sweep):
+    The form follows cluster_plan: form "cluster" with cluster_size blocks
+    a point and smem_bytes of shared memory a block, or form "streaming"
+    (cluster_size 0) where no cluster holds a point.  cluster_size forces
+    a size (0: the streaming form); one no cluster can take raises."""
+
+    def __init__(self, sweep, cluster_size=None):
         base = sweep.base
         D = base.np_dtype
         self.sweep, self.base = sweep, base
         self.per_omega = "omega" in sweep.params
         self.B, self.NHP, self.MP = sweep.B, base.NHP, base.MP
+        if cluster_size is None:
+            plan = cluster_plan(self.NHP, self.MP, D)
+        elif cluster_size == 0:
+            plan = None
+        else:
+            smem = cluster_smem_bytes(self.NHP, self.MP, D, cluster_size)
+            if smem is None:
+                raise ValueError(
+                    f"sweep runner: a cluster of {cluster_size} blocks "
+                    f"cannot hold an (NHP={self.NHP}, MP={self.MP}) "
+                    f"{np.dtype(D).name} point (sizes {CLUSTER_SIZES}, "
+                    f">= 2 rows a block, {SMEM_LIMIT} bytes)")
+            plan = cluster_size, smem
+        self.form = "streaming" if plan is None else "cluster"
+        self.cluster_size, self.smem_bytes = plan or (0, 0)
         self.tdtype = torch.float32 if D == np.float32 else torch.float64
         dev = sweep.device
         pp = np.zeros((self.B, PP_COLS), D)
@@ -315,16 +410,27 @@ class SweepStackRunner:
                       for t in tensors.values()),
                     self.params.ctypes.data, xs_dev.data_ptr(), B,
                     int(self.a0_batched), self.base.N, self.base.M, NHP, MP,
-                    n, self.step0 % 2, stream)
+                    n, self.step0 % 2, self.cluster_size, stream)
+        if rc == NO_ACTIVE_CLUSTER:
+            raise RuntimeError(
+                f"cuda sweep kernel: no cluster of {self.cluster_size} "
+                f"blocks with {self.smem_bytes} bytes of shared memory "
+                f"fits on {torch.cuda.get_device_name(dev)}")
         if rc != 0:
-            raise RuntimeError(f"cuda sweep kernel launch failed: "
-                               f"cudaError_t {rc}")
+            raise RuntimeError(f"cuda sweep kernel launch ({self.form} "
+                               f"form, cluster_size {self.cluster_size}) "
+                               f"failed: cudaError_t {rc}")
         global launch_count, omega_launch_count
+        global cluster_launch_count, streaming_launch_count
         self.launches += LAUNCHES_PER_CHUNK
         if self.per_omega:
             omega_launch_count += LAUNCHES_PER_CHUNK
         else:
             launch_count += LAUNCHES_PER_CHUNK
+        if self.form == "cluster":
+            cluster_launch_count += LAUNCHES_PER_CHUNK
+        else:
+            streaming_launch_count += LAUNCHES_PER_CHUNK
         self._xs_dev = xs_dev
         states = states.replace(step=states.step + n)
         if self.per_omega:

@@ -17,16 +17,20 @@ Two engines:
     from exact host trig tables, every point exiting at the last step;
     with omega swept (per-omega mode) from per-point trig chains, with
     per-point windows and the loop-exit capture (with frames, each
-    point's arrays too) rolled in the kernel.
+    point's arrays too) rolled in the kernel.  Each point's state sits in
+    the shared memory of a thread-block cluster for the whole chunk
+    (``cluster_plan``), or, for points no portable cluster holds, streams
+    through L2 from one block (the streaming form).
 
 Routing (``choose_engine``) follows the JAX package's _use_stack_engine
 with pallas -> cuda, xla -> torch and "the backend is a TPU" -> "the
 sweep's device is CUDA", except that omega sweeps, with or without
 frames, take the kernel too.  The JAX package sends them to its vmapped
 engine (slb2d_tpu/parallel/sweep.py:385-430); on an H100 80GB HBM3 at
-700 W the kernel path ran bench.py's 64-point omega sweep in 0.498 s
-and the 16x16 paper map in 1.468 s end to end, against at least 14.6 s
-and 19.8 s for the batched engine (chip_smoke.py phase 10, PERF.md §6).
+700 W the kernel path (its cluster form) ran bench.py's 64-point omega
+sweep in 0.225 s and the 16x16 paper map in 0.797 s end to end, against
+at least 23.3 s and 19.5 s for the batched engine (chip_smoke.py phase
+10, PERF.md §6).
 ``impl=cuda`` never falls back to the batched engine: a CPU device
 raises.
 
@@ -57,9 +61,10 @@ _POINT_FIELDS = ("E_dc", "E_omega", "omega", "B", "bdt")
 
 def choose_engine(cfg: SimConfig, device) -> str:
     """'cuda' (the stacked sweep kernel) or 'torch' (the batched engine).
-    One point per block has no size bound, so there is no VMEM fallback;
-    impl=cuda (and impl=stream, which forces the stacked kernel as in the
-    JAX package) on a non-CUDA device raises."""
+    The kernel takes any point size: a point too large for a cluster's
+    shared memory runs on its streaming form, so there is no VMEM
+    fallback; impl=cuda (and impl=stream, which forces the stacked kernel
+    as in the JAX package) on a non-CUDA device raises."""
     device = torch.device(device)
     if cfg.impl == "torch":
         return "torch"

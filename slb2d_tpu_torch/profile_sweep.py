@@ -2,14 +2,17 @@
 bench.py's sweep bench (N=40, M=500, f32, one drive period per point) on
 the sweep kernel, stage by stage, with the device's busy and idle share
 of the run under torch.profiler, the kernel's time per step as the point
-count grows, and the lane-packed sweep kernel's whole run (the bench's
-`sweep lanes`) under the profiler in chunks of 16 points and in one chunk
-of 64.
+count grows in both of its forms, and the lane-packed sweep kernel's
+whole run (the bench's `sweep lanes`) under the profiler in chunks of 16
+points and in one chunk of 64.
 
     python -m slb2d_tpu_torch.profile_sweep [points ...]
 
-The points (default 16 32 64 128 132 256) give the scaling lines: one
-block per point, so up to 132 points each adds an SM.  Needs a CUDA
+The points (default 16 32 64 66 128 132 256) give the scaling lines: the
+cluster form (the one the sweep runs) takes a cluster of 2 blocks a
+point, one block an SM, so the card holds as many points at once as it
+runs clusters (printed) and more points run in waves; the streaming
+form, timed in turns with it, takes one block a point.  Needs a CUDA
 device; it fails without one.
 """
 
@@ -24,20 +27,20 @@ import numpy as np
 from .profile_step import _device_us
 
 
-def _sweep(n_points, dev):
+def _sweep(n_points, dev, dtype="f32"):
     from .config import SimConfig
     from .parallel.sweep import ParameterSweep
     cfg = SimConfig(display=4, E_dc=1.0, E_omega=2.0, omega=1.0, mu=1.0,
                     alpha=0.9495, n_harmonics=40, phi_y_min=-10.0,
                     phi_y_max=10.0, B=0.1, t_start=0.1, g_grid=500,
-                    dt=1e-3, impl="cuda", quiet=True)
+                    dt=1e-3, impl="cuda", dtype=dtype, quiet=True)
     return ParameterSweep(cfg, {"E_dc": np.linspace(0.1, 3.0, n_points)},
                           device=dev)
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    points = [int(a) for a in argv] or [16, 32, 64, 128, 132, 256]
+    points = [int(a) for a in argv] or [16, 32, 64, 66, 128, 132, 256]
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -87,24 +90,39 @@ def main(argv=None):
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:6]:
         print(f"  {key[:60]:60s} x{count:6d} {us / 1e3:9.3f} ms")
 
-    # kernel time per step against the point count (CUDA events)
+    # kernel time per step against the point count (CUDA events), the
+    # plan's form and the streaming form in turns; f64 at 64 and 256
+    # points
     n = 1000
-    for b in points:
-        sw = _sweep(b, dev)
-        r = sweep_stack_cuda.SweepStackRunner(sw)
+    for b, dtype in [(b, "f32") for b in points] + [(64, "f64"),
+                                                     (256, "f64")]:
+        sw = _sweep(b, dev, dtype)
+        runners = (sweep_stack_cuda.SweepStackRunner(sw),
+                   sweep_stack_cuda.SweepStackRunner(sw, cluster_size=0))
         st = sw._initial_states()
-        r.advance(st, 10)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        r.advance(st, n)
-        stop.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(stop) / n
+        for r in runners:
+            r.advance(st, 10)
+        us = {r: [] for r in runners}
+        for r in runners + runners[::-1]:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r.advance(st, n)
+            stop.record()
+            torch.cuda.synchronize()
+            us[r].append(start.elapsed_time(stop) / n * 1e3)
+        clu, stm = runners
+        info = sweep_stack_cuda.form_info(sw.base.np_dtype, False,
+                                          clu.cluster_size, sw.base.NHP,
+                                          sw.base.MP)
         sites = 2 * (sw.base.N + 1) * (sw.base.M + 1) * b
-        print(f"  {b:4d} points: {ms * 1e3:8.2f} us/step, "
-              f"{sites / (ms * 1e-3):.4e} site-updates/s")
+        best = min(us[clu])
+        print(f"  {b:4d} points {dtype}: {clu.form} CS={clu.cluster_size} "
+              f"({info['active_clusters']} clusters at once) "
+              f"{', '.join(f'{v:.2f}' for v in us[clu])} us/step, "
+              f"{sites / (best * 1e-6):.4e} site-updates/s; streaming "
+              f"{', '.join(f'{v:.2f}' for v in us[stm])} us/step")
 
     # the lane-packed kernel's whole sweep (runner(), host sums included)
     from .ops.sweep_lanes_cuda import make_sweep_lanes_runner

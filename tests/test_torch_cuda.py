@@ -113,6 +113,112 @@ def test_omega_runner_validates_before_launch(card):
     assert runner.launches == 1
 
 
+def _cluster_cases():
+    """(mode, dtype, shape, cluster size) for every cluster size that holds
+    a point of the ragged grids (NHP=16, MP=128) and of their N=40 M=500
+    versions (NHP=48, MP=512): pure arithmetic on the shapes, the same in
+    every process."""
+    import numpy as np
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    cases = []
+    for mode in ("shared", "omega"):
+        for dtype, D in (("f64", np.float64), ("f32", np.float32)):
+            for shape, NHP, MP in (("ragged", 16, 128), ("ragged40", 48, 512)):
+                for cs in ssc.CLUSTER_SIZES:
+                    if ssc.cluster_smem_bytes(NHP, MP, D, cs) is not None:
+                        cases.append((mode, dtype, shape, cs))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,dtype,shape,cluster_size", _cluster_cases())
+def test_sweep_cluster_form_matches_plain(card, mode, dtype, shape,
+                                          cluster_size):
+    """B3's cluster form at every cluster size that holds the point,
+    against the plain version: the shared mode 60 steps in two chunks, the
+    per-omega mode over the whole sweep with frames (151 steps, then the
+    rest from parity 1); state, edges and frames bit for bit, av and
+    captures at f64 rtol 1e-12 / f32 rtol 1e-4 atol 1e-7, the dc-only
+    point's av exactly 0."""
+    import chip_smoke
+    if mode == "shared":
+        _, runner = chip_smoke.check_sweep_kernel_vs_plain(
+            shape, dtype, n_steps=60, cluster_size=cluster_size)
+    else:
+        *_, runner = chip_smoke.check_omega_kernel_vs_plain(
+            "omega_" + shape, dtype, cluster_size=cluster_size)
+    assert runner.form == "cluster" and runner.cluster_size == cluster_size
+    assert runner.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_sweep_streaming_form_matches_plain(card, dtype):
+    """The streaming form, forced where a cluster would hold the point,
+    passes the checks it passed as the only form: both modes on the ragged
+    grids, state and edges bit for bit."""
+    import chip_smoke
+    _, runner = chip_smoke.check_sweep_kernel_vs_plain(
+        "ragged", dtype, n_steps=60, cluster_size=0)
+    *_, o_runner = chip_smoke.check_omega_kernel_vs_plain(
+        "omega_ragged", dtype, cluster_size=0)
+    assert runner.form == o_runner.form == "streaming"
+    assert runner.cluster_size == o_runner.cluster_size == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["ragged40", "omega_ragged40"])
+def test_refused_cluster_launch_raises_before_any_state_changes(card,
+                                                                 shape):
+    """A cluster too small for the point: the runner refuses it at
+    construction, and the kernel refuses the launch if it is asked for
+    anyway; the state, the capture and every launch count stay as they
+    were."""
+    import chip_smoke
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    sweep, runner = chip_smoke._sweep_setup(shape, "f32")
+    assert runner.form == "cluster" and runner.cluster_size == 2
+    with pytest.raises(ValueError, match="cannot hold"):
+        ssc.SweepStackRunner(sweep, cluster_size=1)
+    runner.cluster_size = 1           # 393 KB a block: past any block
+    state = sweep._initial_states()
+    before = state.clone()
+    cap = chip_smoke._zero_cap(sweep, frames=True) if runner.per_omega \
+        else None
+    counts = (ssc.launch_count, ssc.omega_launch_count,
+              ssc.cluster_launch_count, ssc.streaming_launch_count)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        if cap is None:
+            runner.advance(state, 8)
+        else:
+            runner.advance(state, 8, cap=cap)
+    torch.cuda.synchronize()
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b", "av"):
+        assert torch.equal(getattr(state, f), getattr(before, f)), f
+    assert all(bool((v == 0).all()) for v in (cap or {}).values())
+    assert runner.launches == 0 and counts == (
+        ssc.launch_count, ssc.omega_launch_count, ssc.cluster_launch_count,
+        ssc.streaming_launch_count)
+
+
+@pytest.mark.cuda
+def test_form_info_at_the_sweep_shape(card):
+    """What the plan's forms take at N=40 M=500: the shared memory the
+    plan computed, at most 64 registers a thread (1024 threads a block),
+    and at least one cluster on the card."""
+    import numpy as np
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    for D in (np.float32, np.float64):
+        cs, smem = ssc.cluster_plan(48, 512, D)
+        for per_omega in (False, True):
+            info = ssc.form_info(D, per_omega, cs, 48, 512)
+            assert info["smem_bytes"] == smem
+            assert 0 < info["registers"] <= 64
+            assert info["active_clusters"] >= 1
+            stream = ssc.form_info(D, per_omega, 0, 48, 512)
+            assert stream["smem_bytes"] == 0 and stream["active_clusters"] > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
 @pytest.mark.parametrize("grid", [(8, 64), (18, 300)])
