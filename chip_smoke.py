@@ -8,17 +8,26 @@ Phases, one output line each (plus a few measurement lines):
   2. build:   builds the CUDA kernels (csrc/stepper.cu, csrc/sweep_stack.cu
               with both modes of the sweep kernel, csrc/stepper_stream.cu)
               with one nvcc per source, all started together;
-  3. kernel:  the step kernel against its plain PyTorch version on the
-              card, 500 steps in two chunks (parity continuation) with
-              display-77 records, at BASELINE #4 (N=100, M=4000) and at
-              N=8 M=64, in f64 and f32, and 200 steps at N=400 M=4000 in
-              f32;
+  3. kernel:  the step kernel B1 in both forms (resident, per-half-step)
+              against its plain PyTorch version on the card, 500 steps
+              in two chunks (parity continuation) with display-77
+              records, at BASELINE #4 (N=100, M=4000) and at N=8 M=64, in
+              f64 and f32, and 200 steps at N=400 M=4000 and N=100
+              M=12000 in f32 (state and edges bit for bit, one launch a
+              chunk on the resident form); the resident form against the
+              per-half-step form over 203 steps at the three f32 shapes,
+              bit for bit; what the resident form takes on the card
+              (band, registers, spills, shared bytes, blocks at once);
+              its fixed cost per step (N=7 M=4000, in turns with the
+              per-half-step form); B1's cell code in SASS (half_step
+              whole, the resident kernel's cell loops);
   4. golden:  impl=cuda display 4 against the reference C solver's
               recorded output (tests/golden/d4_base1_*.txt);
   5. main:    the CLI (slb2d_tpu_torch.cli.main) at BASELINE #4, display 4,
-              f32, impl=cuda (on the engine the routing picks), with the
-              kernel launch counts checked, and the plain path's rate
-              beside the kernel's;
+              f32, impl=cuda (on the engine and B1 form the routing
+              picks), with the kernel launch counts checked per engine
+              and B1 form, and the plain path's rate beside the
+              kernel's;
   6. sweep kernel: the sweep kernel (B3) against its plain version, 300
               steps in two chunks, at the 64-point N=40 M=500 sweep shape
               and at a ragged 6-point shape with a dc-only point and mu
@@ -73,11 +82,14 @@ Phases, one output line each (plus a few measurement lines):
               reference's d77_tiny_*_fixed.txt.gz;
  14. stream main: the CLI at N=100 M=12000 and N=400 M=4000 (BASELINE
               #4's physics, 16,281 steps) with impl=stream and impl=cuda,
-              display 4 (launch counts checked, the 13 columns of B2
-              against B1) and display 77 with impl=stream; display 77
-              against display 4 at BASELINE #4 on B1;
- 15. stream routing: B1 and B2 per step at the three shapes, the
-              measurement behind impl=cuda's and auto's engine choice;
+              display 4 (launch counts checked per engine and B1 form,
+              the 13 columns of B2 against B1, and at N=400 M=4000 of
+              B1's resident against its per-half-step form) and display
+              77 with impl=stream; display 77 against display 4 at
+              BASELINE #4 on B1;
+ 15. stream routing: B1 resident, B1 per-half-step and B2 per step at
+              the three shapes, in turns, the measurement behind
+              impl=cuda's and auto's engine choice;
  16. lanes kernel: the lane-packed sweep kernel (B4) against its plain
               version, its steps split across launches at step 151, on
               tests/test_sweep_pallas.py's 3-point grid (a dc-only point)
@@ -97,7 +109,8 @@ Phases, one output line each (plus a few measurement lines):
               torch fast 4 at a small shape, cuda, stream, f64, torch 400
               20, sweep torch, sweep stack, sweep stack omega; the plain
               engines' modes at a cut depth), each one parseable line with
-              a finite value, and movie refused with exit 1;
+              a finite value and B1's launches per form where it ran
+              B1, and movie refused with exit 1;
  19. P1:      the float32 chain kernel (csrc/probe_vpu.cu) against its
               plain version at the probe's 104 x 4160, 3 turns, mul+add
               and fma at every (ILP, block) pair it was built for, bit for
@@ -116,8 +129,9 @@ Phases, one output line each (plus a few measurement lines):
               against its plain version and B1's plain version (av off) at
               BASELINE #4, 200 steps in two chunks, bit for bit; then the
               probe's main path (perf/transposed_experiment.run: 1000
-              steps against B1, bit for bit, both timed) with its
-              launches, and each kernel's device time per launch;
+              steps against B1 on the form its plan picks, bit for bit,
+              both timed) with its launches, and each kernel's device
+              time per launch;
  22. forms vs: B3's cluster form against its streaming form over the
               whole 64-point sweep and the whole paper map, f32: state and
               edges (and the map's frames) bit for bit, av and captures at
@@ -128,9 +142,12 @@ Phases, one output line each (plus a few measurement lines):
               frames).
 The last lines are the operation counts and bounds of the main paths, a
 JSON record of the kernels (ms, plain_ms and bound_ms per step, per turn
-for P1, per pass for P2; B3's with its form, cluster size, shared
-bytes, registers, clusters at once and ms_streaming, the streaming form's
-time in the same run; bound_ms is the larger of the main path's
+for P1, per pass for P2; B1's with its form, band, blocks, threads,
+shared bytes, registers, spills, blocks at once, barrier_us (its fixed
+cost per step), ms_per_half_step (the per-half-step form's time in the
+same run), the three engines' times in turns and its SASS counts; B3's
+with its form, cluster size, shared bytes, registers, clusters at once
+and ms_streaming, the streaming form's time in the same run; bound_ms is the larger of the main path's
 operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
 read once and each output written once, at 3.35 TB/s, over its steps;
 bound_ms_at_p1_rate the same at the rate P1 measured) and
@@ -332,11 +349,13 @@ def _setup(shape, dtype, device):
     return model, c, chunks[0].xs
 
 
-def check_kernel_vs_plain(shape, dtype, n_steps=500):
-    """Run the kernel and its plain version from one state over the same
+def check_kernel_vs_plain(shape, dtype, n_steps=500, form=None):
+    """Run the kernel (in `form`, as make_cuda_runner takes it: None is
+    resident_plan's) and its plain version from one state over the same
     exact xs table, in two chunks (the first odd, so the second starts at
-    parity 1), with display-77 records in both; raise on disagreement.
-    Returns the largest abs difference of the state arrays."""
+    parity 1), with display-77 records in both; raise on disagreement:
+    the state and edges bit for bit, av and the records at TOL.  Returns
+    (the largest abs difference of av and the records, the runner)."""
     import torch
     from slb2d_tpu_torch.ops import stencil, stepper_cuda
     dev = torch.device(DEVICE)
@@ -346,11 +365,12 @@ def check_kernel_vs_plain(shape, dtype, n_steps=500):
     parts = [({k: v[:n1] for k, v in xs.items()}, (0, 3, n1 // 2, n1 - 1)),
              ({k: v[n1:n_steps] for k, v in xs.items()},
               (1, n2 // 2, n2 - 1))]
-    runner = stepper_cuda.make_cuda_runner(c, model)
+    runner = stepper_cuda.make_cuda_runner(c, model, form=form)
     state0 = stencil.bootstrap_state(c, model)
     kern, plain = state0.clone(), state0.clone()
     torch.cuda.synchronize()
     tol = TOL[dtype]
+    what = f"B1 {runner.form} {dtype} {shape}"
     err = 0.0
     steps = 0
     for xs_part, emit in parts:
@@ -362,23 +382,54 @@ def check_kernel_vs_plain(shape, dtype, n_steps=500):
         torch.cuda.synchronize()
         n = len(xs_part["t"])
         steps += n
-        check(runner.launches - launches0 == 3 * n + len(emit),
-              f"launch count {runner.launches - launches0} for {n} steps")
-        for f in ("a", "b", "a_hs", "b_hs"):
-            err = max(err, allclose(getattr(kern, f), getattr(plain, f),
-                                    what=f"{dtype} {shape} {f}", **tol))
-        allclose(kern.av, plain.av, what=f"{dtype} {shape} av", **tol)
-        for f in ("hs_edge_a", "hs_edge_b"):
-            check(torch.equal(getattr(kern, f), getattr(plain, f)),
-                  f"{dtype} {shape} {f} not bit for bit")
+        want = (stepper_cuda.LAUNCHES_PER_CHUNK if runner.form == "resident"
+                else stepper_cuda.LAUNCHES_PER_STEP * n + len(emit))
+        check(runner.launches - launches0 == want,
+              f"{what}: {runner.launches - launches0} launches for {n} "
+              f"steps (expected {want})")
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            k, p = getattr(kern, f), getattr(plain, f)
+            check(torch.equal(k, p), f"{what} {f} not bit for bit, max abs "
+                  f"err {float((k - p).abs().max()):.3e}")
+        err = max(err, allclose(kern.av, plain.av, what=f"{what} av", **tol))
         check(int(kern.step) == int(plain.step) == steps, "step count")
         check(float(kern.t) == float(plain.t), "loop t")
         obs = torch.from_numpy(runner.take_obs(len(emit)))
         ref = plain_obs[:, :13].cpu()
-        check(torch.equal(obs[:, 4], ref[:, 4]), "record loop t")
-        allclose(obs, ref, what=f"{dtype} {shape} d77 records", **tol)
+        check(torch.equal(obs[:, 4], ref[:, 4]), f"{what}: record loop t")
+        err = max(err, allclose(obs, ref, what=f"{what} d77 records",
+                                **tol))
     check(runner.launches > 0, "kernel never launched")
-    return err
+    return err, runner
+
+
+def check_resident_vs_per_half_step(shape, dtype="f32", n_steps=203):
+    """B1's two forms from one state over the same n_steps with display-77
+    records: state and edges bit for bit (the same per-cell arithmetic,
+    -fmad=false), av and records at TOL (the sums' order).  Returns the
+    largest abs difference of av and the records."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
+    res = stepper_cuda.make_cuda_runner(c, model, form="resident")
+    per = stepper_cuda.make_cuda_runner(c, model, form="per-half-step")
+    part = {k: v[:n_steps] for k, v in xs.items()}
+    emit = (0, 57, 130, n_steps - 1)
+    state0 = stencil.bootstrap_state(c, model)
+    s1 = res.run_xs(state0.clone(), part, 0, emit_idx=emit)
+    s2 = per.run_xs(state0.clone(), part, 0, emit_idx=emit)
+    torch.cuda.synchronize()
+    what = f"B1 resident vs per-half-step {dtype} {shape}"
+    check(res.launches == stepper_cuda.LAUNCHES_PER_CHUNK,
+          f"{what}: {res.launches} resident launches")
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+        check(torch.equal(getattr(s1, f), getattr(s2, f)),
+              f"{what}: {f} not bit for bit")
+    check(bool(s1.av[0] > 0), f"{what}: av never fired")
+    err = allclose(s1.av, s2.av, what=f"{what} av", **TOL[dtype])
+    return max(err, allclose(torch.from_numpy(res.take_obs(len(emit))),
+                             torch.from_numpy(per.take_obs(len(emit))),
+                             what=f"{what} d77 records", **TOL[dtype]))
 
 
 def time_per_step(fn, n_steps, reps=1, warm=True):
@@ -399,9 +450,9 @@ def time_per_step(fn, n_steps, reps=1, warm=True):
 
 
 def kernel_ms(shape, dtype):
-    """Per-step device time of the kernel at one shape, and its cost per
-    extra chunk (host sync + table copy), measured as 2000 steps in one
-    chunk vs in 20 chunks."""
+    """Per-step device time of the kernel (in the form its plan picks) at
+    one shape, and its cost per extra chunk (host sync + table copy),
+    measured as 2000 steps in one chunk vs in 20 chunks."""
     import torch
     from slb2d_tpu_torch.ops import stencil, stepper_cuda
     dev = torch.device(DEVICE)
@@ -509,16 +560,17 @@ def check_stream_vs_b1(shape, dtype="f32", n_steps=203):
     return err
 
 
-def engine_ms(shape, engine, dtype="f32", n=2000, reps=3):
-    """ms per step of one kernel engine ('cuda-b1' or 'stream') at one
-    shape: n steps in one chunk, CUDA events, after a warm-up."""
+def engine_ms(shape, engine, dtype="f32", n=2000, reps=3, form=None):
+    """ms per step of one kernel engine ('cuda-b1', in `form` as
+    make_cuda_runner takes it, or 'stream') at one shape: n steps in one
+    chunk, CUDA events, after a warm-up."""
     from slb2d_tpu_torch.ops import stencil, stepper_cuda
     if engine == "stream":
         model, c, xs, runner = _stream_runner(shape, dtype)
     else:
         import torch
         model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
-        runner = stepper_cuda.make_cuda_runner(c, model)
+        runner = stepper_cuda.make_cuda_runner(c, model, form=form)
     win = {k: v[:n] for k, v in xs.items()}
     st = stencil.bootstrap_state(c, model)
     return time_per_step(lambda: runner.run_xs(st, win, 0), n, reps=reps)
@@ -1165,6 +1217,122 @@ def check_cluster_vs_streaming(shape):
     return err, cap_err, clu
 
 
+def b1_forms_phase(card):
+    """What B1's resident form takes on the card at its plan for the
+    three f32 shapes and BASELINE #4 in f64: registers and spill bytes a
+    thread, dynamic and static shared memory and threads a block, blocks
+    at once on the card (at least the plan's bands).  Returns {(shape
+    name, dtype): (plan, form_info)}."""
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
+    from slb2d_tpu_torch.ops import stepper_cuda
+    out = {}
+    for name, shape, dtype in (("BASELINE#4", BASELINE4, "f32"),
+                               ("BASELINE#4", BASELINE4, "f64"),
+                               ("N=100 M=12000", WIDE, "f32"),
+                               ("N=400 M=4000", TALL, "f32")):
+        m = SuperlatticeModel(SimConfig(display=4, dtype=dtype, t_start=10.0,
+                                        **PHYS, **shape))
+        plan = stepper_cuda.resident_plan(m.NHP, m.MP, m.np_dtype,
+                                          stepper_cuda.card_sms(DEVICE))
+        check(plan is not None, f"B1 {name} {dtype}: no resident plan")
+        info = stepper_cuda.form_info(m.np_dtype, plan.W, m.NHP, m.MP)
+        check(info["smem_bytes"] == plan.smem_bytes
+              and info["threads"] == plan.threads
+              and info["blocks_at_once"] >= plan.bands,
+              f"B1 {name} {dtype}: {plan} against the card's {info}")
+        out[name, dtype] = (plan, info)
+    print("B1 forms: the resident form on the card, (shape, dtype): band "
+          "W, bands, threads, registers, spill bytes, shared bytes "
+          "(dynamic + static), blocks at once: " + "; ".join(
+              f"{n} {d}: {p.W}, {p.bands}, {i['threads']}, "
+              f"{i['registers']}, {i['local_bytes']}, {i['smem_bytes']} + "
+              f"{i['static_smem_bytes']}, {i['blocks_at_once']}"
+              for (n, d), (p, i) in out.items()) + f" [{card}]", flush=True)
+    return out
+
+
+# the resident form where the cells cost next to nothing: N=7 M=4000
+# (NHP=8, MP=4096), 128 bands of 32 columns, 256 cells a block
+BARRIER = dict(n_harmonics=7, g_grid=4000)
+
+
+def barrier_phase(card):
+    """µs per step of B1's resident form at BARRIER (the two grid barriers
+    of a step with their halo exchange, the row sums and the step's
+    table reads: the fixed cost of a resident step) and of its
+    per-half-step form there (three launches a step), in turns, f32.
+    Returns ([resident µs], [per-half-step µs])."""
+    t = {"resident": [], "per-half-step": []}
+    for form in ("resident", "per-half-step", "per-half-step", "resident"):
+        t[form].append(engine_ms(BARRIER, "cuda-b1", form=form) * 1e3)
+    print(f"barrier: B1 at N=7 M=4000 f32 (128 bands of 32 columns, 256 "
+          f"cells a block), us per step in turns: resident "
+          f"{', '.join(f'{v:.3f}' for v in t['resident'])}, per-half-step "
+          f"{', '.join(f'{v:.3f}' for v in t['per-half-step'])} [{card}]",
+          flush=True)
+    return t["resident"], t["per-half-step"]
+
+
+def _sass_ops(instrs):
+    """All instructions but NOPs, and the loads, stores and FP32 ones."""
+    import re
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+           for _, t in instrs]
+    ops = [o for o in ops if o != "NOP"]
+    keys = ("LDS", "STS", "LDG", "STG", "FADD", "FMUL", "FFMA", "MUFU")
+    return {"all": len(ops), **{k: ops.count(k) for k in keys}}
+
+
+def b1_sass(lib_path):
+    """B1's cell code in SASS (cuobjdump -sass, the toolkit's beside
+    nvcc), float: each half_step<float, MAIN> instance whole (one cell a
+    thread: index arithmetic, masks, loads, the cell, the IEEE division's
+    fast path and its slow-path subroutine) and to its first EXIT, and the
+    resident kernel's cell loops in address order (its innermost loops
+    that hold the division's MUFU, one cell a trip: the halo cells, then
+    rows 0-1, rows 2..N-1 and rows >= N of each half-step; the division's
+    slow path is a call out of the loop).  Returns {name: counts}."""
+    import re
+    from slb2d_tpu_torch.ops import _build
+    from slb2d_tpu_torch.perf import vpu_roofline as vr
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for name, (instrs, labels) in vr.sass_listing(text).items():
+        k = re.search(r"\dhalf_stepIfLb([01])E", name)
+        if k:
+            key = f"half_step<float,{'MAIN' if k.group(1) == '1' else 'HALF'}>"
+            end = next((i for i, (_, t) in enumerate(instrs)
+                        if re.match(r"EXIT\b", t)), len(instrs) - 1)
+            out[key] = {**_sass_ops(instrs),
+                        "to_first_exit": _sass_ops(instrs[:end + 1])["all"]}
+            continue
+        if not re.search(r"\dresident_chunkIfE", name):
+            continue
+        loops = vr.sass_loops(instrs, labels)
+        inner = sorted((a, b) for a, b in loops
+                       if not any(a <= c and d <= b and (c, d) != (a, b)
+                                  for c, d in loops))
+        bodies = [[i for i in instrs if a <= i[0] <= b] for a, b in inner]
+        cells = [b for b in bodies if any(t.startswith("MUFU") or
+                                          " MUFU" in t for _, t in b)]
+        for j, body in enumerate(cells):
+            out[f"resident_chunk<float> cell loop {j}"] = _sass_ops(body)
+    check(len(out) >= 4, f"B1 SASS: found {sorted(out)}")
+    print("B1 SASS (float; all instructions but NOPs, of them LDS, STS, "
+          "LDG, STG, FADD, FMUL, FFMA, MUFU): " + "; ".join(
+              f"{k}: {v['all']}"
+              + (f" ({v['to_first_exit']} to the first EXIT)"
+                 if "to_first_exit" in v else "")
+              + " [" + " ".join(str(v[o]) for o in (
+                  "LDS", "STS", "LDG", "STG", "FADD", "FMUL", "FFMA",
+                  "MUFU")) + "]"
+              for k, v in out.items()), flush=True)
+    return out
+
+
 def main_path_flops(m, steps, points=1, av_steps=0, captures=0,
                     chains=False):
     """Floating-point operations a main path's kernel work needs: `steps`
@@ -1224,7 +1392,8 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(lanes_half_step|t_half_step|half_step|av_step|"
-                          r"record_step|sweep_chunk|sweep_cluster|"
+                          r"record_step|resident_chunk|sweep_chunk|"
+                          r"sweep_cluster|"
                           r"stream_tile|"
                           r"stream_replay|vpu_chain|roll_resident_rows|"
                           r"roll_resident_cols|roll_pass)"
@@ -1295,14 +1464,42 @@ def routed_engine(model):
                                             model.np_dtype) else "cuda-b1")
 
 
-def expected_launches(engine, steps, records=0):
-    """(B1, B2, B3 shared, B3 per-omega) launches of a single run: B1
-    three per step and one per display-77 record, B2 two per K steps."""
-    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+def planned_form(model):
+    """The form B1's runner takes for model's grid on this card."""
+    from slb2d_tpu_torch.ops import stepper_cuda
+    plan = stepper_cuda.resident_plan(model.NHP, model.MP, model.np_dtype,
+                                      stepper_cuda.card_sms(DEVICE))
+    return "per-half-step" if plan is None else "resident"
+
+
+def expected_launches(engine, steps, records=0, form=None, chunks=1):
+    """((B1, B2, B3 shared, B3 per-omega), (B1 resident, B1
+    per-half-step)) launches of a single run of `chunks` chunks: B1
+    resident one per chunk, B1 per-half-step three per step and one per
+    display-77 record, B2 two per K steps."""
+    from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
     if engine == "stream":
-        return (0, sst.LAUNCHES_PER_LAUNCH * -(-steps // sst.DEFAULT_K), 0,
-                0)
-    return (3 * steps + records, 0, 0, 0)
+        return ((0, sst.LAUNCHES_PER_LAUNCH * -(-steps // sst.DEFAULT_K), 0,
+                 0), (0, 0))
+    if form == "resident":
+        n = stepper_cuda.LAUNCHES_PER_CHUNK * chunks
+        return (n, 0, 0, 0), (n, 0)
+    n = stepper_cuda.LAUNCHES_PER_STEP * steps + records
+    return (n, 0, 0, 0), (0, n)
+
+
+def run_chunks(model, display, t_start=10.0):
+    """(chunks, display-77 records) of a CLI run of model at `display`:
+    the Simulation's schedule (runtime/loop.py CUDA_CHUNK_DEFAULT)."""
+    from slb2d_tpu_torch.runtime import schedule
+    from slb2d_tpu_torch.runtime.loop import CUDA_CHUNK_DEFAULT
+    D = model.np_dtype
+    chunks = list(schedule.iter_chunks(
+        omega=model.omega, dt=model.dt, t0=0.0,
+        t_max=float(D(D(t_start) + model.T)), t_start=t_start,
+        E_omega=model.E_omega, display=display, frame_start=0.0, T=model.T,
+        dtype=D, chunk_max=CUDA_CHUNK_DEFAULT, break_on_e77=False))
+    return len(chunks), sum(len(ch.emit_idx) for ch in chunks)
 
 
 def run_steps(model, t_start=10.0):
@@ -1314,8 +1511,8 @@ def run_steps(model, t_start=10.0):
 
 
 def main_path_phase(card):
-    """The CLI at BASELINE #4 with impl=cuda, on the engine the routing
-    picks; returns (wall seconds, steps, engine)."""
+    """The CLI at BASELINE #4 with impl=cuda, on the engine (and B1 form)
+    the routing picks; returns (wall seconds, steps, engine)."""
     import numpy as np
     from slb2d_tpu_torch.config import parse_cmd
     from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
@@ -1323,7 +1520,8 @@ def main_path_phase(card):
     model = SuperlatticeModel(parse_cmd(MAIN_ARGV))
     steps = run_steps(model)
     engine = routed_engine(model)
-    wall, text, counts = run_cli(MAIN_ARGV)
+    form = planned_form(model) if engine == "cuda-b1" else None
+    wall, text, counts, forms = run_cli(MAIN_ARGV)
     rows = [l.split() for l in text.splitlines()
             if l and not l.startswith("#")]
     check(len(rows) == 1 and len(rows[0]) == 13,
@@ -1331,14 +1529,18 @@ def main_path_phase(card):
     vals = np.array(rows[0], float)
     check(bool(np.all(np.isfinite(vals))), f"non-finite output {vals}")
     check(abs(vals[6] - 1.0) < 1e-3, f"NORM {vals[6]} not within 1e-3 of 1")
-    want = expected_launches(engine, steps)
-    check(counts == want, f"(B1, B2, B3, B3 per-omega) launches {counts} "
-          f"for {steps} steps on {engine} (expected {want})")
+    want = expected_launches(engine, steps, form=form,
+                             chunks=run_chunks(model, 4)[0])
+    check((counts, forms) == want,
+          f"(B1, B2, B3, B3 per-omega), (B1 resident, B1 per-half-step) "
+          f"launches {(counts, forms)} for {steps} steps on {engine} "
+          f"{form or ''} (expected {want})")
     sites = 2 * (model.N + 1) * (model.M + 1) * steps
-    print(f"main: cli display=4 BASELINE#4 f32 impl=cuda [{engine}]: "
-          f"{steps} steps, launches B1 {counts[0]} B2 {counts[1]}, "
-          f"NORM={vals[6]:.9f}, wall {wall:.3f} s, {sites / wall:.4e} "
-          f"site-updates/s [{card}]", flush=True)
+    print(f"main: cli display=4 BASELINE#4 f32 impl=cuda [{engine}"
+          f"{' ' + form if form else ''}]: {steps} steps, launches B1 "
+          f"{counts[0]} (resident {forms[0]}, per-half-step {forms[1]}) B2 "
+          f"{counts[1]}, NORM={vals[6]:.9f}, wall {wall:.3f} s, "
+          f"{sites / wall:.4e} site-updates/s [{card}]", flush=True)
     return wall, steps, engine
 
 
@@ -1430,23 +1632,29 @@ def cli_argv(shape, display=4, impl="cuda"):
         f"g-grid={shape['g_grid']}", f"impl={impl}"]
 
 
-def run_cli(argv, force_b1=False):
+def run_cli(argv, force_b1=False, form=None):
     """cli.main(argv) with every kernel count set to 0 just before and
-    read just after; force_b1 makes impl=cuda's routing take B1.  Returns
-    (wall seconds, output text, launches of B1, B2, B3 shared, B3
-    per-omega)."""
+    read just after; force_b1 makes impl=cuda's routing take B1, and form
+    "per-half-step" makes B1's runner take that form (resident_plan finds
+    no plan).  Returns (wall seconds, output text, launches of B1, B2, B3
+    shared, B3 per-omega, launches of B1's resident and per-half-step
+    forms)."""
     import torch
     from slb2d_tpu_torch import cli
     from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda as
                                      sst, sweep_stack_cuda as ssc)
-    rule = sst.stream_beats_b1
+    rule, plan = sst.stream_beats_b1, stepper_cuda.resident_plan
     if force_b1:
         sst.stream_beats_b1 = lambda *a: False
+    if form == "per-half-step":
+        stepper_cuda.resident_plan = lambda *a, **k: None
     try:
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "out.txt")
             torch.cuda.synchronize()
             stepper_cuda.launch_count = sst.launch_count = 0
+            stepper_cuda.resident_launch_count = 0
+            stepper_cuda.per_half_step_launch_count = 0
             ssc.launch_count = ssc.omega_launch_count = 0
             t0 = time.perf_counter()
             rc = cli.main(argv + [f"o={path}"])
@@ -1454,12 +1662,14 @@ def run_cli(argv, force_b1=False):
                                              # synchronises
             counts = (stepper_cuda.launch_count, sst.launch_count,
                       ssc.launch_count, ssc.omega_launch_count)
+            forms = (stepper_cuda.resident_launch_count,
+                     stepper_cuda.per_half_step_launch_count)
             check(rc == 0, f"cli.main returned {rc}")
             with open(path) as fh:
                 text = fh.read()
     finally:
-        sst.stream_beats_b1 = rule
-    return wall, text, counts
+        sst.stream_beats_b1, stepper_cuda.resident_plan = rule, plan
+    return wall, text, counts, forms
 
 
 def _rows(text):
@@ -1470,112 +1680,138 @@ def _rows(text):
 
 def stream_main_phase(card):
     """The CLI at the wide and the tall shape with impl=stream and
-    impl=cuda (display 4; at the wide shape also with the routing forced
-    to B1, for the 13 columns of B2 against B1), display 77 on
-    impl=stream, and display 77 against display 4 at BASELINE #4 on B1.
-    Returns {(shape name, engine): (model, steps, launches)} of the
-    display-4 runs."""
+    impl=cuda (display 4; where the routing takes B2 also with it forced
+    to B1, for the 13 columns of B2 against B1; at the tall grid also with
+    B1 forced to its per-half-step form, for the 13 columns of its two
+    forms), display 77 on impl=stream, and display 77 against display 4 at
+    BASELINE #4 on B1.  Launches are checked per engine and B1 form.
+    Returns {(shape name, engine or "cuda-b1 <form>"): (model, steps,
+    launches of B1 and B2)} of the display-4 runs, and under (shape name,
+    "impl=cuda") the unforced impl=cuda run's with its engine and form."""
     import numpy as np
     import torch
     from slb2d_tpu_torch.config import parse_cmd
     from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
-    from slb2d_tpu_torch.runtime import schedule
     out = {}
     walls = {}
     for name, shape in (("N=100 M=12000", WIDE), ("N=400 M=4000", TALL),
                         ("BASELINE#4", BASELINE4)):
         model = SuperlatticeModel(parse_cmd(cli_argv(shape)))
-        D = model.np_dtype
         steps = run_steps(model)
-        records = sum(len(ch.emit_idx) for ch in schedule.iter_chunks(
-            omega=model.omega, dt=model.dt, t0=0.0,
-            t_max=float(D(D(10.0) + model.T)), t_start=10.0,
-            E_omega=model.E_omega, display=77, frame_start=0.0, T=model.T,
-            dtype=D, chunk_max=16384, break_on_e77=False))
+        records = run_chunks(model, 77)[1]
         routed = routed_engine(model)
+        planned = planned_form(model)
         sites = 2 * (model.N + 1) * (model.M + 1) * steps
-        # (impl, display, engine, routing forced to B1)
+        # (impl, display, engine, routing forced to B1, B1 form forced)
         if shape is BASELINE4:
-            runs = [("cuda", 4, "cuda-b1", True),
-                    ("cuda", 77, "cuda-b1", True)]
+            runs = [("cuda", 4, "cuda-b1", True, None),
+                    ("cuda", 77, "cuda-b1", True, None)]
         else:
-            runs = ([("stream", 4, "stream", False),
-                     ("cuda", 4, routed, False)]
-                    + ([("cuda", 4, "cuda-b1", True)] if routed == "stream"
-                       else []) + [("stream", 77, "stream", False)])
+            runs = ([("stream", 4, "stream", False, None),
+                     ("cuda", 4, routed, False, None)]
+                    + ([("cuda", 4, "cuda-b1", True, None)]
+                       if routed == "stream" else [])
+                    + ([("cuda", 4, "cuda-b1", True, "per-half-step")]
+                       if shape is TALL and planned == "resident" else [])
+                    + [("stream", 77, "stream", False, None)])
         lines = {}
-        for impl, display, engine, force in runs:
-            wall, text, counts = run_cli(cli_argv(shape, display, impl),
-                                         force_b1=force)
+        for impl, display, engine, force, form in runs:
+            wall, text, counts, forms = run_cli(
+                cli_argv(shape, display, impl), force_b1=force, form=form)
+            form = (form or planned) if engine == "cuda-b1" else None
+            tag = f"{engine} {form}" if form else engine
             what = (f"cli display={display} {name} f32 impl={impl}"
                     f"{' (routing forced to B1)' if force else ''}")
             want = expected_launches(engine, steps,
-                                     records if display == 77 else 0)
-            check(counts == want, f"{what}: (B1, B2, B3, B3 per-omega) "
-                  f"launches {counts}, expected {want} on {engine}")
+                                     records if display == 77 else 0,
+                                     form=form,
+                                     chunks=run_chunks(model, display)[0])
+            check((counts, forms) == want,
+                  f"{what}: (B1, B2, B3, B3 per-omega), (B1 resident, B1 "
+                  f"per-half-step) launches {(counts, forms)}, expected "
+                  f"{want} on {tag}")
             rows = _rows(text)
             check(bool(np.all(np.isfinite(rows))), f"{what}: non-finite")
             norm_err = float(np.max(np.abs(rows[:, 6] - 1.0)))
             check(norm_err < 1e-3, f"{what}: NORM {norm_err} from 1")
             if display == 4:
                 check(rows.shape == (1, 13), f"{what}: {rows.shape} lines")
-                lines[engine] = rows[0]
-                out[name, engine] = (model, steps, counts[:2])
+                lines[tag] = rows[0]
+                out[name, tag] = (model, steps, counts[:2])
+                if (impl, force, form) == ("cuda", False, planned):
+                    out[name, "impl=cuda"] = (model, steps, counts[:2], tag)
             else:
                 check(rows.shape == (records, 15),
                       f"{what}: {rows.shape}, expected {records} lines")
                 check(bool(np.all(np.diff(rows[:, 13]) > 0)),
                       f"{what}: t not increasing")
             walls[display] = wall
-            print(f"stream main: {what} [{engine}]: {steps} steps, "
-                  f"launches B1 {counts[0]} B2 {counts[1]}, "
+            print(f"stream main: {what} [{tag}]: {steps} steps, "
+                  f"launches B1 {counts[0]} (resident {forms[0]}, "
+                  f"per-half-step {forms[1]}) B2 {counts[1]}, "
                   f"{rows.shape[0]} line(s), max |NORM-1| {norm_err:.3e}, "
                   f"wall {wall:.3f} s, {sites / wall:.4e} site-updates/s "
                   f"[{card}]", flush=True)
         if shape is BASELINE4:
             print(f"stream main: display 77 vs display 4 at BASELINE#4 on "
-                  f"B1: {walls[77]:.3f} s vs {walls[4]:.3f} s "
+                  f"B1 {planned}: {walls[77]:.3f} s vs {walls[4]:.3f} s "
                   f"({walls[77] / walls[4]:.3f}x) for {records} records "
                   f"[{card}]", flush=True)
-        if len(lines) == 2:
-            err = allclose(torch.as_tensor(lines["stream"]),
-                           torch.as_tensor(lines["cuda-b1"]),
-                           what=f"{name} display-4 columns B2 vs B1",
-                           **TOL["f32"])
-            print(f"stream main: {name} the 13 display-4 columns of B2 vs "
-                  f"B1: max abs err {err:.3e} (rtol 1e-4, atol 1e-7) "
-                  f"[{card}]", flush=True)
+        b1 = f"cuda-b1 {planned}"
+        for other in ("stream", "cuda-b1 per-half-step"):
+            if other in lines and b1 in lines and other != b1:
+                err = allclose(torch.as_tensor(lines[other]),
+                               torch.as_tensor(lines[b1]),
+                               what=f"{name} display-4 columns {other} vs "
+                                    f"{b1}", **TOL["f32"])
+                print(f"stream main: {name} the 13 display-4 columns of "
+                      f"{other} vs {b1}: max abs err {err:.3e} (rtol 1e-4, "
+                      f"atol 1e-7) [{card}]", flush=True)
     return out
 
 
 def stream_routing_phase(card):
-    """B1 and B2 per step (CUDA events, 2000 steps in one chunk) at
-    BASELINE #4 and the two stream shapes: the measurement behind
-    stream_beats_b1.  Where one engine leads by more than 10%, the rule
-    must name it.  Returns {shape name: (B1 ms, B2 ms)}."""
+    """B1 in its resident and its per-half-step form and B2, per step
+    (CUDA events, 2000 steps in one chunk, in turns: resident,
+    per-half-step, B2, B2, per-half-step, resident), at BASELINE #4 and
+    the two stream shapes: the measurement behind stream_beats_b1.  Where
+    B1 (in the form the plan picks) and B2 differ by more than 10%, the
+    rule must name the faster.  Returns {shape name: {"resident": [ms],
+    "per-half-step": [ms], "stream": [ms]}}."""
     from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
     from slb2d_tpu_torch.config import SimConfig
     from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
-    res, parts = {}, []
+    res, parts, wrong = {}, [], []
     for name, shape in (("BASELINE#4", BASELINE4), ("N=100 M=12000", WIDE),
                         ("N=400 M=4000", TALL)):
-        b1, b2 = engine_ms(shape, "cuda-b1"), engine_ms(shape, "stream")
         m = SuperlatticeModel(SimConfig(display=4, t_start=10.0, **PHYS,
                                         **shape))
+        planned = planned_form(m)
+        fns = {form: (lambda f=form: engine_ms(shape, "cuda-b1", form=f))
+               for form in ("resident", "per-half-step")
+               if form == "per-half-step" or planned == "resident"}
+        fns["stream"] = lambda: engine_ms(shape, "stream")
+        order = list(fns) + list(fns)[::-1]
+        t = {k: [] for k in fns}
+        for k in order:
+            t[k].append(fns[k]())
+        mean = {k: sum(v) / len(v) for k, v in t.items()}
+        b1, b2 = mean[planned], mean["stream"]
         rule = sst.stream_beats_b1(m.NHP, m.MP, m.np_dtype)
         g = sst.default_geometry(m.NHP, m.MP, 4)
-        if abs(b1 - b2) > 0.1 * min(b1, b2):
-            check(rule == (b2 < b1),
-                  f"routing at {name}: B1 {b1 * 1e3:.3f} us, B2 "
-                  f"{b2 * 1e3:.3f} us per step, but the rule picks "
-                  f"{'B2' if rule else 'B1'}")
-        res[name] = (b1, b2)
-        parts.append(f"{name} (W={g.W}, {g.n_tiles} tiles, "
-                     f"{'shared' if g.smem else 'global'}) B1 "
-                     f"{b1 * 1e3:.3f} us, B2 {b2 * 1e3:.3f} us -> "
-                     f"{'B2' if rule else 'B1'}")
-    print("stream routing (f32, per step, CUDA events): " + "; ".join(parts)
-          + f" [{card}]", flush=True)
+        if abs(b1 - b2) > 0.1 * min(b1, b2) and rule != (b2 < b1):
+            wrong.append(f"routing at {name}: B1 ({planned}) "
+                         f"{b1 * 1e3:.3f} us, B2 {b2 * 1e3:.3f} us per step, "
+                         f"but the rule picks {'B2' if rule else 'B1'}")
+        res[name] = t
+        parts.append(f"{name} (B2 W={g.W}, {g.n_tiles} tiles, "
+                     f"{'shared' if g.smem else 'global'}): " + ", ".join(
+                         f"{k} " + "/".join(f"{v * 1e3:.3f}" for v in vs)
+                         for k, vs in t.items())
+                     + f" us -> {'B2' if rule else 'B1 ' + planned}")
+    print("stream routing (f32, per step, CUDA events, in turns): "
+          + "; ".join(parts) + f" [{card}]", flush=True)
+    check(not wrong, "; ".join(wrong))
     return res
 
 
@@ -1692,7 +1928,8 @@ def lanes_main_phase(card):
     sweep = bench.make_sweep(device=DEVICE)
     chunks = -(-sweep.B // LANES_MAX_POINTS)
     per_call = slc.LAUNCHES_PER_STEP * sweep.n_steps * chunks
-    want = dict.fromkeys(("B1", "B2", "B3", "B3 per-omega"), 0)
+    want = dict.fromkeys(("B1", "B1 resident", "B1 per-half-step", "B2",
+                          "B3", "B3 per-omega"), 0)
     want["B4"] = 2 * per_call                 # the warm and the timed call
     check(line["launches"] == want,
           f"bench sweep lanes launches {line['launches']}, expected {want}")
@@ -1705,7 +1942,7 @@ def lanes_main_phase(card):
     ups, wall, steps, (sweep, (av, cap, _)) = bench.bench_sweep(
         "lanes", device=DEVICE)
     got = bench.launch_counts()
-    check(got["B4"] == 2 * per_call and sum(got.values()) == got["B4"],
+    check(got == {**want, "B4": 2 * per_call},
           f"bench_sweep lanes launches {got}")
     want_counts = expected_av_counts(sweep)
     check(np.array_equal(av[:, 0], want_counts),
@@ -1747,6 +1984,8 @@ def zero_counts():
     for mod in (stepper_cuda, stepper_stream_cuda, sweep_lanes_cuda,
                 sweep_stack_cuda, vpu_roofline, transposed_experiment):
         mod.launch_count = 0
+    stepper_cuda.resident_launch_count = 0
+    stepper_cuda.per_half_step_launch_count = 0
     sweep_stack_cuda.omega_launch_count = 0
     sweep_stack_cuda.cluster_launch_count = 0
     sweep_stack_cuda.streaming_launch_count = 0
@@ -1754,20 +1993,37 @@ def zero_counts():
     roll_cost_experiment.pass_launch_count = 0
 
 
+def _check_b1_forms(what, launches, engine):
+    """B1's launches split by form add up, and a run that names B1's form
+    ([cuda-b1 resident] or [cuda-b1 per-half-step]) launched that form
+    and not the other."""
+    per_form = launches["B1 resident"] + launches["B1 per-half-step"]
+    check(launches["B1"] == per_form, f"{what}: B1 launches {launches}")
+    for form, other in (("resident", "per-half-step"),
+                        ("per-half-step", "resident")):
+        if engine == f"cuda-b1 {form}":
+            check(launches[f"B1 {form}"] > 0
+                  and launches[f"B1 {other}"] == 0,
+                  f"{what} on {engine}: launches {launches}")
+
+
 def bench_modes_phase(card):
     """Every other bench mode once: one parseable line with a finite
     value each (subprocesses for the two kernel driver modes; in this
-    process the rest, the plain engines' modes at a cut depth), and movie
-    refused."""
+    process the rest, the plain engines' modes at a cut depth), B1's
+    launches per form where a mode ran B1, and movie refused."""
     import contextlib
     import io
     import math
+    import re
     from slb2d_tpu_torch import bench
     out = []
     for argv in (["driver", "cuda", "exact", "4"],
                  ["driver", "stream", "exact", "77"]):
         line = _bench_line(argv)
         check(line["device"] == card, f"bench {argv}: device {line}")
+        engine = re.search(r"\[([^\]]+)\]", line["metric"]).group(1)
+        _check_b1_forms(f"bench {argv}", line["launches"], engine)
         out.append(line)
     for argv, depth in (
             (["auto"], {}),
@@ -1777,8 +2033,17 @@ def bench_modes_phase(card):
             (["torch", "400", "20"], dict(chunk=100, reps=2)),
             (["sweep", "torch"], dict(K=100, reps=2)),
             (["sweep", "stack"], {}), (["sweep", "stack", "omega"], {})):
+        zero_counts()
         rec = bench.run_mode(argv, DEVICE, **depth)
-        line = json.loads(json.dumps({**rec, "device": card}))
+        launches = bench.launch_counts()
+        # the B1 runner modes take the plan's form: resident at BASELINE
+        # #4 in f32 and f64
+        named = re.search(r"\[([^\]]+)\]", rec["metric"])
+        engine = ("cuda-b1 resident" if argv[0] in ("cuda", "f64")
+                  else named.group(1) if named else None)
+        _check_b1_forms(f"bench {argv}", launches, engine)
+        line = json.loads(json.dumps({**rec, "device": card,
+                                      "launches": launches}))
         check(math.isfinite(line["value"]) and line["value"] > 0,
               f"bench {argv}: value {line['value']}")
         out.append(line)
@@ -1792,9 +2057,12 @@ def bench_modes_phase(card):
           and "ROADMAP" in movie.get("error", ""),
           f"bench movie: rc {rc}, {lines}")
     for line in out:
+        b1 = line["launches"]
         print(f"bench: {line['metric']}: {line['value']:.4e} "
               f"{line['unit']}, wall {line['wall_s']:.4f} s for "
-              f"{line['steps']} steps [{card}]", flush=True)
+              f"{line['steps']} steps; B1 launches resident "
+              f"{b1['B1 resident']}, per-half-step {b1['B1 per-half-step']} "
+              f"[{card}]", flush=True)
     print(f"bench: movie refused (exit 1): {movie['error']}", flush=True)
     return out
 
@@ -1942,7 +2210,8 @@ def transposed_phase(card, n_steps=200, split=101):
           f"BASELINE#4 (MP={model.MP}, NHL={tc.NHL}), {n_steps} steps in 2 "
           f"chunks: bit for bit (max abs err {err:.3e}); main path {te.K} "
           f"steps vs B1 bit for bit, {res['us_per_step']:.4f} us/step "
-          f"against B1 (av off, 3 launches) {res['b1_us_per_step']:.4f}; "
+          f"against B1 (av off, {planned_form(model)} form) "
+          f"{res['b1_us_per_step']:.4f}; "
           f"device us per launch "
           + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items()) +
           f"; plain version {plain_ms:.4f} ms/step; {launches} launches "
@@ -2005,19 +2274,38 @@ def main():
           f"(load {secs:.2f} s); ptxas: "
           f"{' | '.join(ptxas_summary(lib.build_log))}", flush=True)
 
-    # 3. kernel vs plain on the card
+    # 3. kernel vs plain on the card, both forms; the forms against each
+    # other; what the resident form takes on the card, its barrier cost and
+    # the cell code in SASS
     max_err = {}
     for shape_name, shape in (("BASELINE#4", BASELINE4), ("N8M64", SMALL)):
         for dtype in ("f64", "f32"):
-            max_err[shape_name, dtype] = check_kernel_vs_plain(shape, dtype)
-    max_err["N=400 M=4000", "f32"] = check_kernel_vs_plain(TALL, "f32",
-                                                           n_steps=200)
-    print("kernel: vs plain, 500 steps (200 at N=400 M=4000) in 2 chunks + "
-          "d77 records: " +
-          ", ".join(f"{s} {d} max abs err {e:.3e}"
-                    for (s, d), e in max_err.items()) + " ok", flush=True)
+            for form in ("resident", "per-half-step"):
+                max_err[shape_name, dtype, form] = check_kernel_vs_plain(
+                    shape, dtype, form=form)[0]
+    for shape_name, shape in (("N=400 M=4000", TALL),
+                              ("N=100 M=12000", WIDE)):
+        for form in ("resident", "per-half-step"):
+            max_err[shape_name, "f32", form] = check_kernel_vs_plain(
+                shape, "f32", n_steps=200, form=form)[0]
+    print("kernel: vs plain, both forms, 500 steps (200 at N=400 M=4000 and "
+          "N=100 M=12000) in 2 chunks + d77 records, state and edges bit "
+          "for bit: " +
+          ", ".join(f"{s} {d} {f} av/records max abs err {e:.3e}"
+                    for (s, d, f), e in max_err.items()) + " ok", flush=True)
+    forms_err = {name: check_resident_vs_per_half_step(shape) for name, shape
+                 in (("BASELINE#4", BASELINE4), ("N=100 M=12000", WIDE),
+                     ("N=400 M=4000", TALL))}
+    print("kernel forms: B1 resident vs per-half-step over 203 steps f32 "
+          "with d77 records, state and edges bit for bit: " +
+          ", ".join(f"{s} av/records max abs err {e:.3e}"
+                    for s, e in forms_err.items()) + f" ok [{card}]",
+          flush=True)
+    b1_forms = b1_forms_phase(card)
+    barrier_res, barrier_per = barrier_phase(card)
+    b1_sass_counts = b1_sass(lib.path)
     k_ms, chunk_ms = kernel_ms(BASELINE4, "f32")
-    print(f"kernel time BASELINE#4 f32: {k_ms:.5f} ms/step (3 launches, "
+    print(f"kernel time BASELINE#4 f32: {k_ms:.5f} ms/step (resident form, "
           f"CUDA events), extra chunk {chunk_ms:.4f} ms [{card}]",
           flush=True)
 
@@ -2214,8 +2502,10 @@ def main():
     # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
     # paper: the paper map), at the data sheet's rate and at the rate P1
     # measured
-    tall, tall_steps, (b1_launches, _) = stream_runs["N=400 M=4000",
-                                                     "cuda-b1"]
+    tall, tall_steps, (b1_launches, _), b1_tag = stream_runs[
+        "N=400 M=4000", "impl=cuda"]
+    check(b1_tag == "cuda-b1 resident", f"impl=cuda at N=400 M=4000 ran on "
+          f"{b1_tag}, not on B1's resident form")
     wide, wide_steps, (_, b2_launches) = stream_runs["N=100 M=12000",
                                                      "stream"]
     # B4: the same function as B3 shared-omega on the same sweep; its
@@ -2242,8 +2532,13 @@ def main():
                   bound_ms(m, n, f, points=b, ops_rate=p1_rate))
               for k, (m, n, f, b) in work.items()}
     bounds.update(probe_bounds(p3_model, p3_tc, p1_rate))
-    b1_ms = routing["N=400 M=4000"][0]
-    b2_ms = routing["N=100 M=12000"][1]
+    def mean(v):
+        return sum(v) / len(v)
+
+    b1_ms = mean(routing["N=400 M=4000"]["resident"])
+    b1_per_ms = mean(routing["N=400 M=4000"]["per-half-step"])
+    b2_ms = mean(routing["N=100 M=12000"]["stream"])
+    b1_plan, b1_info = b1_forms["N=400 M=4000", "f32"]
     times = {"B1": b1_ms, "B3 shared": sk_ms, "B3 per-omega": pk_ms,
              "B2": b2_ms, "B4": b4_ms}
     # B3's form on each main path, and what it takes on the card
@@ -2287,11 +2582,24 @@ def main():
     p2t = {(r["kernel"], r["axis"], r["form"]): r["us_per_pass"] * 1e-3
            for r in p2["records"]}
     print(json.dumps({"kernels": [entry(
-        "B1", name="slb_run_chunk (half_step<MAIN>, half_step<HALF>, "
+        "B1", name="slb_resident_chunk (resident_chunk<float>, one "
+                   "cooperative launch per chunk); per-half-step form "
+                   "slb_run_chunk (half_step<MAIN>, half_step<HALF>, "
                    "av_step)",
         route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
-        launches=b1_launches, max_abs_err=max_err["N=400 M=4000", "f32"],
-        ms=b1_ms, plain_ms=b1_plain_ms), entry(
+        launches=b1_launches,
+        max_abs_err=max_err["N=400 M=4000", "f32", "resident"],
+        ms=b1_ms, plain_ms=b1_plain_ms, form="resident", band=b1_plan.W,
+        blocks=b1_plan.bands, threads=b1_plan.threads,
+        smem_bytes=b1_plan.smem_bytes,
+        static_smem_bytes=b1_info["static_smem_bytes"],
+        registers=b1_info["registers"], spill_bytes=b1_info["local_bytes"],
+        blocks_at_once=b1_info["blocks_at_once"],
+        barrier_us=mean(barrier_res),
+        barrier_us_per_half_step_form=mean(barrier_per),
+        ms_per_half_step=b1_per_ms,
+        ms_turns={k: v for k, v in routing["N=400 M=4000"].items()},
+        sass=b1_sass_counts), entry(
         "B3 shared", name="slb_sweep_chunk (sweep_cluster<T, false>; "
                           "streaming form sweep_chunk<T, false>)",
         route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,

@@ -146,7 +146,7 @@ def bench_driver(impl="auto", N=100, M=4000, t_start=10.0, exact_time=True,
             sim.run()               # ends in the round-end fetch
             wall = min(wall, time.perf_counter() - t0)
     steps = sim.steps_done
-    return _sites(N, M, steps) / wall, wall, steps, sim.engine
+    return _sites(N, M, steps) / wall, wall, steps, sim.engine_tag()
 
 
 def sweep_params(B=SWEEP_POINTS, axis="E_dc", omega=1.0):
@@ -284,10 +284,12 @@ def run_mode(argv, device, **depth):
 
 
 def launch_counts():
-    """Every kernel's launch count in this process."""
+    """Every kernel's launch count in this process (B1's also per form)."""
     from .ops import (stepper_cuda, stepper_stream_cuda, sweep_lanes_cuda,
                       sweep_stack_cuda)
     return {"B1": stepper_cuda.launch_count,
+            "B1 resident": stepper_cuda.resident_launch_count,
+            "B1 per-half-step": stepper_cuda.per_half_step_launch_count,
             "B2": stepper_stream_cuda.launch_count,
             "B3": sweep_stack_cuda.launch_count,
             "B3 per-omega": sweep_stack_cuda.omega_launch_count,

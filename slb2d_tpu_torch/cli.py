@@ -7,8 +7,9 @@ Chrome trace written under DIR).
 The run uses CUDA device `device=` (default 0) for every impl; only
 device=cpu runs it on the CPU.  Without a CUDA device and without
 device=cpu it prints an error and returns 1.  Unless quiet, the closing
-`# perf:` line names the engine that ran: torch, cuda-b1 (the step
-kernel) or stream (the temporal-tiling kernel).
+`# perf:` line names the engine that ran: torch, cuda-b1 resident or
+cuda-b1 per-half-step (the step kernel in the form it took) or stream
+(the temporal-tiling kernel).
 """
 
 from __future__ import annotations

@@ -39,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _ENTRY_ARGS = {
     "slb_run_chunk": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p]),
+    "slb_resident_chunk": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p]),
+    "slb_resident_info": [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "slb_sweep_chunk": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
                         + [ctypes.c_void_p]),
     "slb_sweep_chunk_omega": ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 9
@@ -60,11 +63,12 @@ _ENTRY_ARGS = {
 }
 # the float and double symbols of each entry; the lane-packed sweep kernel
 # and the probes are float-only, as the JAX kernels they replace; the
-# sweep kernel's form query takes the type as an argument
+# form queries of the step and sweep kernels take the type as an argument
 _ENTRY_TYPES = {name: ("_f32",) for name in (
     "slb_lanes_chunk", "slb_vpu_chain", "slb_roll_resident",
     "slb_roll_passes", "slb_transposed_chunk")}
 _ENTRY_TYPES["slb_sweep_form_info"] = ("",)
+_ENTRY_TYPES["slb_resident_info"] = ("",)
 
 
 class BuildError(RuntimeError):

@@ -4,20 +4,33 @@ The port of the JAX package's Pallas megakernel runner
 (slb2d_tpu/ops/stepper_pallas.py:make_pallas_runner).  A chunk's per-step
 table (trig, averaging gate, loop t; ``pack_xs_dict`` is the lane
 contract) is copied to the card once, and one C call enqueues the whole
-chunk: three launches per step plus one per display-77 record, no host
-work per step.
+chunk, with no host work per step, in one of two forms of the kernel:
+
+  * resident: ONE cooperative launch per chunk, one block per SM, each
+    holding a band of W columns of the whole state in shared memory for
+    the chunk (display-77 records written in the kernel);
+  * per-half-step: three launches per step plus one per display-77
+    record, the state in device memory.
+
+``resident_plan`` decides the form before anything launches: the
+resident form wherever its bands hold the state (every f32 grid up to
+~29 MB of state, BASELINE #4 in f64), the per-half-step form elsewhere (f64
+at the tall and wide grids).  A form asked for that cannot hold the shape
+raises; nothing falls back at run time.
 
 The state's tensors are updated in place (the JAX runner donates them):
 the State returned holds the same a, b, a_hs, b_hs, edges and av tensors.
 
 On CPU tensors the Runner runs the plain version, ``run_chunk_plain``
-(stencil.full_step over the rows of the same packed table).  On CUDA
-tensors it launches the kernel or raises; nothing falls back.
+(stencil.full_step over the rows of the same packed table), whatever its
+form.  On CUDA tensors it launches the kernel or raises; nothing falls
+back.
 """
 
 from __future__ import annotations
 
 import types
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,14 +48,118 @@ OBS_LANES = 16
 SCALAR_FIELDS = ("E_dc", "E_omega", "omega", "B", "dt", "nu", "nu2",
                  "nu_tilde", "bdt", "t_start", "t_end")
 
-# kernel launches per full step: half_step<MAIN>, half_step<HALF>, av_step
+# the per-half-step form's launches per full step: half_step<MAIN>,
+# half_step<HALF>, av_step (and one record_step per display-77 record)
 LAUNCHES_PER_STEP = 3
+# the resident form's launches per chunk: one cooperative launch
+LAUNCHES_PER_CHUNK = 1
+
+FORMS = ("resident", "per-half-step")
+
+# The resident form's budget (csrc/stepper.cu, whose constants of the same
+# names tests/test_torch_stepper_resident.py holds to these): a block's
+# opt-in shared memory on an H100 (227 KB); the halo columns on each side
+# of a band's a, b (computed by the band) and of its a_hs, b_hs
+# (exchanged); the xs rows staged at a time (plus the next); the band
+# width's unit (a warp's lanes on neighbouring columns) and its largest
+# value, the largest block, and the elements of static scratch of the row
+# sums (2 rows x 16 warps x 2 values).
+SMEM_LIMIT = 232448
+HALO_MAIN = 1
+HALO_HALF = 2
+XS_STAGE = 32
+BAND_ALIGN = 32
+MAX_BAND = 512
+RESIDENT_BLOCK = 1024
+RESIDENT_SCRATCH = 64
+# the partial sums a band leaves per step (norm, v_dr, v_y, m_x), and the
+# values it publishes per row and step (its first two and last two
+# columns of a_hs and b_hs)
+PART_LANES = 4
+XCH_LANES = 8
+# the kernel's return code when the card cannot run every band at once
+NOT_CO_RESIDENT = -2
+# an H100 SXM's SMs: the most bands a plan takes where no card is asked
+SM_COUNT = 132
 
 # kernel launches made by every Runner of this process (each Runner also
-# counts its own in Runner.launches): a driver builds its Runner inside,
-# so a caller that wants to show the main path ran on the kernel resets
-# this before the run and reads it after
+# counts its own in Runner.launches), in all and per form: a driver builds
+# its Runner inside, so a caller that wants to show the main path ran on
+# the kernel resets these before the run and reads them after
 launch_count = 0
+resident_launch_count = 0
+per_half_step_launch_count = 0
+
+
+class ResidentPlan(NamedTuple):
+    W: int            # columns of a band (the last band may have fewer)
+    bands: int        # ceil(MP / W): blocks of the launch, one per SM
+    smem_bytes: int   # dynamic shared memory a block
+    threads: int      # threads a block
+
+
+def resident_smem_bytes(NHP: int, W: int, dtype) -> int:
+    """The dynamic shared memory of a band of W columns: NHP rows of a, b
+    with HALO_MAIN columns on each side, of a_hs, b_hs with HALO_HALF, and
+    XS_STAGE + 1 rows of the xs table."""
+    return (2 * NHP * (W + 2 * HALO_MAIN) + 2 * NHP * (W + 2 * HALO_HALF)
+            + (XS_STAGE + 1) * XS_LANES) * np.dtype(dtype).itemsize
+
+
+def resident_threads(W: int) -> int:
+    """Threads of a block with bands of W columns: W / 32 warps across the
+    band times 32 / (W / 32) row groups."""
+    cw = W // BAND_ALIGN
+    return BAND_ALIGN * cw * (RESIDENT_BLOCK // BAND_ALIGN // cw)
+
+
+def resident_plan(NHP: int, MP: int, dtype, sms: int = SM_COUNT):
+    """The resident form's ResidentPlan for an (NHP, MP) state of dtype on
+    a card of `sms` SMs, or None where it cannot hold the state: the
+    narrowest band, a multiple of BAND_ALIGN up to MAX_BAND, that needs at
+    most `sms` bands, whose arrays, halo and the row sums' scratch fit
+    SMEM_LIMIT.  A wider band needs more shared memory, so where the
+    narrowest does not fit none does.  The tall grid N=400 M=4000
+    (NHP=408, MP=4096) in f32: 128 bands of 32 columns, 229,800 bytes; the
+    wide grid N=100 M=12000 (MP=12,032): 126 bands of 96 (the last 32);
+    f64 at both: None."""
+    item = np.dtype(dtype).itemsize
+    for W in range(BAND_ALIGN, MAX_BAND + 1, BAND_ALIGN):
+        bands = -(-MP // W)
+        if bands > sms:
+            continue
+        smem = resident_smem_bytes(NHP, W, dtype)
+        if NHP < 2 or smem + RESIDENT_SCRATCH * item > SMEM_LIMIT:
+            return None
+        return ResidentPlan(W, bands, smem, resident_threads(W))
+    return None
+
+
+def card_sms(device) -> int:
+    """The SMs of a CUDA device, else SM_COUNT."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SM_COUNT
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def form_info(dtype, W: int, NHP: int, MP: int) -> dict:
+    """What the resident form takes on the current card with bands of W
+    columns: registers and local (spill) bytes a thread, dynamic and
+    static shared memory and threads a block, and the blocks that run at
+    once on the whole card.  Builds the kernels first; needs a card."""
+    import ctypes
+    from . import _build
+    out = (ctypes.c_int * 6)()
+    rc = _build.load().cdll.slb_resident_info(
+        int(np.dtype(dtype) == np.float64), W, NHP, MP,
+        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"step kernel resident form query (W={W}, "
+                           f"NHP={NHP}, MP={MP}) failed: cudaError_t {rc}")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_at_once=out[3], threads=out[4],
+                static_smem_bytes=out[5])
 
 
 def pack_xs_dict(xs_dict, dtype):
@@ -99,12 +216,18 @@ class Runner:
     __call__, take_obs, update_consts; plus `launches`, the number of
     kernel launches made so far.  Tracks step parity and loop t on the
     host, so no device scalar is read per chunk.  Subclasses replace
-    _plain, _enqueue and _add_launches (ops/stepper_stream_cuda.py)."""
+    _pick_form, _plain, _enqueue and _add_launches
+    (ops/stepper_stream_cuda.py).
+
+    `form` is "resident" or "per-half-step": resident_plan's choice for the
+    model's shape on the consts' device (a card's SM count), or the form
+    asked for; a resident form that cannot hold the shape raises.  `plan`
+    is the resident form's ResidentPlan (None on the other form)."""
 
     engine = "cuda-b1"
 
     def __init__(self, c: stencil.StencilConsts, model, av_enabled=True,
-                 exact_trig=False):
+                 exact_trig=False, form=None):
         self.model = model
         self.av_enabled = av_enabled
         self.exact_trig = exact_trig
@@ -116,7 +239,25 @@ class Runner:
         self.last_obs = None     # display-77 records of the last run
         self._xs_dev = None      # the last chunk's table, kept alive
                                  # while its launches may still run
+        self._scratch = None     # the resident form's exchange and sums
+        self.form, self.plan = self._pick_form(form, c.a0.device)
         self.update_consts(c)
+
+    def _pick_form(self, form, device):
+        m = self.model
+        plan = resident_plan(m.NHP, m.MP, m.np_dtype, card_sms(device))
+        if form is None:
+            form = "per-half-step" if plan is None else "resident"
+        if form not in FORMS:
+            raise ValueError(f"{self.engine} runner: form {form!r} is not "
+                             f"one of {FORMS}")
+        if form == "resident" and plan is None:
+            raise ValueError(
+                f"{self.engine} runner: the resident form cannot hold an "
+                f"(NHP={m.NHP}, MP={m.MP}) {np.dtype(m.np_dtype).name} "
+                f"state ({SMEM_LIMIT} bytes a block, at most "
+                f"{card_sms(device)} bands of up to {MAX_BAND} columns)")
+        return form, (plan if form == "resident" else None)
 
     def update_consts(self, c_new):
         D = self.model.np_dtype
@@ -204,9 +345,14 @@ class Runner:
             rc, k = self._enqueue(lib.cdll, tensors, xs_dev, obs, emit, n,
                                   parity0,
                                   torch.cuda.current_stream(dev).cuda_stream)
+        if rc == NOT_CO_RESIDENT:
+            raise RuntimeError(
+                f"{self.engine} resident form: the {self.plan.bands} blocks "
+                f"of {self.plan.smem_bytes} bytes do not all fit on "
+                f"{torch.cuda.get_device_name(dev)} at once")
         if rc != 0:
-            raise RuntimeError(f"{self.engine} kernel launch failed: "
-                               f"cudaError_t {rc}")
+            raise RuntimeError(f"{self.engine} kernel launch ({self.form} "
+                               f"form) failed: cudaError_t {rc}")
         self.launches += k
         self._add_launches(k)
         self._xs_dev = xs_dev
@@ -217,18 +363,43 @@ class Runner:
                  stream):
         """One C call enqueuing the chunk: (cudaError_t, launches)."""
         m = self.model
-        fn = (cdll.slb_run_chunk_f32 if m.np_dtype == np.float32
-              else cdll.slb_run_chunk_f64)
-        rc = fn(*(t.data_ptr() for t in tensors.values()),
+        suffix = "_f32" if m.np_dtype == np.float32 else "_f64"
+        if self.form == "resident":
+            xch, part = self._resident_scratch(xs_dev.device)
+            rc = getattr(cdll, "slb_resident_chunk" + suffix)(
+                *(t.data_ptr() for t in tensors.values()),
                 self.params.ctypes.data, xs_dev.data_ptr(), obs.data_ptr(),
-                emit.ctypes.data if emit.size else None, int(emit.size),
-                m.N, m.M, m.NHP, m.MP, int(n), int(parity0), stream)
+                xch.data_ptr(), part.data_ptr(), m.N, m.M, m.NHP, m.MP,
+                self.plan.W, int(n), int(parity0), stream)
+            return rc, LAUNCHES_PER_CHUNK
+        rc = getattr(cdll, "slb_run_chunk" + suffix)(
+            *(t.data_ptr() for t in tensors.values()),
+            self.params.ctypes.data, xs_dev.data_ptr(), obs.data_ptr(),
+            emit.ctypes.data if emit.size else None, int(emit.size),
+            m.N, m.M, m.NHP, m.MP, int(n), int(parity0), stream)
         return rc, LAUNCHES_PER_STEP * n + int(emit.size)
 
-    @staticmethod
-    def _add_launches(k):
-        global launch_count
+    def _resident_scratch(self, dev):
+        """The exchange buffer (2 step parities x bands x XCH_LANES x NHP)
+        and the bands' partial sums (2 x bands x PART_LANES), allocated once
+        per device."""
+        if self._scratch is None or self._scratch[0].device != dev:
+            bands, NHP = self.plan.bands, self.model.NHP
+            self._scratch = (
+                torch.empty(2 * bands * XCH_LANES * NHP, dtype=self.dtype,
+                            device=dev),
+                torch.empty(2 * bands * PART_LANES, dtype=self.dtype,
+                            device=dev))
+        return self._scratch
+
+    def _add_launches(self, k):
+        global launch_count, resident_launch_count
+        global per_half_step_launch_count
         launch_count += k
+        if self.form == "resident":
+            resident_launch_count += k
+        else:
+            per_half_step_launch_count += k
 
     def __call__(self, state, n_steps):
         D = self.model.np_dtype
@@ -258,9 +429,11 @@ class Runner:
 
 
 def make_cuda_runner(c: stencil.StencilConsts, model, av_enabled=True,
-                     exact_trig=False) -> Runner:
-    """The B1 Runner (see Runner)."""
-    return Runner(c, model, av_enabled=av_enabled, exact_trig=exact_trig)
+                     exact_trig=False, form=None) -> Runner:
+    """The B1 Runner (see Runner); form forces "resident" or
+    "per-half-step"."""
+    return Runner(c, model, av_enabled=av_enabled, exact_trig=exact_trig,
+                  form=form)
 
 
 def build_xs_table(model, c, t0, step0, n_steps, *, av_enabled, exact):

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from . import stencil
-from .stepper_cuda import OBS_LANES, Runner
+from .stepper_cuda import OBS_LANES, Runner, resident_plan
 
 # halo columns per step of a launch (two half-steps of an m±1 stencil)
 HALO_PER_STEP = 2
@@ -92,15 +92,22 @@ def default_geometry(NHP: int, MP: int, itemsize: int, K: int | None = None,
 
 
 def stream_beats_b1(NHP: int, MP: int, dtype) -> bool:
-    """impl=cuda's and impl=auto's engine choice on a card: this kernel
-    for float32 grids whose default tiles sit in shared memory with
-    centers of at least 4H columns (halo overhead WT/W <= 1.5), B1
-    (ops/stepper_cuda.py) elsewhere.  Measured per step in f32 on an H100
-    80GB HBM3 at 700 W (chip_smoke.py's routing phase; PERF.md §6): B2
-    faster at N=100 M=4000 (W = 4H) and N=100 M=12000 (W = 11.5H), slower
-    at N=400 M=4000 (W = 2.25H).  float64 was not measured and stays on
+    """impl=cuda's and impl=auto's engine choice on a card: B1
+    (ops/stepper_cuda.py) wherever its resident form holds the state;
+    elsewhere this kernel for float32 grids whose default tiles sit in
+    shared memory with centers of at least 4H columns (halo overhead WT/W
+    <= 1.5), B1's per-half-step form for the rest.  Measured per step in
+    f32 on an H100 80GB HBM3 at 700 W, the three engines in turns
+    (chip_smoke.py's routing phase; PERF.md §6): B1's resident form faster
+    than B2 at N=100 M=4000, N=100 M=12000 and N=400 M=4000 (by 1.5x,
+    1.5x and 2.5x); where no resident plan holds an f32 grid (wider than
+    ~55,000 columns or taller than ~410 rows), the earlier measurement
+    stands: B2 faster than the per-half-step form at W = 4H and 11.5H,
+    slower at W = 2.25H.  float64 on B2 was not measured and stays on
     B1."""
     if np.dtype(dtype) != np.float32:
+        return False
+    if resident_plan(NHP, MP, dtype) is not None:
         return False
     g = default_geometry(NHP, MP, 4)
     return g.smem and g.W >= 4 * g.H
@@ -240,6 +247,12 @@ class StreamRunner(Runner):
         self.geom = default_geometry(model.NHP, model.MP,
                                      np.dtype(model.np_dtype).itemsize, K, W)
         self._bufs = None        # see _buffers
+
+    def _pick_form(self, form, device):
+        """B2 has one form (no `form`, no `plan`)."""
+        if form is not None:
+            raise ValueError(f"{self.engine} runner: no form {form!r}")
+        return None, None
 
     def _plain(self, state, xs, parity0, emit_idx):
         return run_chunk_plain_stream(self.c, state, xs, parity0, emit_idx,

@@ -228,8 +228,8 @@ def setup(device, n_harmonics=100, g_grid=4000, NHL=NHL, steps=K):
 
 def run(device, n_harmonics=100, g_grid=4000, NHL=NHL, K=K, timed=3):
     """The main path: K steps from the bootstrap state through the
-    transposed kernel and through B1 (av off: its three launches per
-    step, the one-block av_step returning at once), the two states held
+    transposed kernel and through B1 (av off, in the form its plan picks:
+    at BASELINE #4 the resident form, one launch), the two states held
     bit for bit, then µs per step of both (one warm-up and `timed` timed
     calls each)."""
     import torch
@@ -273,7 +273,8 @@ def kernel_us(device, n_harmonics=100, g_grid=4000, NHL=NHL, steps=200):
         torch.cuda.synchronize(device)
     out = {}
     for e in prof.key_averages():
-        m = re.search(r"(t_half_step|half_step|av_step)<([^>]*)>", e.key)
+        m = re.search(r"(t_half_step|half_step|av_step|resident_chunk)"
+                      r"<([^>]*)>", e.key)
         if m and e.count and _device_us(e) > 0:
             out[f"{m.group(1)}<{m.group(2)}>"] = _device_us(e) / e.count
     return out

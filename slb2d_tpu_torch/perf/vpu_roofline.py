@@ -184,11 +184,10 @@ def _op_counts(instrs):
     return out
 
 
-def sass_functions(text):
-    """{function: counts} from cuobjdump -sass output: FMUL, FADD, FFMA
-    and all instructions ("all") in the whole function, and under "loop"
-    the same in its longest loop, the instructions from a backward
-    branch's target to the branch."""
+def sass_listing(text):
+    """{function: (instructions, labels)} from cuobjdump -sass output: each
+    function's (address, instruction) pairs and its branch labels'
+    addresses."""
     funcs, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -209,19 +208,36 @@ def sass_functions(text):
             labels.update((label, addr) for label in pending)
             pending.clear()
             instrs.append((addr, m.group(2).strip()))
+    return {k: (instrs, labels) for k, (instrs, labels, _) in funcs.items()}
+
+
+def sass_loops(instrs, labels):
+    """A function's loops as (first, last) addresses: each backward
+    branch and the instruction it jumps to."""
+    loops = []
+    for addr, text in instrs:
+        if not re.search(r"\bBRA\b", text):
+            continue
+        m = re.search(r"\((\.L_x_\d+)\)", text)
+        h = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        target = (labels.get(m.group(1)) if m
+                  else int(h.group(1), 16) if h else None)
+        if target is not None and target < addr:
+            loops.append((target, addr))
+    return loops
+
+
+def sass_functions(text):
+    """{function: counts} from cuobjdump -sass output: FMUL, FADD, FFMA
+    and all instructions ("all") in the whole function, and under "loop"
+    the same in its longest loop, the instructions from a backward
+    branch's target to the branch."""
     out = {}
-    for name, (instrs, labels, _) in funcs.items():
+    for name, (instrs, labels) in sass_listing(text).items():
         loop = []
-        for addr, text in instrs:
-            if not re.search(r"\bBRA\b", text):
-                continue
-            m = re.search(r"\((\.L_x_\d+)\)", text)
-            h = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
-            target = (labels.get(m.group(1)) if m
-                      else int(h.group(1), 16) if h else None)
-            if target is not None and target < addr:
-                body = [i for i in instrs if target <= i[0] <= addr]
-                loop = max(loop, body, key=len)
+        for first, last in sass_loops(instrs, labels):
+            body = [i for i in instrs if first <= i[0] <= last]
+            loop = max(loop, body, key=len)
         out[name] = {**_op_counts(instrs), "loop": _op_counts(loop)}
     return out
 

@@ -5,10 +5,12 @@ the window's wall time.
     python -m slb2d_tpu_torch.profile_step [n_steps] [f32|f64] \\
         [impl=cuda|stream] [n-harmonics=100] [g-grid=4000]
 
-impl=cuda is the step kernel B1 (three launches per step), impl=stream the
-temporal-tiling kernel B2 (two launches per K steps); the shape defaults
-to BASELINE #4 (N=100, M=4000), with its physics.  Needs a CUDA device; it
-fails without one.
+impl=cuda is the step kernel B1, profiled in each of its forms in turn
+(the resident form, one cooperative launch per chunk, where its plan
+holds the shape; the per-half-step form, three launches per step);
+impl=stream the temporal-tiling kernel B2 (two launches
+per K steps).  The shape defaults to BASELINE #4 (N=100, M=4000), with
+its physics.  Needs a CUDA device; it fails without one.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import sys
 import time
 
 # the kernels (and copies) whose device time counts as busy
-KERNELS = ("half_step", "av_step", "record_step", "stream_tile",
-           "stream_replay", "Memcpy")
+KERNELS = ("half_step", "av_step", "record_step", "resident_chunk",
+           "stream_tile", "stream_replay", "Memcpy")
 
 
 def _device_us(evt):
@@ -61,38 +63,52 @@ def main(argv=None):
         omega=model.omega, dt=model.dt, t0=0.0, t_max=100.0,
         t_start=0.0, E_omega=model.E_omega, display=4, frame_start=0.0,
         T=model.T, dtype=model.np_dtype, chunk_max=n_steps)).xs
-    if impl == "stream":
-        runner = stepper_stream_cuda.make_stream_runner(c, model)
-        g = runner.geom
-        how = (f"stream K={g.K} H={g.H} W={g.W}, {g.n_tiles} tiles, "
-               f"{'shared memory' if g.smem else 'global scratch'}")
-    else:
-        runner = stepper_cuda.make_cuda_runner(c, model)
-        how = "cuda-b1"
-    state = stencil.bootstrap_state(c, model)
-    runner.run_xs(state, xs, 0)              # build, load, warm up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.run_xs(state, xs, 0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-            if _device_us(e) > 0 and e.count > 0]
-    kernels = [r for r in rows if any(k in r[0] for k in KERNELS)]
-    busy = sum(r[2] for r in kernels) * 1e-6
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[:1]
-    print(f"profile_step: {n_steps} steps N={N} M={M} {dtype} [{how}], "
-          f"wall {wall * 1e3:.3f} ms ({wall * 1e6 / n_steps:.2f} us/step), "
-          f"device busy {busy * 1e3:.3f} ms = {100 * busy / wall:.1f}%, "
-          f"idle {100 * (1 - busy / wall):.1f}% [{', '.join(card)}]")
-    for key, count, us in sorted(kernels, key=lambda r: -r[2]):
-        print(f"  {key[:60]:60s} x{count:6d} {us / 1e3:9.3f} ms "
-              f"{us / count:8.2f} us each")
+    if impl == "stream":
+        runner = stepper_stream_cuda.make_stream_runner(c, model)
+        g = runner.geom
+        where = "shared memory" if g.smem else "global scratch"
+        runs = [(runner, f"stream K={g.K} H={g.H} W={g.W}, {g.n_tiles} "
+                         f"tiles, {where}")]
+    else:
+        plan = stepper_cuda.resident_plan(model.NHP, model.MP,
+                                          model.np_dtype,
+                                          stepper_cuda.card_sms(dev))
+        forms = [f for f in stepper_cuda.FORMS
+                 if f != "resident" or plan is not None]
+        runs = []
+        for form in forms:
+            runner = stepper_cuda.make_cuda_runner(c, model, form=form)
+            p = runner.plan
+            runs.append((runner, f"cuda-b1 {form}" + (
+                f", {p.bands} bands of {p.W} columns, {p.smem_bytes} B a "
+                f"block" if p else "")))
+    for runner, how in runs:
+        state = stencil.bootstrap_state(c, model)
+        runner.run_xs(state, xs, 0)              # build, load, warm up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.run_xs(state, xs, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+                if _device_us(e) > 0 and e.count > 0]
+        kernels = [r for r in rows if any(k in r[0] for k in KERNELS)]
+        busy = sum(r[2] for r in kernels) * 1e-6
+        print(f"profile_step: {n_steps} steps N={N} M={M} {dtype} [{how}], "
+              f"wall {wall * 1e3:.3f} ms ({wall * 1e6 / n_steps:.2f} "
+              f"us/step), device busy {busy * 1e3:.3f} ms "
+              f"({busy * 1e6 / n_steps:.2f} us/step) = "
+              f"{100 * busy / wall:.1f}%, idle "
+              f"{100 * (1 - busy / wall):.1f}% [{', '.join(card)}]")
+        for key, count, us in sorted(kernels, key=lambda r: -r[2]):
+            print(f"  {key[:60]:60s} x{count:6d} {us / 1e3:9.3f} ms "
+                  f"{us / count:8.2f} us each")
     return 0
 
 

@@ -8,8 +8,8 @@ synchronised only at chunk and round boundaries, never per step.
 Ported: displays 4 and 77 (records batched per chunk on every engine),
 ``checkpoint=``, ``warmup`` and ``exact-time=0``.  Engines: ``impl=torch``
 the plain tensor path; ``impl=stream`` the temporal-tiling kernel (B2,
-ops/stepper_stream_cuda); ``impl=cuda`` and ``auto`` B1 (ops/stepper_cuda)
-or B2 by the crossover measured on an H100
+ops/stepper_stream_cuda); ``impl=cuda`` and ``auto`` B1 (ops/stepper_cuda,
+in its resident or per-half-step form) or B2 by what an H100 measured
 (stepper_stream_cuda.stream_beats_b1).  ``exact-time=0`` evaluates the
 trig on the device from the carried t on ``impl=torch``; display 77 and
 the kernel engines keep the schedule's exact tables, as the JAX package's
@@ -116,6 +116,13 @@ class Simulation:
             return "stream"
         return "cuda-b1"
 
+    def engine_tag(self):
+        """The engine, and on B1 the form its runner took: 'torch',
+        'stream', 'cuda-b1 resident' or 'cuda-b1 per-half-step' (before
+        the first chunk, B1's form is not chosen yet: 'cuda-b1')."""
+        form = getattr(self._runner, "form", None)
+        return f"{self.engine} {form}" if form else self.engine
+
     def _kernel_runner(self):
         if self._runner is None:
             if self.engine == "stream":
@@ -155,7 +162,7 @@ class Simulation:
                 print(f"\n# perf: {steps} steps in {wall:.3f}s = "
                       f"{steps / wall:.1f} steps/s "
                       f"({sites / wall:.3e} site-updates/s) "
-                      f"[impl={self.engine}]")
+                      f"[impl={self.engine_tag()}]")
         if cfg.checkpoint:
             save_state(cfg.checkpoint, self.state, model=self.model,
                        t0=self.t_exit, frame_time=self.frame_time,

@@ -133,8 +133,9 @@ def test_main_prints_the_record_with_device_and_launches(monkeypatch,
     assert seen == [(["sweep", "lanes"], "cuda:0")]
     assert line["value"] == 2.5e10 and line["metric"] == "m"
     assert line["device"] == "NVIDIA H100 80GB HBM3, 700.00 W"
-    assert set(line["launches"]) == {"B1", "B2", "B3", "B3 per-omega",
-                                     "B4"}
+    assert set(line["launches"]) == {"B1", "B1 resident",
+                                     "B1 per-half-step", "B2", "B3",
+                                     "B3 per-omega", "B4"}
 
 
 def test_module_entry_point_refuses_the_cpu():

@@ -19,13 +19,16 @@ def card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["resident", "per-half-step"])
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
-def test_kernel_matches_plain(card, dtype):
+def test_kernel_matches_plain(card, dtype, form):
     """200 steps in two chunks with display-77 records, as chip_smoke.py's
-    kernel phase checks them (f64 rtol 1e-12, f32 rtol 1e-4 atol 1e-7,
-    edges bit for bit)."""
+    kernel phase checks them, in each form of B1 (state and edges bit for
+    bit; av and records at f64 rtol 1e-12, f32 rtol 1e-4 atol 1e-7)."""
     import chip_smoke
-    chip_smoke.check_kernel_vs_plain(chip_smoke.SMALL, dtype, n_steps=200)
+    _, runner = chip_smoke.check_kernel_vs_plain(chip_smoke.SMALL, dtype,
+                                                 n_steps=200, form=form)
+    assert runner.form == form
 
 
 @pytest.mark.cuda
@@ -38,18 +41,104 @@ def test_runner_validates_before_launch(card):
                     **chip_smoke.SMALL)
     model = SuperlatticeModel(cfg)
     c = stencil.consts_from_model(model, card)
-    runner = stepper_cuda.make_cuda_runner(c, model)
+    for form, per_run in (("resident", 1), ("per-half-step", 3 * 6)):
+        runner = stepper_cuda.make_cuda_runner(c, model, form=form)
+        state = stencil.bootstrap_state(c, model)
+        bad = state.replace(a=state.a.t().contiguous().t())  # strided view
+        with pytest.raises(ValueError, match="contiguous"):
+            runner(bad, 4)
+        with pytest.raises(ValueError, match="emit_idx"):
+            runner.run_xs(state, {k: v for k, v in chip_smoke._setup(
+                chip_smoke.SMALL, "f32", card)[2].items()}, 0,
+                emit_idx=(5, 2))
+        assert runner.launches == 0
+        out = runner(state, 6)
+        torch.cuda.synchronize()
+        assert runner.launches == per_run and int(out.step) == 6
+        assert out.a.data_ptr() == state.a.data_ptr()   # updated in place
+
+
+# B1's resident form at N=8 M=64, BASELINE #4 (f32, f64), the wide grid
+# and the tall grid (f32)
+RESIDENT_CASES = [("N8M64", "f32", 200), ("N8M64", "f64", 200),
+                  ("BASELINE4", "f32", 101), ("BASELINE4", "f64", 101),
+                  ("WIDE", "f32", 41), ("TALL", "f32", 41)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,n_steps", RESIDENT_CASES)
+def test_resident_form_matches_plain(card, shape, dtype, n_steps):
+    """The resident form against run_chunk_plain in two chunks (the
+    second from parity 1) with display-77 records in both: state and
+    edges bit for bit, av and records at chip_smoke.TOL; one launch a
+    chunk."""
+    import chip_smoke
+    grid = {"N8M64": chip_smoke.SMALL}.get(shape) or getattr(chip_smoke,
+                                                              shape)
+    _, runner = chip_smoke.check_kernel_vs_plain(grid, dtype,
+                                                 n_steps=n_steps,
+                                                 form="resident")
+    assert runner.form == "resident" and runner.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("grid", [(8, 300), (100, 4000)])
+def test_resident_form_matches_per_half_step(card, dtype, grid):
+    """B1's two forms over 203 steps from one state: state and edges bit
+    for bit, av and records at the sums' order tolerance."""
+    import chip_smoke
+    chip_smoke.check_resident_vs_per_half_step(
+        dict(n_harmonics=grid[0], g_grid=grid[1]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,why", [(512, "cudaError_t"),
+                                   (32, "do not all fit")])
+def test_refused_resident_launch_leaves_the_state_untouched(card, W, why):
+    """A band the kernel cannot hold (W=512 at the tall grid: 3.4 MB a
+    block) and more bands than the card runs at once (W=32 at the wide
+    grid: 376 bands): the launch is refused before anything runs, the
+    runner raises, and the state, av and every launch count stay as they
+    were."""
+    import chip_smoke
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    shape = chip_smoke.TALL if W == 512 else chip_smoke.WIDE
+    model, c, _ = chip_smoke._setup(shape, "f32", card)
+    runner = stepper_cuda.make_cuda_runner(c, model, form="resident")
+    runner.plan = stepper_cuda.ResidentPlan(
+        W, -(-model.MP // W), stepper_cuda.resident_smem_bytes(
+            model.NHP, W, model.np_dtype), stepper_cuda.resident_threads(W))
     state = stencil.bootstrap_state(c, model)
-    bad = state.replace(a=state.a.t().contiguous().t())   # strided view
-    with pytest.raises(ValueError, match="contiguous"):
-        runner(bad, 4)
-    with pytest.raises(ValueError, match="emit_idx"):
-        runner.run_xs(state, {k: v for k, v in chip_smoke._setup(
-            chip_smoke.SMALL, "f32", card)[2].items()}, 0, emit_idx=(5, 2))
-    assert runner.launches == 0
-    out = runner(state, 6)
+    before = state.clone()
+    counts = (stepper_cuda.launch_count, stepper_cuda.resident_launch_count,
+              stepper_cuda.per_half_step_launch_count)
+    with pytest.raises(RuntimeError, match=why):
+        runner(state, 8)
     torch.cuda.synchronize()
-    assert runner.launches == 3 * 6 and int(out.step) == 6
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b", "av"):
+        assert torch.equal(getattr(state, f), getattr(before, f)), f
+    assert runner.launches == 0 and counts == (
+        stepper_cuda.launch_count, stepper_cuda.resident_launch_count,
+        stepper_cuda.per_half_step_launch_count)
+
+
+@pytest.mark.cuda
+def test_resident_form_info_at_the_shapes(card):
+    """What the resident form takes at its plans: the shared memory the
+    plan computed, at most 64 registers a thread (1024 threads a block),
+    and every band's block on the card at once."""
+    import numpy as np
+    from slb2d_tpu_torch.ops import stepper_cuda
+    for NHP, MP, D in ((408, 4096, np.float32), (104, 12032, np.float32),
+                       (104, 4096, np.float32), (104, 4096, np.float64)):
+        plan = stepper_cuda.resident_plan(NHP, MP, D,
+                                          stepper_cuda.card_sms(card))
+        info = stepper_cuda.form_info(D, plan.W, NHP, MP)
+        assert info["smem_bytes"] == plan.smem_bytes
+        assert info["threads"] == plan.threads
+        assert 0 < info["registers"] <= 64
+        assert info["blocks_at_once"] >= plan.bands
 
 
 @pytest.mark.cuda
