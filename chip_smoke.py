@@ -89,21 +89,36 @@ Phases, one output line each (plus a few measurement lines):
               BASELINE #4 on B1;
  15. stream routing: B1 resident, B1 per-half-step and B2 per step at
               the three shapes, in turns, the measurement behind
-              impl=cuda's and auto's engine choice;
- 16. lanes kernel: the lane-packed sweep kernel (B4) against its plain
-              version, its steps split across launches at step 151, on
-              tests/test_sweep_pallas.py's 3-point grid (a dc-only point)
-              and the ragged omega grid, both run to their ends (every
-              window edge and capture), and on the 64-point E_dc sweep for
-              300 steps with max_points=16 and in one chunk of 64; its
-              time per step over the whole sweep beside the plain
-              version's;
+              impl=cuda's and auto's engine choice; then B2 on its own
+              main path, N=100 M=20000 f32 (the first shape past B1's
+              resident plan): impl=cuda routes it to B2, B2 and B1's
+              per-half-step form per step in turns, and the bound;
+ 16. lanes kernel: the lane-packed sweep kernel (B4) in both forms (the
+              cluster form lanes_cluster_plan picks, and the streaming
+              form) against its plain version, its steps split across
+              calls at step 151, on tests/test_sweep_pallas.py's 3-point
+              grid (a dc-only point) and the ragged omega grid, both run
+              to their ends (every window edge and capture), and on the
+              64-point E_dc sweep for 300 steps with max_points=16 and in
+              one chunk of 64 (state, per-lane rows and segment sums bit
+              for bit); the cluster form against the streaming form over
+              the whole 64-point sweep in chunks of 16 and of 64, bit for
+              bit; what each form takes on the card (cluster size,
+              registers, spills, shared bytes, clusters at once); the
+              plan's cluster size against the others (clusters at once
+              by size, the sweep's time per step at each, in turns); the
+              fixed cost of a step (16 points at N=6 M=29); both forms'
+              time per step over the whole sweep in turns, in chunks of
+              16 and in one of 64, beside the plain version's;
+              the bench's runner() (a fetch after each chunk) against the
+              same chunks all enqueued before the first fetch, in turns;
  17. lanes main: `python -m slb2d_tpu_torch.bench sweep lanes` as a
               subprocess (its JSON line, device line and B4 launch
-              count), then the bench function in this process: every
-              point's av count against the schedule, the observables
-              against the stacked sweep kernel B3's on the same sweep, and
-              B4's wall and time per step beside B3's;
+              count: one per chunk call on the cluster form), then the
+              bench function in this process (its launches by form):
+              every point's av count against the schedule, the
+              observables against the stacked sweep kernel B3's on the
+              same sweep, and B4's wall and time per step beside B3's;
  18. bench modes: every other mode of the bench once (auto, driver cuda
               exact 4 and driver stream exact 77 as subprocesses, driver
               torch fast 4 at a small shape, cuda, stream, f64, torch 400
@@ -147,7 +162,10 @@ shared bytes, registers, spills, blocks at once, barrier_us (its fixed
 cost per step), ms_per_half_step (the per-half-step form's time in the
 same run), the three engines' times in turns and its SASS counts; B3's
 with its form, cluster size, shared bytes, registers, clusters at once
-and ms_streaming, the streaming form's time in the same run; bound_ms is the larger of the main path's
+and ms_streaming, the streaming form's time in the same run; B4's with
+the same and its spills, its times in one chunk of 64 and the runner's
+walls; B2's with its times and bound on its own shape, N=100 M=20000;
+bound_ms is the larger of the main path's
 operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
 read once and each output written once, at 3.35 TB/s, over its steps;
 bound_ms_at_p1_rate the same at the rate P1 measured) and
@@ -1391,7 +1409,8 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(lanes_half_step|t_half_step|half_step|av_step|"
+            k = re.search(r"(lanes_half_step|lanes_cluster|t_half_step|"
+                          r"half_step|av_step|"
                           r"record_step|resident_chunk|sweep_chunk|"
                           r"sweep_cluster|"
                           r"stream_tile|"
@@ -1815,29 +1834,104 @@ def stream_routing_phase(card):
     return res
 
 
-def _lanes_runner(shape, max_points=LANES_MAX_POINTS):
+# the first f32 shape past B1's resident plan that impl=cuda sends to B2
+# (N=100 M=16000 still has a plan; M=17000 and M=20000 have none)
+B2_OWN = dict(n_harmonics=100, g_grid=20000)
+
+
+def b2_shape_phase(card):
+    """B2 on the shape where impl=cuda runs it: N=100 M=20000 f32, BASELINE
+    #4's physics.  The routing sends it to B2; B2 and B1's per-half-step
+    form (the engine impl=cuda would take without B2) per step, CUDA
+    events, 2000 steps in one chunk, in turns (B2, per-half-step,
+    per-half-step, B2); the main path's bound per step as bound_ms
+    computes it for a display-4 run's steps.  Returns a dict of them."""
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    m = SuperlatticeModel(SimConfig(display=4, t_start=10.0, **PHYS,
+                                    **B2_OWN))
+    engine, form = routed_engine(m), planned_form(m)
+    check(engine == "stream" and form == "per-half-step",
+          f"N=100 M=20000 f32: impl=cuda routes to {engine} (B1 form "
+          f"{form}), not to B2 past B1's residency")
+    fns = {"stream": lambda: engine_ms(B2_OWN, "stream"),
+           "per-half-step": lambda: engine_ms(B2_OWN, "cuda-b1",
+                                              form="per-half-step")}
+    t = {k: [] for k in fns}
+    for k in ("stream", "per-half-step", "per-half-step", "stream"):
+        t[k].append(fns[k]())
+    steps = run_steps(m)
+    flops = main_path_flops(m, steps, av_steps=window_steps(m, 10.0, steps))
+    bound, by = bound_ms(m, steps, flops)
+    g = sst.default_geometry(m.NHP, m.MP, 4)
+    b2 = sum(t["stream"]) / 2
+    print(f"stream own shape: N=100 M=20000 f32 (NHP={m.NHP}, MP={m.MP}): "
+          f"impl=cuda -> B2 (no resident plan; W={g.W}, {g.n_tiles} tiles); "
+          f"per step (CUDA events, in turns) B2 "
+          + "/".join(f"{v * 1e3:.3f}" for v in t["stream"])
+          + " us, B1 per-half-step "
+          + "/".join(f"{v * 1e3:.3f}" for v in t["per-half-step"])
+          + f" us; bound {bound * 1e3:.4f} us ({by}) over {steps} steps: "
+          f"loss {steps * (b2 - bound) * 1e-3:.4f} s [{card}]", flush=True)
+    return {"shape": "N=100 M=20000", "steps": steps, "ms_turns": t,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _lanes_runner(shape, max_points=LANES_MAX_POINTS, cluster_size=None):
+    """(sweep, its B4 runner) at one sweep check shape; cluster_size as
+    LanesRunner takes it (None: lanes_cluster_plan's form, 0: the streaming
+    form)."""
     from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
     sweep, _ = _sweep_setup(shape, "f32", impl="torch")
-    return sweep, slc.make_sweep_lanes_runner(sweep, max_points=max_points)
+    return sweep, slc.make_sweep_lanes_runner(
+        sweep, max_points=max_points, cluster_size=cluster_size)
+
+
+def lanes_form_name(runner):
+    """'cluster CS=8' or 'streaming': the B4 form a runner launches."""
+    return (f"cluster CS={runner.cluster_size}" if runner.form == "cluster"
+            else "streaming")
+
+
+def lanes_call_launches(runner, n):
+    """B4 launches of one advance() call of n steps in the runner's form."""
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    if runner.form == "cluster":
+        return slc.LAUNCHES_PER_CALL if n else 0
+    return slc.LAUNCHES_PER_STEP * n
+
+
+def _lanes_equal(x, y, what):
+    """Raise unless x and y (tensors or numpy arrays) are equal element
+    for element; returns their largest abs difference (0.0)."""
+    import numpy as np
+    import torch
+    if isinstance(x, np.ndarray):
+        x, y = torch.from_numpy(x), torch.from_numpy(y)
+    err = float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+    check(torch.equal(x, y), f"{what} not bit for bit (max abs err "
+          f"{err:.3e})")
+    return err
 
 
 def check_lanes_vs_plain(shape, max_points=LANES_MAX_POINTS, n_steps=None,
-                         split=151):
-    """Run the lane-packed kernel and its plain version from each chunk's
+                         split=151, cluster_size=None):
+    """Run the lane-packed kernel (in the form cluster_size picks, as
+    _lanes_runner takes it) and its plain version from each chunk's
     bootstrap over the same steps, split across calls at step `split`
     (odd: the second call starts at parity 1 and its loop t continues);
     n_steps=None runs to the sweep's end.  State, per-lane av and capture
-    rows and the host segment sums bit for bit where they are, else at
-    TOL.  Returns (largest abs difference, whether everything was bit for
-    bit)."""
+    rows and the host segment sums bit for bit; the launches per call of
+    the form.  Returns (the largest abs difference, 0.0, the runner)."""
     import numpy as np
     import torch
     from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
-    sweep, runner = _lanes_runner(shape, max_points)
+    sweep, runner = _lanes_runner(shape, max_points, cluster_size)
     n = n_steps or sweep.n_steps
-    tol = TOL["f32"]
-    what = f"lanes {shape} B={sweep.B} max_points={max_points} {n} steps"
-    err, bitwise = 0.0, True
+    what = (f"lanes {shape} B={sweep.B} max_points={max_points} "
+            f"{lanes_form_name(runner)} {n} steps")
+    err = 0.0
     sums = []
     for k, pack in enumerate(runner.packs):
         launches0 = runner.launches
@@ -1847,22 +1941,18 @@ def check_lanes_vs_plain(shape, max_points=LANES_MAX_POINTS, n_steps=None,
         plain = slc.run_lanes_plain(pack, plain, n - split, split,
                                     runner.loop_t(split))
         torch.cuda.synchronize()
-        check(runner.launches - launches0 == slc.LAUNCHES_PER_STEP * n,
-              f"{what}: {runner.launches - launches0} launches")
+        want = (lanes_call_launches(runner, split)
+                + lanes_call_launches(runner, n - split))
+        check(runner.launches - launches0 == want,
+              f"{what}: {runner.launches - launches0} launches (expected "
+              f"{want})")
         for f in ("a", "b", "a_hs", "b_hs", "av", "cap"):
-            x, y = getattr(kern, f), getattr(plain, f)
-            if not torch.equal(x, y):
-                bitwise = False
-                err = max(err, allclose(x, y, what=f"{what} chunk {k} {f}",
-                                        **tol))
+            err = max(err, _lanes_equal(getattr(kern, f), getattr(plain, f),
+                                        f"{what} chunk {k} {f}"))
         (kav, kcap, _), (pav, pcap, _) = (slc.finish_chunk(pack, kern),
                                           slc.finish_chunk(pack, plain))
         for x, y, f in ((kav, pav, "av sums"), (kcap, pcap, "cap sums")):
-            if not np.array_equal(x, y):
-                bitwise = False
-                err = max(err, allclose(torch.from_numpy(x),
-                                        torch.from_numpy(y),
-                                        what=f"{what} {f}", **tol))
+            err = max(err, _lanes_equal(x, y, f"{what} {f}"))
         sums.append((kav, kcap))
     av = np.concatenate([a for a, _ in sums])
     cap = np.concatenate([c for _, c in sums], axis=1)
@@ -1874,17 +1964,93 @@ def check_lanes_vs_plain(shape, max_points=LANES_MAX_POINTS, n_steps=None,
         check(np.array_equal(av[:, 0], expected_av_counts(sweep)),
               f"{what}: av counts differ from the schedule")
         check(bool(np.all(cap[3] != 0)), f"{what}: a capture never fired")
-    return err, bitwise
+    return err, runner
+
+
+def check_lanes_forms(shape, max_points):
+    """B4's cluster form (the plan's) against its streaming form over the
+    whole sweep from each chunk's bootstrap, one call per chunk as the
+    bench runs them: state, per-lane rows and host segment sums bit for
+    bit.  Returns the cluster-form runner."""
+    import torch
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    sweep, clu = _lanes_runner(shape, max_points)
+    check(clu.form == "cluster", f"lanes {shape}: the {clu.form} form")
+    stm = slc.make_sweep_lanes_runner(sweep, max_points=max_points,
+                                      cluster_size=0)
+    n = sweep.n_steps
+    what = (f"lanes {shape} max_points={max_points} {lanes_form_name(clu)} "
+            f"vs streaming, {n} steps")
+    for k, pack in enumerate(clu.packs):
+        got = clu.advance(k, clu.start(k), n)
+        ref = stm.advance(k, stm.start(k), n)
+        torch.cuda.synchronize()
+        for f in ("a", "b", "a_hs", "b_hs", "av", "cap"):
+            _lanes_equal(getattr(got, f), getattr(ref, f),
+                         f"{what} chunk {k} {f}")
+        for x, y, f in zip(slc.finish_chunk(pack, got)[:2],
+                           slc.finish_chunk(pack, ref)[:2],
+                           ("av sums", "cap sums")):
+            _lanes_equal(x, y, f"{what} chunk {k} {f}")
+    check(clu.launches == len(clu.packs) * slc.LAUNCHES_PER_CALL
+          and stm.launches == len(clu.packs) * slc.LAUNCHES_PER_STEP * n,
+          f"{what}: launches {clu.launches}, {stm.launches}")
+    return clu
+
+
+LANES_SHAPES = (("lanes3", LANES_MAX_POINTS, None),
+                ("omega_ragged", LANES_MAX_POINTS, None),
+                ("omega_ragged", 2, None),
+                ("full", LANES_MAX_POINTS, 300),
+                ("full", SWEEP_POINTS, 300))
+
+
+def lanes_forms_phase(card):
+    """What each form of B4 takes on the card at every chunk of phase 16:
+    registers and spill bytes a thread, shared memory a block and the
+    clusters (streaming form: blocks) that run at once, for the plan's
+    cluster size and the streaming form.  Raises where the plan's cluster
+    cannot run on the card.  Returns {(shape, max_points): {cluster size:
+    form_info}}."""
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    out = {}
+    for shape, mp, _ in LANES_SHAPES:
+        sweep, runner = _lanes_runner(shape, mp)
+        NHP, MP = sweep.base.NHP, sweep.base.MP
+        check(runner.form == "cluster", f"lanes {shape} max_points={mp}: "
+              f"the plan gives the {runner.form} form")
+        out[shape, mp] = {cs: slc.form_info(cs, NHP, MP, runner.CB)
+                          for cs in (runner.cluster_size, 0)}
+        info = out[shape, mp][runner.cluster_size]
+        check(info["active_clusters"] > 0 and info["smem_bytes"]
+              == runner.smem_bytes, f"lanes {shape} CB={runner.CB} CS="
+              f"{runner.cluster_size}: {info}")
+    print("lanes forms: B4 on the card, (shape, max_points): cluster size "
+          "(0: streaming) registers, spill bytes, shared bytes a block, "
+          "clusters (blocks) at once: " + "; ".join(
+              f"{sh} {mp}: " + ", ".join(
+                  f"CS={cs} {v['registers']}/{v['local_bytes']}/"
+                  f"{v['smem_bytes']}/{v['active_clusters']}"
+                  for cs, v in forms.items())
+              for (sh, mp), forms in out.items()) + f" [{card}]",
+          flush=True)
+    return out
 
 
 def lanes_kernel_ms(max_points=LANES_MAX_POINTS, n_plain=20):
-    """ms per step of the lane-packed kernel over the whole 64-point
-    sweep (CUDA events; every chunk from its bootstrap, one C call per
-    chunk, as the bench runs them) and of its plain version (host clock,
-    n_plain steps of every chunk)."""
+    """ms per step of the lane-packed kernel's cluster and streaming form
+    over the whole 64-point sweep (CUDA events; every chunk from its
+    bootstrap, one call per chunk, as the bench runs them; in turns:
+    cluster, streaming, streaming, cluster) and of its plain version (host
+    clock, n_plain steps of every chunk): ([cluster ms], [streaming ms],
+    plain ms, the cluster-form runner)."""
     import torch
     from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
     sweep, runner = _lanes_runner("full", max_points)
+    check(runner.form == "cluster", f"the 64-point sweep's B4 form is "
+          f"{runner.form}")
+    stm = slc.make_sweep_lanes_runner(sweep, max_points=max_points,
+                                      cluster_size=0)
     n = sweep.n_steps
     chunks = range(len(runner.packs))
     torch.cuda.synchronize()
@@ -1893,9 +2059,104 @@ def lanes_kernel_ms(max_points=LANES_MAX_POINTS, n_plain=20):
         slc.run_lanes_plain(runner.packs[k], runner.start(k), n_plain)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
-    k_ms = time_per_step(lambda: [runner.advance(k, runner.start(k), n)
-                                  for k in chunks], n)
-    return k_ms, p_ms, sweep
+    k_ms, s_ms = in_turns(
+        lambda: [runner.advance(k, runner.start(k), n) for k in chunks],
+        lambda: [stm.advance(k, stm.start(k), n) for k in chunks], n)
+    return k_ms, s_ms, p_ms, runner
+
+
+def lanes_sizes_ms():
+    """The plan's cluster size against the others that hold a point of the
+    64-point sweep (NHP=48, MP=512): the clusters of each size 1-8 that
+    run at once on this card (at 2 rows a rank, NHP = 2 x size, MP=128:
+    a block of 1024 threads takes an SM whatever its shared memory), and
+    ms per step of the whole sweep (CUDA events, in turns, each size
+    twice) in chunks of 16 at 4, 6 and 8 blocks a point and in one chunk
+    of 64 at 2, 3 and 4.  Returns ({size: clusters at once}, {max_points:
+    {size: [ms]}})."""
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    at_once = {cs: slc.form_info(cs, 2 * cs, 128, 1)["active_clusters"]
+               for cs in slc.CLUSTER_SIZES}
+    out = {}
+    for mp, sizes in ((LANES_MAX_POINTS, (4, 6, 8)),
+                      (SWEEP_POINTS, (2, 3, 4))):
+        fns = {}
+        for cs in sizes:
+            sweep, r = _lanes_runner("full", mp, cluster_size=cs)
+            fns[cs] = (lambda r=r: [r.advance(k, r.start(k), sweep.n_steps)
+                                    for k in range(len(r.packs))])
+        for fn in fns.values():
+            fn()
+        t = {cs: [] for cs in sizes}
+        for cs in list(sizes) + list(sizes)[::-1]:
+            t[cs].append(time_per_step(fns[cs], sweep.n_steps, warm=False))
+        out[mp] = t
+    return at_once, out
+
+
+# the fixed cost of a cluster-form step: 16 points of a grid so small that
+# each thread has one cell a phase (NHP=8, MP=128)
+LANES_TINY = dict(n_harmonics=6, g_grid=29, t_start=0.1)
+
+
+def lanes_fixed_ms(n_steps=4000):
+    """ms per step of one chunk of 16 points at N=6 M=29 (one cell a
+    thread a phase: the fixed cost of a step, the two phases' latency, the
+    two cluster barriers and the av update) at 1, 2 and 4 blocks a point
+    and on the streaming form (CUDA events, after a warm-up).  Returns
+    {cluster size (0: streaming): ms}."""
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    from slb2d_tpu_torch.parallel.sweep import ParameterSweep
+    cfg = SimConfig(display=4, dtype="f32", impl="torch", quiet=True,
+                    **{**PHYS, **LANES_TINY})
+    sweep = ParameterSweep(cfg, {"E_dc": np.linspace(0.1, 3.0, 16)},
+                           device=torch.device(DEVICE))
+    out = {}
+    for cs in (1, 2, 4, 0):
+        r = slc.make_sweep_lanes_runner(sweep, cluster_size=cs)
+        out[cs] = time_per_step(lambda: r.advance(0, r.start(0), n_steps),
+                                n_steps)
+    return out
+
+
+def lanes_call_ms():
+    """Wall seconds of the bench's runner() over the 64-point sweep in
+    chunks of 16 (a fetch after each chunk) and of the same parts with
+    every chunk enqueued before the first fetch (overlapped), host clock,
+    in turns (runner, overlapped, overlapped, runner, twice) after one
+    warm call each; the two results bit for bit.  Returns {"runner": [s],
+    "overlapped": [s]}."""
+    import numpy as np
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    sweep, runner = _lanes_runner("full")
+    n = sweep.n_steps
+
+    def overlapped():
+        sts = [runner.advance(k, runner.start(k), n)
+               for k in range(len(runner.packs))]
+        out = [slc.finish_chunk(p, st) for p, st in zip(runner.packs, sts)]
+        return (np.concatenate([o[0] for o in out]),
+                np.concatenate([o[1] for o in out], axis=1),
+                [np.concatenate([o[2][i] for o in out], axis=1)
+                 for i in range(4)])
+
+    fns = {"runner": runner, "overlapped": overlapped}
+    res = {k: fn() for k, fn in fns.items()}
+    out = {k: [] for k in fns}
+    for k in ("runner", "overlapped", "overlapped", "runner") * 2:
+        t0 = time.perf_counter()
+        fns[k]()
+        out[k].append(time.perf_counter() - t0)
+    (av1, cap1, st1), (av2, cap2, st2) = res["runner"], res["overlapped"]
+    check(np.array_equal(av1, av2)
+          and np.array_equal(np.stack([cap1[k] for k in slc.CAP_KEYS]),
+                             cap2)
+          and all(np.array_equal(x, y) for x, y in zip(st1, st2)),
+          "the overlapped chunks and runner() differ")
+    return out
 
 
 def _bench_line(argv):
@@ -1927,7 +2188,7 @@ def lanes_main_phase(card):
           f"bench sweep lanes line {line}")
     sweep = bench.make_sweep(device=DEVICE)
     chunks = -(-sweep.B // LANES_MAX_POINTS)
-    per_call = slc.LAUNCHES_PER_STEP * sweep.n_steps * chunks
+    per_call = slc.LAUNCHES_PER_CALL * chunks   # the cluster form
     want = dict.fromkeys(("B1", "B1 resident", "B1 per-half-step", "B2",
                           "B3", "B3 per-omega"), 0)
     want["B4"] = 2 * per_call                 # the warm and the timed call
@@ -1935,8 +2196,9 @@ def lanes_main_phase(card):
           f"bench sweep lanes launches {line['launches']}, expected {want}")
     print(f"lanes main: python -m slb2d_tpu_torch.bench sweep lanes: "
           f"{line['value']:.4e} site-updates/s, wall {line['wall_s']:.4f} "
-          f"s for {line['steps']} steps, B4 launches {want['B4']} "
-          f"[{line['device']}]", flush=True)
+          f"s for {line['steps']} steps, B4 launches {want['B4']} (cluster "
+          f"form, {chunks} chunks x 2 calls) [{line['device']}]",
+          flush=True)
 
     zero_counts()
     ups, wall, steps, (sweep, (av, cap, _)) = bench.bench_sweep(
@@ -1944,6 +2206,10 @@ def lanes_main_phase(card):
     got = bench.launch_counts()
     check(got == {**want, "B4": 2 * per_call},
           f"bench_sweep lanes launches {got}")
+    forms = (slc.cluster_launch_count, slc.streaming_launch_count)
+    check(forms == (2 * per_call, 0),
+          f"bench_sweep lanes (cluster, streaming) launches {forms}, "
+          f"expected {(2 * per_call, 0)}")
     want_counts = expected_av_counts(sweep)
     check(np.array_equal(av[:, 0], want_counts),
           f"B4 av counts differ from the schedule at "
@@ -1987,6 +2253,8 @@ def zero_counts():
     stepper_cuda.resident_launch_count = 0
     stepper_cuda.per_half_step_launch_count = 0
     sweep_stack_cuda.omega_launch_count = 0
+    sweep_lanes_cuda.cluster_launch_count = 0
+    sweep_lanes_cuda.streaming_launch_count = 0
     sweep_stack_cuda.cluster_launch_count = 0
     sweep_stack_cuda.streaming_launch_count = 0
     roll_cost_experiment.resident_launch_count = 0
@@ -2442,23 +2710,58 @@ def main():
     stream_runs = stream_main_phase(card)
     routing = stream_routing_phase(card)
 
-    # 16. the lane-packed kernel against its plain version, and its times
-    lanes_err = {}
-    for shape, mp, n in (("lanes3", LANES_MAX_POINTS, None),
-                         ("omega_ragged", LANES_MAX_POINTS, None),
-                         ("full", LANES_MAX_POINTS, 300),
-                         ("full", SWEEP_POINTS, 300)):
-        lanes_err[shape, mp] = check_lanes_vs_plain(shape, mp, n)
-    b4_ms, b4_plain_ms, _ = lanes_kernel_ms()
-    b4_one_ms, _, _ = lanes_kernel_ms(SWEEP_POINTS, n_plain=5)
-    print("lanes kernel: vs plain, split at step 151: " + ", ".join(
-        f"{s} max_points={mp} "
-        + ("bit for bit" if b else f"max abs err {e:.3e}")
-        for (s, mp), (e, b) in lanes_err.items()) + " ok; whole "
-        f"{SWEEP_POINTS}-point sweep f32 (CUDA events): kernel {b4_ms:.5f} "
-        f"ms/step at max_points={LANES_MAX_POINTS}, {b4_one_ms:.5f} in one "
-        f"chunk of {SWEEP_POINTS}; plain version {b4_plain_ms:.5f} ms/step "
-        f"[{card}]", flush=True)
+    # B2 on the first shape past B1's residency (15, continued)
+    b2_own = b2_shape_phase(card)
+
+    # 16. the lane-packed kernel: both forms against its plain version and
+    # against each other, what each takes on the card, their times in turns
+    lanes_err, lanes_form = {}, {}
+    for shape, mp, n in LANES_SHAPES:
+        for cs in (None, 0):
+            err, runner = check_lanes_vs_plain(shape, mp, n, cluster_size=cs)
+            check(runner.form == ("cluster" if cs is None else "streaming"),
+                  f"lanes {shape} max_points={mp}: the {runner.form} form")
+            lanes_err[shape, mp, runner.form] = err
+            lanes_form[shape, mp, runner.form] = lanes_form_name(runner)
+    for mp in (LANES_MAX_POINTS, SWEEP_POINTS):
+        check_lanes_forms("full", mp)
+    lanes_forms = lanes_forms_phase(card)
+    at_once, sizes_ms = lanes_sizes_ms()
+    fixed_ms = lanes_fixed_ms()
+    print("lanes sizes: clusters at once by size: " +
+          ", ".join(f"{cs}: {v}" for cs, v in at_once.items()) +
+          "; whole 64-point sweep per step by blocks a point (CUDA events, "
+          "in turns): " + "; ".join(
+              f"max_points={mp} " + ", ".join(
+                  f"CS={cs} " + "/".join(f"{v * 1e3:.3f}" for v in vs)
+                  for cs, vs in t.items()) + " us"
+              for mp, t in sizes_ms.items()) + "; fixed cost a step (16 "
+          "points at N=6 M=29, one cell a thread): " + ", ".join(
+              f"{'streaming' if cs == 0 else f'CS={cs}'} {v * 1e3:.3f} us"
+              for cs, v in fixed_ms.items()) + f" [{card}]", flush=True)
+    b4_k, b4_s, b4_plain_ms, b4_runner = lanes_kernel_ms()
+    b4_k64, b4_s64, _, b4_runner64 = lanes_kernel_ms(SWEEP_POINTS, n_plain=5)
+    b4_calls = lanes_call_ms()
+    b4_ms, b4_stream_ms = sum(b4_k) / len(b4_k), sum(b4_s) / len(b4_s)
+    print("lanes kernel: vs plain, split at step 151, state, per-lane rows "
+          "and segment sums bit for bit: " + ", ".join(
+              f"{s} max_points={mp} {lanes_form[s, mp, f]}"
+              for (s, mp, f) in lanes_err) + "; cluster form vs streaming "
+          f"form over the whole {SWEEP_POINTS}-point sweep at max_points="
+          f"{LANES_MAX_POINTS} and {SWEEP_POINTS}, bit for bit ok; whole "
+          f"sweep f32 (CUDA events, in turns): max_points="
+          f"{LANES_MAX_POINTS} {lanes_form_name(b4_runner)} "
+          f"{', '.join(f'{v:.5f}' for v in b4_k)} ms/step, streaming "
+          f"{', '.join(f'{v:.5f}' for v in b4_s)}; one chunk of "
+          f"{SWEEP_POINTS} {lanes_form_name(b4_runner64)} "
+          f"{', '.join(f'{v:.5f}' for v in b4_k64)}, streaming "
+          f"{', '.join(f'{v:.5f}' for v in b4_s64)}; plain version "
+          f"{b4_plain_ms:.5f} ms/step; runner() wall (a fetch after each "
+          f"chunk; host clock, in turns) "
+          f"{', '.join(f'{v:.4f}' for v in b4_calls['runner'])} s, every "
+          f"chunk enqueued before the first fetch "
+          f"{', '.join(f'{v:.4f}' for v in b4_calls['overlapped'])} s "
+          f"[{card}]", flush=True)
 
     # 17. the bench's sweep lanes mode; 18. every other bench mode
     b4_launches, b4_wall, b4_steps, lanes_sweep = lanes_main_phase(card)
@@ -2553,6 +2856,18 @@ def main():
                             registers=info["registers"],
                             active_clusters=info["active_clusters"])
 
+    # B4's form on its main path (the bench's chunks of 16)
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    b4_info = lanes_forms["full", LANES_MAX_POINTS][b4_runner.cluster_size]
+    b4_form = dict(form=b4_runner.form, cluster_size=b4_runner.cluster_size,
+                   a0_staged=slc.stages_a0(lanes_sweep.base.NHP,
+                                           lanes_sweep.base.MP,
+                                           b4_runner.cluster_size),
+                   smem_bytes=b4_info["smem_bytes"],
+                   registers=b4_info["registers"],
+                   spills=b4_info["local_bytes"],
+                   clusters_at_once=b4_info["active_clusters"])
+
     def shares(i):
         return ", ".join(f"{k} {bounds[k][i][0] / ms:.4f}"
                          for k, ms in times.items())
@@ -2616,13 +2931,19 @@ def main():
         "B2", name="slb_stream_chunk (stream_tile, stream_replay)",
         route="cuda", source=STREAM_SOURCE, replaces=STREAM_REPLACES,
         launches=b2_launches, max_abs_err=stream_err["N=100 M=12000", "f32"],
-        ms=b2_ms, plain_ms=b2_plain_ms), entry(
-        "B4", name="slb_lanes_chunk (lanes_half_step<true>, "
-                   "lanes_half_step<false>)",
+        ms=b2_ms, plain_ms=b2_plain_ms, own_shape=b2_own), entry(
+        "B4", name="slb_lanes_cluster (lanes_cluster, one launch per "
+                   "call); streaming form slb_lanes_chunk "
+                   "(lanes_half_step<true>, lanes_half_step<false>)",
         route="cuda", source=LANES_SOURCE, replaces=LANES_REPLACES,
-        launches=b4_launches, max_abs_err=lanes_err["full",
-                                                    LANES_MAX_POINTS][0],
-        ms=b4_ms, plain_ms=b4_plain_ms), entry(
+        launches=b4_launches,
+        max_abs_err=lanes_err["full", LANES_MAX_POINTS, "cluster"],
+        ms=b4_ms, plain_ms=b4_plain_ms, ms_streaming=b4_stream_ms,
+        ms_one_chunk=sum(b4_k64) / len(b4_k64),
+        ms_streaming_one_chunk=sum(b4_s64) / len(b4_s64),
+        runner_wall_s=b4_calls, clusters_at_once_by_size=at_once,
+        ms_by_cluster_size=sizes_ms, fixed_ms_per_step=fixed_ms,
+        **b4_form), entry(
         "P1", name="slb_vpu_chain (vpu_chain<ILP, false>), per turn",
         route="cuda", source=VPU_SOURCE, replaces=VPU_REPLACES,
         launches=p1_launches, max_abs_err=p1_err,

@@ -51,6 +51,9 @@ _ENTRY_ARGS = {
                          + [ctypes.c_void_p]),
     "slb_lanes_chunk": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),
+    "slb_lanes_cluster": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p]),
+    "slb_lanes_form_info": [ctypes.c_int] * 4 + [ctypes.c_void_p],
     # the tests/perf probes P1-P3 (slb2d_tpu_torch/perf/)
     "slb_vpu_chain": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p]),
@@ -65,10 +68,11 @@ _ENTRY_ARGS = {
 # and the probes are float-only, as the JAX kernels they replace; the
 # form queries of the step and sweep kernels take the type as an argument
 _ENTRY_TYPES = {name: ("_f32",) for name in (
-    "slb_lanes_chunk", "slb_vpu_chain", "slb_roll_resident",
+    "slb_lanes_chunk", "slb_lanes_cluster", "slb_vpu_chain", "slb_roll_resident",
     "slb_roll_passes", "slb_transposed_chunk")}
 _ENTRY_TYPES["slb_sweep_form_info"] = ("",)
 _ENTRY_TYPES["slb_resident_info"] = ("",)
+_ENTRY_TYPES["slb_lanes_form_info"] = ("",)
 
 
 class BuildError(RuntimeError):

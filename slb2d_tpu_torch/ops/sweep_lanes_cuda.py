@@ -19,6 +19,13 @@ averaging window [t_start, t_end_s) and the capture of its last live
 step's instantaneous observables.  ``observables`` turns a runner's result
 into ParameterSweep.run()'s per-point dict.
 
+Two forms of the kernel compute the same function (csrc/sweep_lanes.cu):
+the cluster form runs a chunk's whole call in one launch with each point
+held in the shared memory of a thread-block cluster; the streaming form,
+two launches per step over the chunk's state in device memory, serves
+points no portable cluster holds.  ``lanes_cluster_plan`` decides which
+runs, before launching.
+
 On a CPU sweep the runner runs the kernel's plain version,
 ``run_lanes_plain``; on a CUDA sweep it launches the kernel or raises;
 nothing falls back.  float32 only, as the JAX kernel.  Routing does not
@@ -48,14 +55,120 @@ W_ROWS = ("w_av", "w_av_phi", "w_d4", "w_d4_phi")
 # t of the first step
 SCALAR_FIELDS = ("dt", "nu", "nu2", "nu_tilde")
 
-# kernel launches per step: the main half-step, the half-grid half-step
-# with the av and capture rows
+# kernel launches of the streaming form per step: the main half-step, the
+# half-grid half-step with the av and capture rows
 LAUNCHES_PER_STEP = 2
+# kernel launches of the cluster form per call (advance), whatever its
+# steps
+LAUNCHES_PER_CALL = 1
+
+# The cluster form's shared-memory budget (csrc/sweep_lanes.cu, whose
+# constants of the same names tests/test_torch_sweep_lanes_cluster.py holds
+# to these): a block's opt-in shared memory on an H100 (227 KB), the
+# portable cluster sizes (a size must also divide NHP), a rank's slab
+# arrays (a, b, a_hs, b_hs), its rows of a0 and a0_ghost (staged where
+# they fit), the point's rows of one column each (av 8, capture 4, the
+# weights 4, phi 1), and the floats of the static trig buffer.
+SMEM_LIMIT = 232448
+CLUSTER_SIZES = tuple(range(1, 9))
+SLAB_ARRAYS = 4
+A0_ARRAYS = 2
+COLUMN_ROWS = 17
+TRIG_SCRATCH = 16
+# the kernel's return code when no cluster of a launch fits on the card
+NO_ACTIVE_CLUSTER = -1
+# Clusters of each size of the cluster form that run at once on an H100
+# 80GB HBM3 (one 1024-thread block per SM, whatever its shared memory):
+# cudaOccupancyMaxActiveClusters as chip_smoke.py's phase 16 prints it
+# ("lanes sizes"; PERF.md §6).  A CPU runner records the plan of this
+# card; a CUDA runner asks its own.
+H100_ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                        8: 15}
 
 # kernel launches made by every runner of this process (each runner also
-# counts its own in .launches): a caller that wants to show a run went
-# through the kernel resets this before the run and reads it after
+# counts its own in .launches), in all and by form: a caller that wants to
+# show a run went through the kernel resets these before the run and reads
+# them after
 launch_count = 0
+cluster_launch_count = 0      # lanes_cluster
+streaming_launch_count = 0    # lanes_half_step
+
+
+def _within_budget(smem):
+    return smem + TRIG_SCRATCH * 4 <= SMEM_LIMIT
+
+
+def stages_a0(NHP: int, MP: int, cluster_size: int) -> bool:
+    """Whether the cluster form's ranks stage their rows of a0 and a0_ghost
+    in shared memory: wherever they fit beside the slab (at N=40 M=500 for
+    6 or more blocks a point, not for 2)."""
+    rows = NHP // cluster_size
+    return _within_budget(((SLAB_ARRAYS + A0_ARRAYS) * rows + COLUMN_ROWS)
+                          * MP * 4)
+
+
+def cluster_smem_bytes(NHP: int, MP: int, cluster_size: int):
+    """The dynamic shared memory of one rank of a cluster of cluster_size
+    blocks holding an (NHP, MP) float32 point, or None where that cluster
+    cannot hold it: not a portable size, NHP not split into equal slabs of
+    at least 2 rows (rank 0 holds rows 0 and 1, which the av and capture
+    rows read), or the slab, the column rows and the trig buffer past
+    SMEM_LIMIT.  With the a0 rows where stages_a0."""
+    if cluster_size not in CLUSTER_SIZES or NHP % cluster_size:
+        return None
+    rows = NHP // cluster_size
+    if rows < 2:
+        return None
+    smem = (SLAB_ARRAYS * rows + COLUMN_ROWS) * MP * 4
+    if not _within_budget(smem):
+        return None
+    if stages_a0(NHP, MP, cluster_size):
+        smem += A0_ARRAYS * rows * MP * 4
+    return smem
+
+
+def lanes_cluster_plan(NHP: int, MP: int, CB: int, active=None):
+    """(cluster size, shared-memory bytes a block) of the cluster form for
+    a chunk of CB (NHP, MP) points, or None where no portable cluster
+    holds a point (the streaming form runs those; e.g. N=100 M=4000, 6.8
+    MB a point).  active(cs) is the number of clusters of cs blocks that
+    run at once on the card (H100_ACTIVE_CLUSTERS by default).  A chunk
+    runs in ceil(CB / active(cs)) waves of R = NHP / cs rows a block, and
+    a block's step takes about its cells' time, so the plan takes the size
+    with the fewest waves x rows, the larger size on a tie.  At N=40 M=500
+    (NHP=48, MP=512) on an H100: CB=16 -> 6 blocks of 8 rows in one wave
+    (16 clusters of 8 would need two: 15 run at once), CB=64 -> 2 blocks
+    of 24 rows."""
+    active = active or H100_ACTIVE_CLUSTERS.__getitem__
+    best = None
+    for cs in CLUSTER_SIZES:
+        smem = cluster_smem_bytes(NHP, MP, cs)
+        at_once = active(cs) if smem is not None else 0
+        if at_once < 1:
+            continue
+        cost = (-(-CB // at_once) * (NHP // cs), -cs)
+        if best is None or cost < best[0]:
+            best = cost, (cs, smem)
+    return None if best is None else best[1]
+
+
+def form_info(cluster_size: int, NHP: int, MP: int, n_points: int) -> dict:
+    """What a form of the kernel takes on the current card for a chunk of
+    n_points (NHP, MP) points: registers and local (spill) bytes a thread,
+    dynamic shared memory a block, and the clusters (the streaming form,
+    cluster_size 0: blocks) that run at once on the whole card.  Builds
+    the kernels first; needs a card."""
+    import ctypes
+    from . import _build
+    out = (ctypes.c_int * 4)()
+    rc = _build.load().cdll.slb_lanes_form_info(
+        cluster_size, NHP, MP, n_points, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"lane-packed kernel form query (cluster_size="
+                           f"{cluster_size}, NHP={NHP}, MP={MP}) failed: "
+                           f"cudaError_t {rc}")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                active_clusters=out[3])
 
 
 @dataclasses.dataclass
@@ -179,7 +292,6 @@ def run_lanes_plain(pack: LanePack, st: LaneState, n_steps: int,
     beb = torch.zeros((NHP, BMP), dtype=D, device=dev)
     bea[:, c.col_edge[0]] = pack.edge_a.t()
     beb[:, c.col_edge[0]] = pack.edge_b.t()
-    one = torch.ones((), dtype=D, device=dev)
     a, b, ahs, bhs, av, cap = st.a, st.b, st.a_hs, st.b_hs, st.av, st.cap
     t = torch.tensor(t0, dtype=D, device=dev)
     for i in range(n_steps):
@@ -197,38 +309,51 @@ def run_lanes_plain(pack: LanePack, st: LaneState, n_steps: int,
         bhs = bhs + gf * beb
         a, b = a_new, b_new
 
-        # per-lane av() and capture (sweep_pallas.py:137-174)
-        live = (t < tend).to(D)
-        g = live * egate * (t >= c.t_start).to(D)
-        x_dr = b[1:2] * w[0:1]
-        x_vy = a[0:1] * w[1:2]
-        x_mx = a[1:2] * w[0:1]
-        count = av[0:1] + g
-        den = torch.where(count > 0, count, one)
-        cos_av = torch.cos(c.omega * t)
-        sin_av = torch.sin(c.omega * t)
-        y4 = cos_av * x_dr * dt - av[6:7]
-        t4 = av[4:5] + y4
-        c4 = (t4 - av[4:5]) - y4
-        y5 = sin_av * x_dr * dt - av[7:8]
-        t5 = av[5:6] + y5
-        c5 = (t5 - av[5:6]) - y5
-        gb = g > 0
-        av = torch.cat([
-            count,
-            av[1:2] + g * (x_dr - av[1:2]) / den,
-            av[2:3] + g * (x_vy - av[2:3]) / den,
-            av[3:4] + g * (x_mx - av[3:4]) / den,
-            torch.where(gb, t4, av[4:5]), torch.where(gb, t5, av[5:6]),
-            torch.where(gb, c4, av[6:7]), torch.where(gb, c5, av[7:8])])
-        lb = live > 0
-        cap = torch.cat([
-            torch.where(lb, b[1:2] * w[2:3], cap[0:1]),
-            torch.where(lb, a[0:1] * w[3:4], cap[1:2]),
-            torch.where(lb, a[1:2] * w[2:3], cap[2:3]),
-            torch.where(lb, a[0:1] * w[0:1], cap[3:4])])
+        av, cap = lane_rows_step(c.omega, c.t_start, dt, w, egate, tend,
+                                 av, cap, a, b, t)
         t = t + dt
     return LaneState(a=a, b=b, a_hs=ahs, b_hs=bhs, av=av, cap=cap)
+
+
+def lane_rows_step(omega, t_start, dt, w, egate, tend, av, cap, a, b, t):
+    """One step of the per-lane av() and capture recurrences
+    (sweep_pallas.py:137-174) at loop t from rows 0-1 of the new a, b:
+    (new av (8, L), new cap (4, L)).  Every argument but t_start, dt and t
+    is per lane: omega, egate, tend (1, L) rows, w the (4, L) weight rows,
+    av and cap the rows of the same lanes; a column's result depends on
+    that column alone."""
+    D = av.dtype
+    one = torch.ones((), dtype=D, device=av.device)
+    live = (t < tend).to(D)
+    g = live * egate * (t >= t_start).to(D)
+    x_dr = b[1:2] * w[0:1]
+    x_vy = a[0:1] * w[1:2]
+    x_mx = a[1:2] * w[0:1]
+    count = av[0:1] + g
+    den = torch.where(count > 0, count, one)
+    cos_av = torch.cos(omega * t)
+    sin_av = torch.sin(omega * t)
+    y4 = cos_av * x_dr * dt - av[6:7]
+    t4 = av[4:5] + y4
+    c4 = (t4 - av[4:5]) - y4
+    y5 = sin_av * x_dr * dt - av[7:8]
+    t5 = av[5:6] + y5
+    c5 = (t5 - av[5:6]) - y5
+    gb = g > 0
+    av = torch.cat([
+        count,
+        av[1:2] + g * (x_dr - av[1:2]) / den,
+        av[2:3] + g * (x_vy - av[2:3]) / den,
+        av[3:4] + g * (x_mx - av[3:4]) / den,
+        torch.where(gb, t4, av[4:5]), torch.where(gb, t5, av[5:6]),
+        torch.where(gb, c4, av[6:7]), torch.where(gb, c5, av[7:8])])
+    lb = live > 0
+    cap = torch.cat([
+        torch.where(lb, b[1:2] * w[2:3], cap[0:1]),
+        torch.where(lb, a[0:1] * w[3:4], cap[1:2]),
+        torch.where(lb, a[1:2] * w[2:3], cap[2:3]),
+        torch.where(lb, a[0:1] * w[0:1], cap[3:4])])
+    return av, cap
 
 
 class LanesRunner:
@@ -239,9 +364,16 @@ class LanesRunner:
     steps from global step step0 (the kernel in place on CUDA, the plain
     version on the CPU), and finish_chunk(runner.packs[k], st) fetches the
     chunk once and sums its segments.  `launches` counts this runner's
-    kernel launches."""
+    kernel launches.
 
-    def __init__(self, sweep, max_points=16):
+    The form follows lanes_cluster_plan for the chunk size CB and the
+    clusters the card runs at once (a CPU runner records an H100's): form
+    "cluster" with cluster_size blocks a point and smem_bytes of shared
+    memory a block, or form "streaming" (cluster_size 0) where no cluster
+    holds a point.  cluster_size forces a size (0: the streaming form);
+    one no cluster can take raises."""
+
+    def __init__(self, sweep, max_points=16, cluster_size=None):
         base = sweep.base
         if base.np_dtype != np.float32:
             raise ValueError("the lane-packed sweep kernel is float32-only")
@@ -255,6 +387,28 @@ class LanesRunner:
             raise ValueError(f"lane-packed sweep: unsupported device {dev}")
         self.sweep, self.base = sweep, base
         self.CB = min(max_points, sweep.B)
+        NHP, MP = base.NHP, base.MP
+        if cluster_size is None:
+            active = None
+            if dev.type == "cuda":
+                def active(cs):
+                    with torch.cuda.device(dev):
+                        return form_info(cs, NHP, MP, self.CB)[
+                            "active_clusters"]
+            plan = lanes_cluster_plan(NHP, MP, self.CB, active)
+        elif cluster_size == 0:
+            plan = None
+        else:
+            smem = cluster_smem_bytes(NHP, MP, cluster_size)
+            if smem is None:
+                raise ValueError(
+                    f"lane-packed sweep: a cluster of {cluster_size} blocks "
+                    f"cannot hold an (NHP={NHP}, MP={MP}) point (sizes "
+                    f"{CLUSTER_SIZES}, >= 2 rows a block, {SMEM_LIMIT} "
+                    f"bytes)")
+            plan = cluster_size, smem
+        self.form = "streaming" if plan is None else "cluster"
+        self.cluster_size, self.smem_bytes = plan or (0, 0)
         init = sweep._initial_states()
         self.packs = [pack_chunk(sweep, range(i, min(i + max_points,
                                                       sweep.B)),
@@ -301,7 +455,7 @@ class LanesRunner:
 
     def _launch(self, pack, st, n, step0, t0):
         from . import _build
-        global launch_count
+        global launch_count, cluster_launch_count, streaming_launch_count
         CB, base = self.CB, self.base
         NHP, BMP = base.NHP, CB * base.MP
         c = pack.consts
@@ -323,19 +477,38 @@ class LanesRunner:
                     f"lane-packed sweep: {name} must be a contiguous "
                     f"float32 {shapes[name]} tensor on {dev}, got "
                     f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if n == 0:
+            return
         params = self.params.copy()
         params[-1] = t0
         lib = _build.load()
-        with torch.cuda.device(dev):
-            rc = lib.cdll.slb_lanes_chunk_f32(
-                *(t.data_ptr() for t in tensors.values()),
+        args = [*(t.data_ptr() for t in tensors.values()),
                 params.ctypes.data, CB, base.N, base.M, NHP, base.MP, int(n),
-                int(step0) % 2, torch.cuda.current_stream(dev).cuda_stream)
+                int(step0) % 2]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if self.form == "cluster":
+                rc = lib.cdll.slb_lanes_cluster_f32(*args, self.cluster_size,
+                                                    stream)
+            else:
+                rc = lib.cdll.slb_lanes_chunk_f32(*args, stream)
+        if rc == NO_ACTIVE_CLUSTER:
+            raise RuntimeError(
+                f"lane-packed sweep kernel: no cluster of "
+                f"{self.cluster_size} blocks with {self.smem_bytes} bytes of "
+                f"shared memory fits on {torch.cuda.get_device_name(dev)}")
         if rc != 0:
-            raise RuntimeError(f"lane-packed sweep kernel launch failed: "
-                               f"cudaError_t {rc}")
-        self.launches += LAUNCHES_PER_STEP * n
-        launch_count += LAUNCHES_PER_STEP * n
+            raise RuntimeError(f"lane-packed sweep kernel launch ({self.form} "
+                               f"form, cluster_size {self.cluster_size}) "
+                               f"failed: cudaError_t {rc}")
+        if self.form == "cluster":
+            k = LAUNCHES_PER_CALL
+            cluster_launch_count += k
+        else:
+            k = LAUNCHES_PER_STEP * n
+            streaming_launch_count += k
+        self.launches += k
+        launch_count += k
 
 
 def finish_chunk(pack: LanePack, st: LaneState):
@@ -363,10 +536,12 @@ def finish_chunk(pack: LanePack, st: LaneState):
     return av, cap, tuple(x[:, :n * MP] for x in arrays)
 
 
-def make_sweep_lanes_runner(sweep, max_points=16) -> LanesRunner:
+def make_sweep_lanes_runner(sweep, max_points=16,
+                            cluster_size=None) -> LanesRunner:
     """The B4 runner of a ParameterSweep (see LanesRunner); sweeps of more
     than max_points points run in chunks of max_points."""
-    return LanesRunner(sweep, max_points=max_points)
+    return LanesRunner(sweep, max_points=max_points,
+                       cluster_size=cluster_size)
 
 
 def run_sweep_lanes(sweep, max_points=16):

@@ -139,7 +139,8 @@ def main(argv=None):
                 if _device_us(e) > 0 and e.count > 0]
         busy = sum(r[2] for r in rows) * 1e-6
         print(f"  lanes max_points={max_points} ({len(runner.packs)} "
-              f"chunk(s)), runner(): wall {wall * 1e3:.3f} ms "
+              f"chunk(s), {runner.form} form CS={runner.cluster_size}), "
+              f"runner(): wall {wall * 1e3:.3f} ms "
               f"({wall / sweep.n_steps * 1e6:.2f} us/step), device busy "
               f"{busy * 1e3:.3f} ms = {100 * busy / wall:.1f}%, idle "
               f"{100 * (1 - busy / wall):.1f}%")

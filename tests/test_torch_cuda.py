@@ -351,23 +351,97 @@ def test_stream_runner_validates_before_launch(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,max_points", [("lanes3", 16),
-                                              ("omega_ragged", 2)])
-def test_lanes_kernel_matches_plain(card, shape, max_points):
-    """The lane-packed kernel against its plain version over the whole
-    sweep, split across calls at step 151 (the second call from parity 1),
-    as chip_smoke.py's lanes-kernel phase checks it (f32 rtol 1e-4 atol
-    1e-7 where not bit for bit; av counts equal to the schedule; every
-    capture fired; the dc-only point's av exactly 0).  max_points=2 pads
-    the ragged grid's last chunk with a dead lane."""
+@pytest.mark.parametrize("cluster_size", [None, 0])
+@pytest.mark.parametrize("shape,max_points,n_steps", [
+    ("lanes3", 16, None), ("omega_ragged", 2, None),
+    ("omega_ragged", 16, None), ("full", 16, 300), ("full", 64, 300)])
+def test_lanes_kernel_matches_plain(card, shape, max_points, n_steps,
+                                    cluster_size):
+    """The lane-packed kernel in the form the plan picks (the cluster form
+    at every one of these shapes) and in the streaming form against its
+    plain version, split across calls at step 151 (the second call from
+    parity 1), as chip_smoke.py's lanes-kernel phase checks it: state,
+    per-lane rows and segment sums bit for bit; av counts equal to the
+    schedule and every capture fired where run to the end; the dc-only
+    point's av exactly 0.  max_points=2 pads the ragged grid's last chunk
+    with a dead lane; the 64-point sweep runs 300 steps in chunks of 16
+    and in one of 64."""
     import chip_smoke
-    chip_smoke.check_lanes_vs_plain(shape, max_points)
+    err, runner = chip_smoke.check_lanes_vs_plain(
+        shape, max_points, n_steps, cluster_size=cluster_size)
+    assert err == 0.0
+    assert runner.form == ("cluster" if cluster_size is None
+                           else "streaming")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_points", [("full", 16), ("full", 64),
+                                              ("omega_ragged", 2)])
+def test_lanes_cluster_form_matches_streaming_form(card, shape,
+                                                   max_points):
+    """The cluster form against the streaming form over the whole sweep
+    from each chunk's bootstrap, one call per chunk: state, per-lane rows
+    and segment sums bit for bit."""
+    import chip_smoke
+    runner = chip_smoke.check_lanes_forms(shape, max_points)
+    assert runner.launches == len(runner.packs)
+
+
+@pytest.mark.cuda
+def test_forced_lanes_cluster_past_residency_raises_before_any_launch(card):
+    """8 points at N=100 M=4000 (6.8 MB a point): the plan gives the
+    streaming form, a forced cluster size is refused at construction,
+    and a cluster form forced onto the runner anyway is refused by the
+    kernel before launching; the state and every launch count stay as
+    they were."""
+    import chip_smoke
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    sweep, runner = chip_smoke._lanes_runner("wide8")
+    assert runner.form == "streaming" and runner.cluster_size == 0
+    for cs in slc.CLUSTER_SIZES:
+        with pytest.raises(ValueError, match="cannot hold"):
+            slc.make_sweep_lanes_runner(sweep, cluster_size=cs)
+    runner.form, runner.cluster_size = "cluster", 8
+    st = runner.start(0)
+    before = st.clone()
+    counts = (slc.launch_count, slc.cluster_launch_count,
+              slc.streaming_launch_count)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        runner.advance(0, st, 8)
+    torch.cuda.synchronize()
+    for f in ("a", "b", "a_hs", "b_hs", "av", "cap"):
+        assert torch.equal(getattr(st, f), getattr(before, f)), f
+    assert runner.launches == 0 and counts == (
+        slc.launch_count, slc.cluster_launch_count,
+        slc.streaming_launch_count)
+
+
+@pytest.mark.cuda
+def test_lanes_form_info_at_the_sweep_shape(card):
+    """What the plan's forms take at N=40 M=500 in chunks of 16 and of 64,
+    the plan made with the card's own clusters at once: the shared memory
+    the plan computed, at most 64 registers a thread (1024 threads a
+    block), and the whole chunk at once (one wave)."""
+    from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
+    for CB in (16, 64):
+        cs, smem = slc.lanes_cluster_plan(
+            48, 512, CB,
+            lambda c: slc.form_info(c, 48, 512, CB)["active_clusters"])
+        info = slc.form_info(cs, 48, 512, CB)
+        assert info["smem_bytes"] == smem
+        assert 0 < info["registers"] <= 64
+        assert info["active_clusters"] >= CB
+        stream = slc.form_info(0, 48, 512, CB)
+        assert stream["smem_bytes"] == 0 and stream["active_clusters"] > 0
 
 
 @pytest.mark.cuda
 def test_lanes_runner_validates_before_launch(card):
+    """Bad tensors are refused before any launch; a call of 6 steps is one
+    launch of the cluster form, in place."""
     import chip_smoke
     sweep, runner = chip_smoke._lanes_runner("lanes3")
+    assert runner.form == "cluster" and runner.cluster_size == 4
     st = runner.start(0)
     bad = st.__class__(**{**vars(st), "cap": st.cap.t().contiguous().t()})
     with pytest.raises(ValueError, match="contiguous"):
@@ -375,7 +449,7 @@ def test_lanes_runner_validates_before_launch(card):
     assert runner.launches == 0
     out = runner.advance(0, st, 6)
     torch.cuda.synchronize()
-    assert runner.launches == 2 * 6 and out.a.data_ptr() == st.a.data_ptr()
+    assert runner.launches == 1 and out.a.data_ptr() == st.a.data_ptr()
     assert bool(torch.all(out.av[0, :sweep.base.MP] == 0))   # t < t_start
 
 

@@ -228,8 +228,9 @@ def test_split_steps_carry_parity_and_time():
 
 
 def test_lane_constants_match_the_kernel_source():
-    """The per-point table's columns, the weight rows and the launches per
-    step are written in both csrc/sweep_lanes.cu and the runner."""
+    """The per-point table's columns, the weight rows and each form's
+    launches (the streaming form's per step, the cluster form's per call)
+    are written in both csrc/sweep_lanes.cu and the runner."""
     src = open(os.path.join(os.path.dirname(slc.__file__), "..", "csrc",
                             "sweep_lanes.cu")).read()
     seg = dict(re.findall(r"(SEG_[A-Z]+) = (\d+)", src))
@@ -241,6 +242,7 @@ def test_lane_constants_match_the_kernel_source():
     assert {k.lower(): int(v) for k, v in rows.items()} == {
         w[2:]: i for i, w in enumerate(slc.W_ROWS)}
     assert src.count("<<<") == slc.LAUNCHES_PER_STEP
+    assert src.count("cudaLaunchKernelEx(") == slc.LAUNCHES_PER_CALL
     assert "slb_lanes_chunk" in _build._ENTRY_ARGS
     assert any(s.endswith("sweep_lanes.cu") for s in _build.SOURCES)
 
