@@ -76,10 +76,19 @@ Phases, one output line each (plus a few measurement lines):
               N=400 M=4000 in f32 and at N=8 M=64 and N=18 M=300 in f64
               (state and edges bit for bit, av and records at TOL); then B2
               against B1 over 203 steps at both shapes (state bit for bit);
-              its time per step beside the plain version's;
+              its time per step beside the plain version's; then B2's
+              spill form against its plain version (B1's), 200 steps in
+              two chunks with display-77 records, at N=100 M=20000 f32
+              (its plan: 132 bands, R=128) and at N=8 M=64 and N=13 M=300
+              in f32 and f64 through forced plans of 2 and 5 bands (every
+              band spills), state and edges bit for bit, av and records at
+              TOL; the spill form against the tiling form and B1's
+              per-half-step form over 203 steps at N=100 M=20000, bit for
+              bit;
  13. stream golden: impl=stream display 4 against d4_base1_*.txt, and
               display 77 on impl=cuda and impl=stream against the patched
-              reference's d77_tiny_*_fixed.txt.gz;
+              reference's d77_tiny_*_fixed.txt.gz (the tiling form); then
+              display 4 and 77 on the spill form through forced plans;
  14. stream main: the CLI at N=100 M=12000 and N=400 M=4000 (BASELINE
               #4's physics, 16,281 steps) with impl=stream and impl=cuda,
               display 4 (launch counts checked per engine and B1 form,
@@ -91,8 +100,13 @@ Phases, one output line each (plus a few measurement lines):
               the three shapes, in turns, the measurement behind
               impl=cuda's and auto's engine choice; then B2 on its own
               main path, N=100 M=20000 f32 (the first shape past B1's
-              resident plan): impl=cuda routes it to B2, B2 and B1's
-              per-half-step form per step in turns, and the bound;
+              resident plan): impl=cuda routes it to B2's spill form, the
+              CLI there with its launches (one per chunk), the spill form,
+              the tiling form and B1's per-half-step form per step in
+              turns, the bound and each one's loss; what the spill form
+              takes on the card (the one-off measurements behind the
+              spill plan's budget, the tiling form's width and the f64
+              routing are python -m slb2d_tpu_torch.perf.stream_forms);
  16. lanes kernel: the lane-packed sweep kernel (B4) in both forms (the
               cluster form lanes_cluster_plan picks, and the streaming
               form) against its plain version, its steps split across
@@ -164,7 +178,8 @@ same run), the three engines' times in turns and its SASS counts; B3's
 with its form, cluster size, shared bytes, registers, clusters at once
 and ms_streaming, the streaming form's time in the same run; B4's with
 the same and its spills, its times in one chunk of 64 and the runner's
-walls; B2's with its times and bound on its own shape, N=100 M=20000;
+walls; B2's tiling form's at the wide grid and its spill form's
+at N=100 M=20000 with phase 15's measurements;
 bound_ms is the larger of the main path's
 operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
 read once and each output written once, at 3.35 TB/s, over its steps;
@@ -175,6 +190,7 @@ non-zero and prints no ok line.  It needs no network and one card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -233,6 +249,16 @@ TRANSPOSED_REPLACES = "tests/perf/transposed_experiment.py:73"
 # M=4000 (NHP=408, MP=4096), at BASELINE #4's physics
 WIDE = dict(n_harmonics=100, g_grid=12000)
 TALL = dict(n_harmonics=400, g_grid=4000)
+# B2's spill form at small shapes through forced plans (few bands, narrow
+# resident parts, so that every band spills): (name, shape, dtype, bands,
+# R).  N=13 M=300 (NHP=16, MP=384): 5 bands of 76-77 columns, 12-13 of
+# them spilled, column M+1 = 301 in band 3's slab
+SPILL_FORCED = (("N=8 M=64", SMALL, "f32", 2, 32),
+                ("N=8 M=64", SMALL, "f64", 2, 32),
+                ("N=13 M=300", dict(n_harmonics=13, g_grid=300), "f32", 5,
+                 64),
+                ("N=13 M=300", dict(n_harmonics=13, g_grid=300), "f64", 5,
+                 64))
 D77_GOLDENS = (("d77_tiny_f32_fixed.txt.gz", "f32", 2e-4, 8e-6),
                ("d77_tiny_f64_fixed.txt.gz", "f64", 5e-9, 1e-12))
 
@@ -493,11 +519,18 @@ def kernel_ms(shape, dtype):
     return k_ms, chunk_ms
 
 
-def _stream_runner(shape, dtype):
+def _stream_runner(shape, dtype, forced=None, **kw):
+    """(model, consts, xs, B2 runner) at one shape; kw go to
+    make_stream_runner (form, K, W).  forced = (bands, R): a forced spill
+    plan."""
     import torch
-    from slb2d_tpu_torch.ops import stepper_stream_cuda
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
     model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
-    return model, c, xs, stepper_stream_cuda.make_stream_runner(c, model)
+    if forced is not None:
+        kw["spill"] = sst.spill_plan(model.NHP, model.MP, model.np_dtype,
+                                     sms=forced[0], R=forced[1])
+        check(kw["spill"] is not None, f"no spill plan {forced} at {shape}")
+    return model, c, xs, sst.make_stream_runner(c, model, **kw)
 
 
 def check_stream_vs_plain(shape, dtype):
@@ -578,13 +611,121 @@ def check_stream_vs_b1(shape, dtype="f32", n_steps=203):
     return err
 
 
-def engine_ms(shape, engine, dtype="f32", n=2000, reps=3, form=None):
+def check_spill_vs_plain(shape, dtype, n_steps=200, forced=None):
+    """B2's spill form (its plan, or forced = (bands, R)) and its plain
+    version (B1's, run_chunk_plain) from one state over the same table, in
+    two chunks (the first odd, so the second starts at parity 1: a full
+    chunk and a partial one), with display-77 records in both; raise on
+    disagreement: the state and edges bit for bit, av and the records at
+    TOL (the bands' sum order).  One launch a chunk.  Returns (the largest
+    abs difference of av and the records, the runner)."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs, runner = _stream_runner(shape, dtype, forced=forced,
+                                          form="spill")
+    n1 = n_steps // 2 + 1
+    n2 = n_steps - n1
+    parts = [({k: v[:n1] for k, v in xs.items()}, (0, 3, n1 // 2, n1 - 1)),
+             ({k: v[n1:n_steps] for k, v in xs.items()},
+              (1, n2 // 2, n2 - 1))]
+    state0 = stencil.bootstrap_state(c, model)
+    kern, plain = state0.clone(), state0.clone()
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    p = runner.plan
+    what = (f"B2 spill {dtype} {shape} ({p.bands} bands, R={p.R}, "
+            f"S={p.S})")
+    err = 0.0
+    steps = 0
+    for xs_part, emit in parts:
+        launches0 = runner.launches
+        kern = runner.run_xs(kern, xs_part, steps % 2, emit_idx=emit)
+        table = stepper_cuda.pack_xs_dict(xs_part, model.np_dtype)
+        plain, plain_obs = stepper_cuda.run_chunk_plain(
+            c, plain, table, steps % 2, emit)
+        torch.cuda.synchronize()
+        steps += len(xs_part["t"])
+        check(runner.launches - launches0 == 1,
+              f"{what}: {runner.launches - launches0} launches a chunk")
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            k, q = getattr(kern, f), getattr(plain, f)
+            check(torch.equal(k, q), f"{what} {f} not bit for bit, max abs "
+                  f"err {float((k - q).abs().max()):.3e}")
+        err = max(err, allclose(kern.av, plain.av, what=f"{what} av", **tol))
+        check(int(kern.step) == int(plain.step) == steps, "step count")
+        check(float(kern.t) == float(plain.t), "loop t")
+        obs = torch.from_numpy(runner.take_obs(len(emit)))
+        ref = plain_obs[:, :13].cpu()
+        check(torch.equal(obs[:, 4], ref[:, 4]), f"{what}: record loop t")
+        err = max(err, allclose(obs, ref, what=f"{what} d77 records",
+                                **tol))
+    check(bool(kern.av[0] > 0), f"{what}: av never fired")
+    return err, runner
+
+
+def check_stream_forms(shape, dtype="f32", n_steps=203):
+    """B2's spill and tiling forms and B1's per-half-step form from one
+    state over the same n_steps with display-77 records: state and edges
+    bit for bit, av and records at TOL.  Returns the largest abs
+    difference of av and the records."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs, spill = _stream_runner(shape, dtype, form="spill")
+    tiling = _stream_runner(shape, dtype, form="tiling")[3]
+    per = stepper_cuda.make_cuda_runner(c, model, form="per-half-step")
+    part = {k: v[:n_steps] for k, v in xs.items()}
+    emit = (0, 57, 130, n_steps - 1)
+    state0 = stencil.bootstrap_state(c, model)
+    out = {name: r.run_xs(state0.clone(), part, 0, emit_idx=emit)
+           for name, r in (("spill", spill), ("tiling", tiling),
+                           ("per-half-step", per))}
+    torch.cuda.synchronize()
+    what = f"B2 spill vs tiling vs B1 per-half-step {dtype} {shape}"
+    err = 0.0
+    for other, r in (("tiling", tiling), ("per-half-step", per)):
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            check(torch.equal(getattr(out["spill"], f),
+                              getattr(out[other], f)),
+                  f"{what}: {f} of spill and {other} not bit for bit")
+        err = max(err, allclose(out["spill"].av, out[other].av,
+                                what=f"{what} av vs {other}", **TOL[dtype]))
+        err = max(err, allclose(
+            torch.from_numpy(spill.take_obs(len(emit))),
+            torch.from_numpy(r.take_obs(len(emit))),
+            what=f"{what} d77 records vs {other}", **TOL[dtype]))
+    check(bool(out["spill"].av[0] > 0), f"{what}: av never fired")
+    return err
+
+
+@contextlib.contextmanager
+def forced_spill(bands):
+    """Within it, B2's runners take a spill plan of `bands` bands at any
+    shape (B1's resident plan or not), with the widest R that leaves each
+    band two spill columns: the spill form at the goldens' small shapes."""
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    plan = sst.spill_plan
+
+    def forced(NHP, MP, dtype, sms=None, **kw):
+        return plan(NHP, MP, dtype, sms=bands,
+                    R=min((MP // bands - 2) // 32 * 32, 512))
+    sst.spill_plan = forced
+    try:
+        yield
+    finally:
+        sst.spill_plan = plan
+
+
+def engine_ms(shape, engine, dtype="f32", n=2000, reps=3, form=None,
+              **kw):
     """ms per step of one kernel engine ('cuda-b1', in `form` as
-    make_cuda_runner takes it, or 'stream') at one shape: n steps in one
-    chunk, CUDA events, after a warm-up."""
+    make_cuda_runner takes it, or 'stream', in `form` as
+    make_stream_runner takes it, with _stream_runner's kw) at one shape: n
+    steps in one chunk, CUDA events, after a warm-up."""
     from slb2d_tpu_torch.ops import stencil, stepper_cuda
     if engine == "stream":
-        model, c, xs, runner = _stream_runner(shape, dtype)
+        model, c, xs, runner = _stream_runner(shape, dtype, form=form, **kw)
+        check(form is None or runner.form == form,
+              f"stream {shape}: the {runner.form} form, not {form}")
     else:
         import torch
         model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
@@ -1440,7 +1581,9 @@ def gpu_line():
     return out[0]
 
 
-def golden_phase(card, impl="cuda"):
+def golden_phase(card, impl="cuda", form=None):
+    """Display 4 through `impl` against the reference's d4_base1_*.txt;
+    form: the form the run must have taken ('spill' under forced_spill)."""
     import numpy as np
     import torch
     from slb2d_tpu_torch.config import SimConfig
@@ -1457,6 +1600,8 @@ def golden_phase(card, impl="cuda"):
             sim.run()
             with open(path) as fh:
                 mine = fh.read()
+        check(form is None or sim.engine_tag().endswith(form),
+              f"{gold} impl={impl}: ran on {sim.engine_tag()}, not {form}")
 
         def values(text):
             return [np.array(l.split(), float) for l in text.splitlines()
@@ -1471,7 +1616,8 @@ def golden_phase(card, impl="cuda"):
         gh = [l for l in gold_text.splitlines() if l.startswith("#")]
         mh = [l for l in mine.splitlines() if l.startswith("#")]
         check(gh == mh, f"{gold}: header lines differ")
-        print(f"golden {gold} impl={impl} ({sim.engine}): ok (max abs err "
+        print(f"golden {gold} impl={impl} ({sim.engine_tag()}): ok (max "
+              f"abs err "
               f"{err.max():.3e}, rtol {rtol}, atol {atol}) [{card}]",
               flush=True)
 
@@ -1491,20 +1637,31 @@ def planned_form(model):
     return "per-half-step" if plan is None else "resident"
 
 
-def expected_launches(engine, steps, records=0, form=None, chunks=1):
-    """((B1, B2, B3 shared, B3 per-omega), (B1 resident, B1
-    per-half-step)) launches of a single run of `chunks` chunks: B1
-    resident one per chunk, B1 per-half-step three per step and one per
-    display-77 record, B2 two per K steps."""
+def stream_form(model):
+    """The form B2's runner takes for model's grid on this card."""
     from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
+    plan = sst.spill_plan(model.NHP, model.MP, model.np_dtype,
+                          stepper_cuda.card_sms(DEVICE))
+    return "tiling" if plan is None else "spill"
+
+
+def expected_launches(engine, steps, records=0, form=None, chunks=1):
+    """((B1, B2, B3 shared, B3 per-omega), (B1 resident, B1 per-half-step,
+    B2 spill, B2 tiling)) launches of a single run of `chunks` chunks: B1
+    resident and B2 spill one per chunk, B1 per-half-step three per step
+    and one per display-77 record, B2 tiling two per K steps."""
+    from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
+    if engine == "stream" and form == "spill":
+        n = stepper_cuda.LAUNCHES_PER_CHUNK * chunks
+        return (0, n, 0, 0), (0, 0, n, 0)
     if engine == "stream":
-        return ((0, sst.LAUNCHES_PER_LAUNCH * -(-steps // sst.DEFAULT_K), 0,
-                 0), (0, 0))
+        n = sst.LAUNCHES_PER_LAUNCH * -(-steps // sst.DEFAULT_K)
+        return (0, n, 0, 0), (0, 0, 0, n)
     if form == "resident":
         n = stepper_cuda.LAUNCHES_PER_CHUNK * chunks
-        return (n, 0, 0, 0), (n, 0)
+        return (n, 0, 0, 0), (n, 0, 0, 0)
     n = stepper_cuda.LAUNCHES_PER_STEP * steps + records
-    return (n, 0, 0, 0), (0, n)
+    return (n, 0, 0, 0), (0, n, 0, 0)
 
 
 def run_chunks(model, display, t_start=10.0):
@@ -1539,7 +1696,7 @@ def main_path_phase(card):
     model = SuperlatticeModel(parse_cmd(MAIN_ARGV))
     steps = run_steps(model)
     engine = routed_engine(model)
-    form = planned_form(model) if engine == "cuda-b1" else None
+    form = planned_form(model) if engine == "cuda-b1" else stream_form(model)
     wall, text, counts, forms = run_cli(MAIN_ARGV)
     rows = [l.split() for l in text.splitlines()
             if l and not l.startswith("#")]
@@ -1551,23 +1708,24 @@ def main_path_phase(card):
     want = expected_launches(engine, steps, form=form,
                              chunks=run_chunks(model, 4)[0])
     check((counts, forms) == want,
-          f"(B1, B2, B3, B3 per-omega), (B1 resident, B1 per-half-step) "
-          f"launches {(counts, forms)} for {steps} steps on {engine} "
-          f"{form or ''} (expected {want})")
+          f"(B1, B2, B3, B3 per-omega), (B1 resident, B1 per-half-step, "
+          f"B2 spill, B2 tiling) launches {(counts, forms)} for {steps} "
+          f"steps on {engine} {form} (expected {want})")
     sites = 2 * (model.N + 1) * (model.M + 1) * steps
-    print(f"main: cli display=4 BASELINE#4 f32 impl=cuda [{engine}"
-          f"{' ' + form if form else ''}]: {steps} steps, launches B1 "
+    print(f"main: cli display=4 BASELINE#4 f32 impl=cuda [{engine} {form}]: "
+          f"{steps} steps, launches B1 "
           f"{counts[0]} (resident {forms[0]}, per-half-step {forms[1]}) B2 "
-          f"{counts[1]}, NORM={vals[6]:.9f}, wall {wall:.3f} s, "
+          f"{counts[1]} (spill {forms[2]}, tiling {forms[3]}), "
+          f"NORM={vals[6]:.9f}, wall {wall:.3f} s, "
           f"{sites / wall:.4e} site-updates/s [{card}]", flush=True)
     return wall, steps, engine
 
 
-def d77_golden_phase(card):
-    """Display 77 on impl=cuda and impl=stream against the patched
-    reference's recorded lines (tests/test_golden.py:135-202): t bit for
-    bit, all 15 columns at f32 rtol 2e-4 atol 8e-6, f64 rtol 5e-9 atol
-    1e-12."""
+def d77_golden_phase(card, impls=("cuda", "stream"), form=None):
+    """Display 77 on each of `impls` against the patched reference's
+    recorded lines (tests/test_golden.py:135-202): t bit for bit, all 15
+    columns at f32 rtol 2e-4 atol 8e-6, f64 rtol 5e-9 atol 1e-12; form:
+    the form the impl=stream runs must have taken."""
     import gzip
     import numpy as np
     import torch
@@ -1579,7 +1737,7 @@ def d77_golden_phase(card):
                        "rt") as fh:
             ref = [np.array(l.split(), float) for l in fh.read().splitlines()
                    if l and not l.startswith("#")]
-        for impl in ("cuda", "stream"):
+        for impl in impls:
             with tempfile.TemporaryDirectory() as tmp:
                 path = os.path.join(tmp, "d77.txt")
                 cfg = SimConfig(display=77, dtype=dtype, impl=impl,
@@ -1592,7 +1750,10 @@ def d77_golden_phase(card):
                     mine = [np.array(l.split(), float)
                             for l in fh.read().splitlines()
                             if l and not l.startswith("#")]
-            what = f"{gold} impl={impl} ({sim.engine})"
+            what = f"{gold} impl={impl} ({sim.engine_tag()})"
+            check(form is None or impl != "stream"
+                  or sim.engine_tag() == f"stream {form}",
+                  f"{what}: not on the {form} form")
             check(len(mine) == len(ref) > 50,
                   f"{what}: {len(mine)} lines, expected {len(ref)}")
             err = 0.0
@@ -1657,7 +1818,7 @@ def run_cli(argv, force_b1=False, form=None):
     "per-half-step" makes B1's runner take that form (resident_plan finds
     no plan).  Returns (wall seconds, output text, launches of B1, B2, B3
     shared, B3 per-omega, launches of B1's resident and per-half-step
-    forms)."""
+    forms and of B2's spill and tiling forms)."""
     import torch
     from slb2d_tpu_torch import cli
     from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda as
@@ -1672,6 +1833,7 @@ def run_cli(argv, force_b1=False, form=None):
             path = os.path.join(tmp, "out.txt")
             torch.cuda.synchronize()
             stepper_cuda.launch_count = sst.launch_count = 0
+            sst.spill_launch_count = sst.tiling_launch_count = 0
             stepper_cuda.resident_launch_count = 0
             stepper_cuda.per_half_step_launch_count = 0
             ssc.launch_count = ssc.omega_launch_count = 0
@@ -1682,7 +1844,8 @@ def run_cli(argv, force_b1=False, form=None):
             counts = (stepper_cuda.launch_count, sst.launch_count,
                       ssc.launch_count, ssc.omega_launch_count)
             forms = (stepper_cuda.resident_launch_count,
-                     stepper_cuda.per_half_step_launch_count)
+                     stepper_cuda.per_half_step_launch_count,
+                     sst.spill_launch_count, sst.tiling_launch_count)
             check(rc == 0, f"cli.main returned {rc}")
             with open(path) as fh:
                 text = fh.read()
@@ -1737,8 +1900,9 @@ def stream_main_phase(card):
         for impl, display, engine, force, form in runs:
             wall, text, counts, forms = run_cli(
                 cli_argv(shape, display, impl), force_b1=force, form=form)
-            form = (form or planned) if engine == "cuda-b1" else None
-            tag = f"{engine} {form}" if form else engine
+            form = ((form or planned) if engine == "cuda-b1"
+                    else stream_form(model))
+            tag = f"{engine} {form}"
             what = (f"cli display={display} {name} f32 impl={impl}"
                     f"{' (routing forced to B1)' if force else ''}")
             want = expected_launches(engine, steps,
@@ -1747,8 +1911,8 @@ def stream_main_phase(card):
                                      chunks=run_chunks(model, display)[0])
             check((counts, forms) == want,
                   f"{what}: (B1, B2, B3, B3 per-omega), (B1 resident, B1 "
-                  f"per-half-step) launches {(counts, forms)}, expected "
-                  f"{want} on {tag}")
+                  f"per-half-step, B2 spill, B2 tiling) launches "
+                  f"{(counts, forms)}, expected {want} on {tag}")
             rows = _rows(text)
             check(bool(np.all(np.isfinite(rows))), f"{what}: non-finite")
             norm_err = float(np.max(np.abs(rows[:, 6] - 1.0)))
@@ -1767,7 +1931,8 @@ def stream_main_phase(card):
             walls[display] = wall
             print(f"stream main: {what} [{tag}]: {steps} steps, "
                   f"launches B1 {counts[0]} (resident {forms[0]}, "
-                  f"per-half-step {forms[1]}) B2 {counts[1]}, "
+                  f"per-half-step {forms[1]}) B2 {counts[1]} (spill "
+                  f"{forms[2]}, tiling {forms[3]}), "
                   f"{rows.shape[0]} line(s), max |NORM-1| {norm_err:.3e}, "
                   f"wall {wall:.3f} s, {sites / wall:.4e} site-updates/s "
                   f"[{card}]", flush=True)
@@ -1777,7 +1942,7 @@ def stream_main_phase(card):
                   f"({walls[77] / walls[4]:.3f}x) for {records} records "
                   f"[{card}]", flush=True)
         b1 = f"cuda-b1 {planned}"
-        for other in ("stream", "cuda-b1 per-half-step"):
+        for other in ("stream tiling", "cuda-b1 per-half-step"):
             if other in lines and b1 in lines and other != b1:
                 err = allclose(torch.as_tensor(lines[other]),
                                torch.as_tensor(lines[b1]),
@@ -1835,47 +2000,107 @@ def stream_routing_phase(card):
 
 
 # the first f32 shape past B1's resident plan that impl=cuda sends to B2
-# (N=100 M=16000 still has a plan; M=17000 and M=20000 have none)
+# (N=100 M=16000 still has a plan; M=17000 and M=20000 have none): B2's
+# spill form
 B2_OWN = dict(n_harmonics=100, g_grid=20000)
+
+
+def turns(fns, order):
+    """{name: [ms per step]} of engine_ms calls run in `order` (each name
+    of fns twice, mirrored: a, b, b, a), fns[name] = engine_ms's
+    arguments."""
+    t = {k: [] for k in fns}
+    for k in order:
+        args, kwargs = fns[k]
+        t[k].append(engine_ms(*args, **kwargs))
+    return t
+
+
+def mirrored(names):
+    return list(names) + list(names)[::-1]
+
+
+def fmt_turns(t):
+    return ", ".join(f"{k} " + "/".join(f"{v * 1e3:.3f}" for v in vs)
+                     for k, vs in t.items())
 
 
 def b2_shape_phase(card):
     """B2 on the shape where impl=cuda runs it: N=100 M=20000 f32, BASELINE
-    #4's physics.  The routing sends it to B2; B2 and B1's per-half-step
-    form (the engine impl=cuda would take without B2) per step, CUDA
-    events, 2000 steps in one chunk, in turns (B2, per-half-step,
-    per-half-step, B2); the main path's bound per step as bound_ms
-    computes it for a display-4 run's steps.  Returns a dict of them."""
-    from slb2d_tpu_torch.config import SimConfig
+    #4's physics.  The routing sends it to B2's spill form; the CLI there
+    (the spill form's main path: every count set to 0 just before and read
+    just after, one B2 launch per chunk); the spill form, the tiling form
+    and B1's per-half-step form (the engines impl=cuda took before) per
+    step, CUDA events, 2000 steps in one chunk, in turns; the main path's
+    bound per step as bound_ms computes it for a display-4 run's steps and
+    each engine's loss; what the spill form takes on the card.  Returns a
+    dict of them."""
+    import numpy as np
+    from slb2d_tpu_torch.config import SimConfig, parse_cmd
     from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
-    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
+    sms = stepper_cuda.card_sms(DEVICE)
     m = SuperlatticeModel(SimConfig(display=4, t_start=10.0, **PHYS,
                                     **B2_OWN))
-    engine, form = routed_engine(m), planned_form(m)
-    check(engine == "stream" and form == "per-half-step",
-          f"N=100 M=20000 f32: impl=cuda routes to {engine} (B1 form "
-          f"{form}), not to B2 past B1's residency")
-    fns = {"stream": lambda: engine_ms(B2_OWN, "stream"),
-           "per-half-step": lambda: engine_ms(B2_OWN, "cuda-b1",
-                                              form="per-half-step")}
-    t = {k: [] for k in fns}
-    for k in ("stream", "per-half-step", "per-half-step", "stream"):
-        t[k].append(fns[k]())
-    steps = run_steps(m)
+    choice = sst.engine_choice(m.NHP, m.MP, m.np_dtype, sms)
+    check(choice == ("stream", "spill"),
+          f"N=100 M=20000 f32: impl=cuda takes {choice}, not B2's spill "
+          f"form past B1's residency")
+    plan = sst.spill_plan(m.NHP, m.MP, m.np_dtype, sms)
+    info = sst.spill_form_info(m.np_dtype, plan, m.NHP, m.MP)
+    check(info["smem_bytes"] == plan.smem_bytes
+          and info["threads"] == plan.threads
+          and info["blocks_at_once"] >= plan.bands,
+          f"B2 spill at N=100 M=20000: {plan} against the card's {info}")
+
+    # the main path: the CLI, impl=cuda
+    cli_model = SuperlatticeModel(parse_cmd(cli_argv(B2_OWN)))
+    steps = run_steps(cli_model)
+    chunks = run_chunks(cli_model, 4)[0]
+    wall, text, counts, forms = run_cli(cli_argv(B2_OWN))
+    want = expected_launches("stream", steps, form="spill", chunks=chunks)
+    check((counts, forms) == want,
+          f"cli N=100 M=20000 impl=cuda: (B1, B2, B3, B3 per-omega), (B1 "
+          f"resident, B1 per-half-step, B2 spill, B2 tiling) launches "
+          f"{(counts, forms)}, expected {want}")
+    rows = _rows(text)
+    check(rows.shape == (1, 13) and bool(np.all(np.isfinite(rows))),
+          f"cli N=100 M=20000: {rows}")
+    check(abs(rows[0, 6] - 1.0) < 1e-3, f"cli N=100 M=20000: NORM "
+          f"{rows[0, 6]}")
+    sites = 2 * (cli_model.N + 1) * (cli_model.M + 1) * steps
+    print(f"stream own shape main: cli display=4 N=100 M=20000 f32 impl=cuda "
+          f"[stream spill]: {steps} steps in {chunks} chunk(s), launches B1 "
+          f"{counts[0]} B2 {counts[1]} (spill {forms[2]}, tiling "
+          f"{forms[3]}), NORM={rows[0, 6]:.9f}, wall {wall:.3f} s, "
+          f"{sites / wall:.4e} site-updates/s [{card}]", flush=True)
+
+    # the three engines in turns, the bound, the losses
+    own = {"spill": ((B2_OWN, "stream"), dict(form="spill")),
+           "tiling": ((B2_OWN, "stream"), dict(form="tiling")),
+           "per-half-step": ((B2_OWN, "cuda-b1"),
+                             dict(form="per-half-step"))}
+    t = turns(own, mirrored(own))
     flops = main_path_flops(m, steps, av_steps=window_steps(m, 10.0, steps))
     bound, by = bound_ms(m, steps, flops)
-    g = sst.default_geometry(m.NHP, m.MP, 4)
-    b2 = sum(t["stream"]) / 2
+    loss = {k: steps * (sum(v) / len(v) - bound) * 1e-3 for k, v in t.items()}
+    g = sst.default_geometry(m.NHP, m.MP, 4, sms=sms)
     print(f"stream own shape: N=100 M=20000 f32 (NHP={m.NHP}, MP={m.MP}): "
-          f"impl=cuda -> B2 (no resident plan; W={g.W}, {g.n_tiles} tiles); "
-          f"per step (CUDA events, in turns) B2 "
-          + "/".join(f"{v * 1e3:.3f}" for v in t["stream"])
-          + " us, B1 per-half-step "
-          + "/".join(f"{v * 1e3:.3f}" for v in t["per-half-step"])
-          + f" us; bound {bound * 1e3:.4f} us ({by}) over {steps} steps: "
-          f"loss {steps * (b2 - bound) * 1e-3:.4f} s [{card}]", flush=True)
+          f"impl=cuda -> B2 spill ({plan.bands} bands, R={plan.R}, "
+          f"S={plan.S}, {plan.smem_bytes} B a block, slabs "
+          f"{plan.spill_bytes} B; {info['registers']} registers, "
+          f"{info['local_bytes']} spill bytes, {info['static_smem_bytes']} B "
+          f"static, {info['blocks_at_once']} blocks at once); per step (CUDA "
+          f"events, in turns) {fmt_turns(t)} us (tiling W={g.W}, "
+          f"{g.n_tiles} tiles); bound {bound * 1e3:.4f} us ({by}) over "
+          f"{steps} steps: loss " + ", ".join(
+              f"{k} {v:.4f} s" for k, v in loss.items()) + f" [{card}]",
+          flush=True)
+
     return {"shape": "N=100 M=20000", "steps": steps, "ms_turns": t,
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by, "loss_s": loss,
+            "launches": forms[2], "wall_s": wall, "plan": plan._asdict(),
+            "form_info": info, "tiling_W": g.W}, m
 
 
 def _lanes_runner(shape, max_points=LANES_MAX_POINTS, cluster_size=None):
@@ -2280,7 +2505,6 @@ def bench_modes_phase(card):
     value each (subprocesses for the two kernel driver modes; in this
     process the rest, the plain engines' modes at a cut depth), B1's
     launches per form where a mode ran B1, and movie refused."""
-    import contextlib
     import io
     import math
     import re
@@ -2702,16 +2926,48 @@ def main():
           f"M=12000 (B2), {b1_plain_ms:.5f} ms/step at N=400 M=4000 (B1) "
           f"[{card}]", flush=True)
 
-    # 13. goldens through impl=stream; display 77 on both kernel engines
-    golden_phase(card, impl="stream")
+    # 12, continued: B2's spill form against its plain version (B1's) at
+    # its own shape and at small shapes through forced plans, and against
+    # the tiling form and B1's per-half-step form
+    spill_err = {}
+    for name, shape, dtype, bands, R in SPILL_FORCED:
+        err, runner = check_spill_vs_plain(shape, dtype, forced=(bands, R))
+        spill_err[name, dtype] = err, runner.plan
+    err, runner = check_spill_vs_plain(B2_OWN, "f32")
+    spill_err["N=100 M=20000", "f32"] = err, runner.plan
+    from slb2d_tpu_torch.ops import stepper_cuda
+    check(runner.plan.S > 0
+          and runner.plan.bands == stepper_cuda.card_sms(DEVICE),
+          f"B2 spill at N=100 M=20000: plan {runner.plan}")
+    forms_b2 = check_stream_forms(B2_OWN)
+    spill_plain_ms = step_plain_ms(B2_OWN)
+    print("spill kernel: B2's spill form vs plain (B1's run_chunk_plain), "
+          "200 steps in 2 chunks with d77 records, state and edges bit for "
+          "bit: " + ", ".join(
+              f"{s} {d} ({p.bands} bands, R={p.R}, S={p.S}) av/records max "
+              f"abs err {e:.3e}" for (s, d), (e, p) in spill_err.items())
+          + f"; spill vs tiling vs B1 per-half-step over 203 steps at N=100 "
+          f"M=20000 f32, state and edges bit for bit, av/records max abs err "
+          f"{forms_b2:.3e} ok; plain version {spill_plain_ms:.5f} ms/step at "
+          f"N=100 M=20000 [{card}]", flush=True)
+
+    # 13. goldens through impl=stream (the tiling form, then the spill form
+    # through forced plans of 2 and 3 bands); display 77 on both kernel
+    # engines, and on the spill form
+    golden_phase(card, impl="stream", form="tiling")
     d77_golden_phase(card)
+    with forced_spill(2):
+        golden_phase(card, impl="stream", form="spill")
+        d77_golden_phase(card, impls=("stream",), form="spill")
+    with forced_spill(3):
+        golden_phase(card, impl="stream", form="spill")
 
     # 14. the stream main paths; 15. the routing measurement
     stream_runs = stream_main_phase(card)
     routing = stream_routing_phase(card)
 
     # B2 on the first shape past B1's residency (15, continued)
-    b2_own = b2_shape_phase(card)
+    b2_own, b2_model = b2_shape_phase(card)
 
     # 16. the lane-packed kernel: both forms against its plain version and
     # against each other, what each takes on the card, their times in turns
@@ -2810,7 +3066,7 @@ def main():
     check(b1_tag == "cuda-b1 resident", f"impl=cuda at N=400 M=4000 ran on "
           f"{b1_tag}, not on B1's resident form")
     wide, wide_steps, (_, b2_launches) = stream_runs["N=100 M=12000",
-                                                     "stream"]
+                                                     "stream tiling"]
     # B4: the same function as B3 shared-omega on the same sweep; its
     # per-lane accumulators are its design's overhead
     work = {
@@ -2827,6 +3083,9 @@ def main():
         "B2": (wide, wide_steps, main_path_flops(
             wide, wide_steps, av_steps=window_steps(wide, 10.0, wide_steps)),
             1),
+        "B2 spill": (b2_model, b2_own["steps"], main_path_flops(
+            b2_model, b2_own["steps"], av_steps=window_steps(
+                b2_model, 10.0, b2_own["steps"])), 1),
         "B4": (lanes_sweep.base, b4_steps, main_path_flops(
             lanes_sweep.base, b4_steps, points=lanes_sweep.B,
             av_steps=int(expected_av_counts(lanes_sweep).sum())),
@@ -2842,8 +3101,9 @@ def main():
     b1_per_ms = mean(routing["N=400 M=4000"]["per-half-step"])
     b2_ms = mean(routing["N=100 M=12000"]["stream"])
     b1_plan, b1_info = b1_forms["N=400 M=4000", "f32"]
+    b2_spill_ms = mean(b2_own["ms_turns"]["spill"])
     times = {"B1": b1_ms, "B3 shared": sk_ms, "B3 per-omega": pk_ms,
-             "B2": b2_ms, "B4": b4_ms}
+             "B2": b2_ms, "B2 spill": b2_spill_ms, "B4": b4_ms}
     # B3's form on each main path, and what it takes on the card
     b3_form = {}
     for key, shape, per_omega in (("B3 shared", "full", False),
@@ -2928,10 +3188,19 @@ def main():
         capture_max_abs_err=omega_err["paper", "f32"][1],
         ms=pk_ms, plain_ms=pp_ms, ms_streaming=ps_ms,
         **b3_form["B3 per-omega"]), entry(
-        "B2", name="slb_stream_chunk (stream_tile, stream_replay)",
+        "B2", name="slb_stream_chunk (stream_tile, stream_replay; B2's "
+                   "tiling form)",
         route="cuda", source=STREAM_SOURCE, replaces=STREAM_REPLACES,
         launches=b2_launches, max_abs_err=stream_err["N=100 M=12000", "f32"],
-        ms=b2_ms, plain_ms=b2_plain_ms, own_shape=b2_own), entry(
+        ms=b2_ms, plain_ms=b2_plain_ms, form="tiling"), entry(
+        "B2 spill", name="slb_stream_spill_chunk (spill_chunk<float>, "
+                         "B2's spill form, one cooperative launch per "
+                         "chunk), at N=100 M=20000",
+        route="cuda", source=STREAM_SOURCE, replaces=STREAM_REPLACES,
+        launches=b2_own["launches"],
+        max_abs_err=spill_err["N=100 M=20000", "f32"][0],
+        ms=b2_spill_ms, plain_ms=spill_plain_ms, form="spill",
+        own_shape=b2_own), entry(
         "B4", name="slb_lanes_cluster (lanes_cluster, one launch per "
                    "call); streaming form slb_lanes_chunk "
                    "(lanes_half_step<true>, lanes_half_step<false>)",

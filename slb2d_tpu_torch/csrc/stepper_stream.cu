@@ -1,9 +1,29 @@
-// Full solver steps by temporal tiling on an NVIDIA Hopper card (sm_90a),
-// float and double.
+// Full solver steps for grids past B1's resident plan on an NVIDIA Hopper
+// card (sm_90a), float and double, in two forms.
 //
 // Replaces the Pallas TPU kernel slb2d_tpu/ops/stepper_stream.py:
 // _stream_kernel (kernel B2) and the av replay and record gather of its
-// runner (stepper_stream.py:391-412).  It computes what B2 computes: the
+// runner (stepper_stream.py:391-412).  B2 exists because one TPU core's
+// VMEM cannot hold a wide grid and past it there is only HBM, so it tiles
+// in time.  An H100 has a different hierarchy: its 132 SMs' shared memory
+// (30.7 MB) holds most of such a grid, and its 50 MB L2 the rest.
+//
+// Spill form (spill_chunk; slb_stream_spill_chunk_*): B1's resident band
+// loop (band_step.cuh: band_chunk with its spill part), one cooperative
+// launch per chunk, one block per SM, one grid barrier per step, no halo
+// recomputed across steps, no replay launch, no round trip of the state.
+// Each block keeps the first R columns of its band in shared memory and
+// the rest (S, 24-25 at N=100 M=20000 in float: 3,200 columns in all) in
+// a slab of device memory that stays in L2; its spill cells follow its
+// resident rows in each half-step.  What bounds it: the arithmetic, as
+// for B1 (chip_smoke.py main_path_flops); what its design leaves is B1's
+// cell loop and fixed cost per step, plus the spill cells, each of which
+// reads its ten values from L1 or L2 instead of shared memory.
+// ops/stepper_stream_cuda.py:spill_plan sizes it (R = 128 at NHP = 104 in
+// float) and holds it to an L2 budget; past that the tiling form runs.
+//
+// Tiling form (stream_tile, stream_replay; slb_stream_chunk_*): what B2
+// computes on the TPU: the
 // phi_y axis is cut into tiles of W center columns; each tile, with an
 // H-column halo on each side (local columns 0..WT-1, WT = W + 2H), advances
 // K full steps on its own, and its W center columns are exact after them
@@ -21,16 +41,16 @@
 // Kahan-compensated av() chain gated by xs lane 6, writing display-77
 // records (pre-step sums, loop t, post-step av) where xs lane 8 is set.
 //
-// Design for Hopper: B2 keeps a (NHP, W + 2·128) working set in a TPU
-// core's VMEM for 64 steps (W = 2048).  A thread block has at most 227 KB
-// of shared memory, 136 columns at NHP = 104 in float, so here K = 4 and
-// H = 8 by default (ops/stepper_stream_cuda.py; K = 2..16 measured), and
-// the four working arrays of a tile live in dynamic shared memory when
-// they fit (SMEM = true), else in a per-block scratch in global memory
-// that stays in L2 (double at NHP = 408).  W is chosen on the host so that
-// the tiles fill the 132 SMs in one wave where they fit.  Each thread
-// keeps one column of its tile and walks its rows, so a column's mu parts
-// and masks are computed once per half-step.
+// Design of the tiling form for Hopper: B2 keeps a (NHP, W + 2·128)
+// working set in a TPU core's VMEM for 64 steps (W = 2048).  A thread
+// block has at most 227 KB of shared memory, 136 columns at NHP = 104 in
+// float, so here K = 4 and H = 8 by default (ops/stepper_stream_cuda.py;
+// K = 2..16 measured), and the four working arrays of a tile live in
+// dynamic shared memory when they fit (SMEM = true), else in a per-block
+// scratch in global memory that stays in L2 (double at NHP = 408).  W is
+// chosen on the host for the fewest waves x (W + 2H) over the card's SMs.
+// Each thread keeps one column of its tile and walks its rows, so a
+// column's mu parts and masks are computed once per half-step.
 // One block of 1024 threads per tile loops over the K steps with a block
 // barrier between the two half-steps (as sweep_stack.cu does per point);
 // tiles are independent within a launch, so the launch boundary is the
@@ -57,15 +77,16 @@
 
 #include <cuda_runtime.h>
 
+#include "band_step.cuh"
 #include "half_step.cuh"
 
 namespace {
 
 using slb::Geometry;
+using slb::OBS_LANES;
 using slb::Params;
 using slb::XS_LANES;
 
-constexpr int OBS_LANES = 16;
 constexpr int TILE_BLOCK = 1024;
 constexpr int SUMS = 4;                       // norm, v_dr, v_y, m_x
 constexpr int REPLAY_BLOCK = 128;
@@ -353,6 +374,117 @@ int stream_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
   return 0;
 }
 
+// ---- the spill form ----------------------------------------------------
+
+// The spill form: band_chunk (band_step.cuh) with its spill part, one
+// block per band, bands of MP / bands columns (the first MP % bands one
+// more), R of them resident.
+template <typename T>
+__global__ void __launch_bounds__(slb::RESIDENT_BLOCK, 1)
+    spill_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
+                const T* __restrict__ a0, const T* __restrict__ a0_ghost,
+                const T* __restrict__ phi, const T* __restrict__ w_av,
+                const T* __restrict__ w_av_phi, const T* __restrict__ xs,
+                T* obs, T* xch, T* part, Params<T> p, Geometry g, int R,
+                int n_steps, int parity0, T* slab) {
+  slb::band_chunk<T, true>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
+                           a0_ghost, phi, w_av, w_av_phi, xs, obs, xch, part,
+                           p, g, R, n_steps, parity0, slab);
+}
+
+template <typename T>
+size_t spill_smem_bytes(int NHP, int R) {
+  return slb::resident_smem_bytes<T>(NHP, R) + slb::SPILL_SUMS * sizeof(T);
+}
+
+// cudaSuccess, or why `bands` bands with R resident columns cannot hold an
+// (NHP, MP) state: R not a multiple of BAND_ALIGN up to MAX_BAND, fewer
+// than 2 rows, a band's spill narrower than HALO_HALF or wider than
+// MAX_SPILL, or the resident part, the row sums' scratch and the spill
+// sums past SMEM_LIMIT
+template <typename T>
+cudaError_t check_spill(int R, int bands, int NHP, int MP) {
+  using namespace slb;
+  if (R < BAND_ALIGN || R > MAX_BAND || R % BAND_ALIGN != 0 || NHP < 2 ||
+      bands < 1 || MP / bands - R < HALO_HALF ||
+      (MP + bands - 1) / bands - R > MAX_SPILL)
+    return cudaErrorInvalidValue;
+  if (spill_smem_bytes<T>(NHP, R) + RESIDENT_SCRATCH * sizeof(T) >
+      (size_t)SMEM_LIMIT)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// The spill form's launch shape: the kernel's shared-memory attribute
+// set, and the blocks the card runs at once
+template <typename T>
+cudaError_t spill_config(int R, int bands, int NHP, int MP, int* at_once) {
+  cudaError_t err = check_spill<T>(R, bands, NHP, MP);
+  if (err != cudaSuccess) return err;
+  const int smem = (int)spill_smem_bytes<T>(NHP, R);
+  const auto kern = spill_chunk<T>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, slb::resident_threads(R), smem)) != cudaSuccess)
+    return err;
+  *at_once = per_sm * sms;
+  return cudaSuccess;
+}
+
+// One cooperative launch of the spill form.
+template <typename T>
+int run_spill(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
+              const T* a0, const T* a0_ghost, const T* phi, const T* w_av,
+              const T* w_av_phi, const T* params, const T* xs, T* obs,
+              T* xch, T* part, T* slab, int N, int M, int NHP, int MP, int R,
+              int bands, int n_steps, int parity0, void* stream) {
+  Params<T> p = {params[0], params[1], params[2], params[3],
+                 params[4], params[5], params[6], params[7],
+                 params[8], params[9], params[10]};
+  Geometry g = {N, M, NHP, MP};
+  int at_once = 0;
+  cudaError_t err = spill_config<T>(R, bands, NHP, MP, &at_once);
+  if (err != cudaSuccess) return (int)err;
+  if (at_once < bands) return slb::NOT_CO_RESIDENT;
+  void* args[] = {&a,   &b,       &a_hs,     &b_hs, &edge_a, &edge_b,
+                  &av,  &a0,      &a0_ghost, &phi,  &w_av,   &w_av_phi,
+                  &xs,  &obs,     &xch,      &part, &p,      &g,
+                  &R,   &n_steps, &parity0,  &slab};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)spill_chunk<T>, dim3(bands),
+      dim3(slb::resident_threads(R)), args, spill_smem_bytes<T>(NHP, R),
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// What the spill form takes on this card: out[0] registers a thread,
+// out[1] local (spill) bytes a thread, out[2] dynamic shared memory a
+// block, out[3] blocks that run at once on the whole card, out[4] threads
+// a block, out[5] static shared memory a block
+template <typename T>
+int spill_info(int R, int bands, int NHP, int MP, int* out) {
+  int at_once = 0;
+  cudaError_t err = spill_config<T>(R, bands, NHP, MP, &at_once);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, spill_chunk<T>)) != cudaSuccess)
+    return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)spill_smem_bytes<T>(NHP, R);
+  out[3] = at_once;
+  out[4] = slb::resident_threads(R);
+  out[5] = (int)fa.sharedSizeBytes;
+  return 0;
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes in ops/stepper_stream_cuda.py).  Every
@@ -381,3 +513,38 @@ int stream_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
 
 SLB_STREAM_ENTRY(slb_stream_chunk_f32, float)
 SLB_STREAM_ENTRY(slb_stream_chunk_f64, double)
+
+// The spill form's entry points: the arguments of slb_resident_chunk_*
+// (stepper.cu) with the bands' slabs (bands x NHP x (2 (Smax + 2) +
+// 2 (Smax + 4)) values, Smax = ceil(MP / bands) - R; device scratch), the
+// resident columns R of a band and the bands (blocks; at most the SMs).
+// They enqueue ONE cooperative launch on `stream`, do not synchronise, and return 0,
+// the cudaError_t of a refused launch (cudaErrorInvalidValue for a plan
+// that cannot hold the state), or NOT_CO_RESIDENT; a refused launch
+// changes nothing.
+#define SLB_SPILL_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(                                                       \
+      void* a, void* b, void* a_hs, void* b_hs, void* edge_a, void* edge_b,  \
+      void* av, const void* a0, const void* a0_ghost, const void* phi,       \
+      const void* w_av, const void* w_av_phi, const void* params,            \
+      const void* xs, void* obs, void* xch, void* part, void* slab, int N,   \
+      int M, int NHP, int MP, int R, int bands, int n_steps, int parity0,    \
+      void* stream) {                                                        \
+    return run_spill<T>(                                                     \
+        (T*)a, (T*)b, (T*)a_hs, (T*)b_hs, (T*)edge_a, (T*)edge_b, (T*)av,    \
+        (const T*)a0, (const T*)a0_ghost, (const T*)phi, (const T*)w_av,     \
+        (const T*)w_av_phi, (const T*)params, (const T*)xs, (T*)obs,         \
+        (T*)xch, (T*)part, (T*)slab, N, M, NHP, MP, R, bands, n_steps,       \
+        parity0, stream);                                                    \
+  }
+
+SLB_SPILL_ENTRY(slb_stream_spill_chunk_f32, float)
+SLB_SPILL_ENTRY(slb_stream_spill_chunk_f64, double)
+
+// spill_info for float or double; returns 0 or the cudaError_t of the
+// query (cudaErrorInvalidValue for a plan that cannot hold the state)
+extern "C" int slb_stream_spill_info(int f64, int R, int bands, int NHP,
+                                     int MP, int* out) {
+  return f64 ? spill_info<double>(R, bands, NHP, MP, out)
+             : spill_info<float>(R, bands, NHP, MP, out);
+}

@@ -24,7 +24,8 @@ SOURCES = tuple(os.path.join(_PKG, "csrc", f)
                           "stepper_stream.cu", "sweep_lanes.cu",
                           "probe_vpu.cu", "probe_roll.cu",
                           "probe_transposed.cu"))
-HEADERS = (os.path.join(_PKG, "csrc", "half_step.cuh"),)
+HEADERS = tuple(os.path.join(_PKG, "csrc", f)
+                for f in ("half_step.cuh", "band_step.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "slb2d_tpu_torch")
 # -fmad=false: no multiply-add contraction, so the kernel rounds as the
 # plain version and the float C reference do: it then matches the plain
@@ -49,6 +50,9 @@ _ENTRY_ARGS = {
     "slb_sweep_form_info": [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "slb_stream_chunk": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
                          + [ctypes.c_void_p]),
+    "slb_stream_spill_chunk": ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+                               + [ctypes.c_void_p]),
+    "slb_stream_spill_info": [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "slb_lanes_chunk": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),
     "slb_lanes_cluster": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
@@ -73,6 +77,7 @@ _ENTRY_TYPES = {name: ("_f32",) for name in (
 _ENTRY_TYPES["slb_sweep_form_info"] = ("",)
 _ENTRY_TYPES["slb_resident_info"] = ("",)
 _ENTRY_TYPES["slb_lanes_form_info"] = ("",)
+_ENTRY_TYPES["slb_stream_spill_info"] = ("",)
 
 
 class BuildError(RuntimeError):

@@ -347,8 +347,8 @@ class Runner:
                                   torch.cuda.current_stream(dev).cuda_stream)
         if rc == NOT_CO_RESIDENT:
             raise RuntimeError(
-                f"{self.engine} resident form: the {self.plan.bands} blocks "
-                f"of {self.plan.smem_bytes} bytes do not all fit on "
+                f"{self.engine} {self.form} form: the {self.plan.bands} "
+                f"blocks of {self.plan.smem_bytes} bytes do not all fit on "
                 f"{torch.cuda.get_device_name(dev)} at once")
         if rc != 0:
             raise RuntimeError(f"{self.engine} kernel launch ({self.form} "

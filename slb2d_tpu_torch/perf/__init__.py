@@ -8,6 +8,13 @@ PyTorch version:
                          shared memory, or one launch per pass
   transposed_experiment  P3, B1's step in the transposed (m, n) layout
 
+and one module of measurements on the port's own kernels:
+
+  stream_forms           B2's spill and tiling forms against each other
+                         and B1's per-half-step form: the measurements
+                         behind the spill plan's L2 budget, the tiling
+                         form's width and impl=cuda's routing
+
 Each runs as ``python -m slb2d_tpu_torch.perf.<name>`` on a card; its
 main() refuses the CPU.  The functions take ``device=`` (and smaller
 shapes), so the tests run the plain versions on the CPU.

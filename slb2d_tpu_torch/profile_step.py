@@ -5,12 +5,14 @@ the window's wall time.
     python -m slb2d_tpu_torch.profile_step [n_steps] [f32|f64] \\
         [impl=cuda|stream] [n-harmonics=100] [g-grid=4000]
 
-impl=cuda is the step kernel B1, profiled in each of its forms in turn
-(the resident form, one cooperative launch per chunk, where its plan
-holds the shape; the per-half-step form, three launches per step);
-impl=stream the temporal-tiling kernel B2 (two launches
-per K steps).  The shape defaults to BASELINE #4 (N=100, M=4000), with
-its physics.  Needs a CUDA device; it fails without one.
+impl=cuda is the step kernel B1, profiled in each of its forms in turn (the
+resident form, one cooperative launch per chunk, where its plan holds the
+shape; the per-half-step form, three launches per step); impl=stream the
+stream kernel B2, in each of its forms in turn (the spill form, one
+cooperative launch per chunk, where its plan holds the shape, e.g.
+g-grid=20000; the tiling form, two launches per K steps). The shape
+defaults to BASELINE #4 (N=100, M=4000), with its physics.
+Needs a CUDA device; it fails without one.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import time
 
 # the kernels (and copies) whose device time counts as busy
 KERNELS = ("half_step", "av_step", "record_step", "resident_chunk",
-           "stream_tile", "stream_replay", "Memcpy")
+           "spill_chunk", "stream_tile", "stream_replay", "Memcpy")
 
 
 def _device_us(evt):
@@ -68,11 +70,20 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[:1]
     if impl == "stream":
-        runner = stepper_stream_cuda.make_stream_runner(c, model)
-        g = runner.geom
-        where = "shared memory" if g.smem else "global scratch"
-        runs = [(runner, f"stream K={g.K} H={g.H} W={g.W}, {g.n_tiles} "
-                         f"tiles, {where}")]
+        plan = stepper_stream_cuda.spill_plan(
+            model.NHP, model.MP, model.np_dtype, stepper_cuda.card_sms(dev))
+        runs = []
+        for form in stepper_stream_cuda.FORMS:
+            if form == "spill" and plan is None:
+                continue
+            runner = stepper_stream_cuda.make_stream_runner(c, model,
+                                                            form=form)
+            g, p = runner.geom, runner.plan
+            runs.append((runner, (
+                f"stream spill, {p.bands} bands, R={p.R}, S={p.S}, "
+                f"{p.smem_bytes} B a block, slabs {p.spill_bytes} B" if p
+                else f"stream tiling K={g.K} H={g.H} W={g.W}, {g.n_tiles} "
+                     f"tiles, {'shared memory' if g.smem else 'global'}")))
     else:
         plan = stepper_cuda.resident_plan(model.NHP, model.MP,
                                           model.np_dtype,

@@ -6,16 +6,18 @@ schedules (runtime/schedule.py) chunk by chunk; the device is
 synchronised only at chunk and round boundaries, never per step.
 
 Ported: displays 4 and 77 (records batched per chunk on every engine),
-``checkpoint=``, ``warmup`` and ``exact-time=0``.  Engines: ``impl=torch``
-the plain tensor path; ``impl=stream`` the temporal-tiling kernel (B2,
-ops/stepper_stream_cuda); ``impl=cuda`` and ``auto`` B1 (ops/stepper_cuda,
-in its resident or per-half-step form) or B2 by what an H100 measured
-(stepper_stream_cuda.stream_beats_b1).  ``exact-time=0`` evaluates the
-trig on the device from the carried t on ``impl=torch``; display 77 and
-the kernel engines keep the schedule's exact tables, as the JAX package's
-XLA and pallas paths do.  Not yet ported (they raise NotImplementedError
-and are listed in ROADMAP.md queue A item 3, or item 9 for ``shards``):
-displays 3/7/8/9, the stdin parameter server and ``resume=``.
+``checkpoint=``, ``warmup`` and ``exact-time=0``. Engines: ``impl=torch``
+the plain tensor path; ``impl=stream`` the stream kernel (B2,
+ops/stepper_stream_cuda, in its spill or tiling form); ``impl=cuda`` and
+``auto`` B1 (ops/stepper_cuda, in its resident or per-half-step form) or B2
+by what an H100 measured (stepper_stream_cuda.engine_choice: B1 resident,
+else B2 spill, else B2 tiling, else B1 per-half-step). ``exact-time=0``
+evaluates the trig on the device from the carried t on ``impl=torch``;
+display 77 and the kernel engines keep the schedule's exact tables, as the
+JAX package's XLA and pallas paths do. Not yet ported (they raise
+NotImplementedError and are listed in ROADMAP.md queue A item 3, or item 9
+for ``shards``): displays 3/7/8/9, the stdin parameter server and
+``resume=``.
 """
 
 from __future__ import annotations
@@ -97,9 +99,10 @@ class Simulation:
 
     def _select_engine(self):
         """'torch', 'cuda-b1' or 'stream'.  impl=stream on device=cpu runs
-        the temporal-tiling kernel's plain version, as the JAX package's
-        impl=stream runs its kernel in interpret mode on the CPU; impl=cuda
-        and auto run on a card or not at all."""
+        the stream kernel's plain version, as the JAX package's impl=stream
+        runs its kernel in interpret mode on the CPU; impl=cuda and auto run
+        on a card or not at all.  The kernel engine's runner picks its form
+        by the same plans (stepper_stream_cuda.engine_choice)."""
         impl = self.cfg.impl
         if impl == "torch":
             return "torch"
@@ -117,9 +120,10 @@ class Simulation:
         return "cuda-b1"
 
     def engine_tag(self):
-        """The engine, and on B1 the form its runner took: 'torch',
-        'stream', 'cuda-b1 resident' or 'cuda-b1 per-half-step' (before
-        the first chunk, B1's form is not chosen yet: 'cuda-b1')."""
+        """The engine and the form its runner took: 'torch', 'cuda-b1
+        resident', 'cuda-b1 per-half-step', 'stream spill' or 'stream
+        tiling' (before the first chunk the form is not chosen yet:
+        'cuda-b1' or 'stream')."""
         form = getattr(self._runner, "form", None)
         return f"{self.engine} {form}" if form else self.engine
 

@@ -60,7 +60,7 @@ def test_metric_names_are_distinct(records):
     assert "lane-packed sweep kernel B4" in names[MODES.index(
         (["sweep", "lanes"], SWEEP))]
     assert "fast-time" in names[1] and "exact-time" in names[0]
-    assert "display=77" in names[2] and "[stream]" in names[2]
+    assert "display=77" in names[2] and "[stream tiling]" in names[2]
 
 
 def test_sweep_lanes_returns_the_runner_result():

@@ -351,6 +351,77 @@ def test_stream_runner_validates_before_launch(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(4))
+def test_spill_form_matches_plain(card, case):
+    """B2's spill form through forced plans (2 and 5 bands, every band
+    spilling; M+1 in a slab at N=13 M=300) against its plain version,
+    B1's run_chunk_plain, in two chunks with display-77 records, as
+    chip_smoke.py checks it (state and edges bit for bit, av and records
+    at chip_smoke.TOL; one launch a chunk)."""
+    import chip_smoke
+    name, shape, dtype, bands, R = chip_smoke.SPILL_FORCED[case]
+    _, runner = chip_smoke.check_spill_vs_plain(
+        shape, dtype, forced=(bands, R))
+    assert runner.form == "spill" and runner.launches == 2
+    assert (runner.plan.bands, runner.plan.R) == (bands, R)
+
+
+@pytest.mark.cuda
+def test_spill_form_at_its_own_shape(card):
+    """N=100 M=20000 f32, where impl=cuda runs the spill form: against
+    run_chunk_plain over 61 steps in two chunks (the averaging window
+    opens at step 50), and against the tiling
+    form and B1's per-half-step form over 203 steps, state bit for bit."""
+    import chip_smoke
+    _, runner = chip_smoke.check_spill_vs_plain(chip_smoke.B2_OWN, "f32",
+                                                n_steps=61)
+    assert runner.plan.R == 128 and runner.plan.S == 25
+    chip_smoke.check_stream_forms(chip_smoke.B2_OWN)
+
+
+@pytest.mark.cuda
+def test_refused_spill_launch_leaves_the_state_untouched(card):
+    """More bands than the card runs at once (a forced plan of 400 bands
+    at N=100 M=20000): the launch is refused before anything runs, the
+    runner raises, and the state, av and every launch count stay as they
+    were."""
+    import chip_smoke
+    from slb2d_tpu_torch.ops import stencil, stepper_stream_cuda as sst
+    model, c, _ = chip_smoke._setup(chip_smoke.B2_OWN, "f32", card)
+    plan = sst.spill_plan(model.NHP, model.MP, model.np_dtype, sms=400,
+                          R=32)
+    assert plan is not None
+    runner = sst.make_stream_runner(c, model, form="spill", spill=plan)
+    state = stencil.bootstrap_state(c, model)
+    before = state.clone()
+    counts = (sst.launch_count, sst.spill_launch_count,
+              sst.tiling_launch_count)
+    with pytest.raises(RuntimeError, match="do not all fit"):
+        runner(state, 8)
+    torch.cuda.synchronize()
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b", "av"):
+        assert torch.equal(getattr(state, f), getattr(before, f)), f
+    assert runner.launches == 0 and counts == (
+        sst.launch_count, sst.spill_launch_count, sst.tiling_launch_count)
+
+
+@pytest.mark.cuda
+def test_spill_form_info_at_its_shape(card):
+    """What the spill form takes at its plan: the shared memory the plan
+    computed, at most 64 registers a thread (1024 threads a block), every
+    band's block on the card at once."""
+    import numpy as np
+    from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
+    plan = sst.spill_plan(104, 20096, np.float32,
+                          stepper_cuda.card_sms(card))
+    info = sst.spill_form_info(np.float32, plan, 104, 20096)
+    assert info["smem_bytes"] == plan.smem_bytes
+    assert info["threads"] == plan.threads == 1024
+    assert 0 < info["registers"] <= 64
+    assert info["blocks_at_once"] >= plan.bands
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cluster_size", [None, 0])
 @pytest.mark.parametrize("shape,max_points,n_steps", [
     ("lanes3", 16, None), ("omega_ragged", 2, None),

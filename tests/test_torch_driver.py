@@ -127,15 +127,17 @@ def test_display77_matches_jax_simulation_f64(tmp_path, monkeypatch):
     ("f32", (100, 4000), "cuda-b1"),     # BASELINE #4: B1 resident
     ("f32", (100, 12000), "cuda-b1"),
     ("f32", (400, 4000), "cuda-b1"),
-    ("f64", (100, 12000), "cuda-b1"),    # B1 per-half-step
+    ("f64", (100, 12000), "stream"),     # B2 spill: faster than B1's
+                                         # per-half-step form on a card
     ("f32", (8, 24), "cuda-b1"),
     ("f32", (31, 60000), "stream"),      # past the resident budget
 ])
 def test_engine_routing(monkeypatch, dtype, grid, engine):
     """impl=cuda and auto take B1 wherever its resident form holds the
     state (the card ran it faster than B2 at all three measured shapes,
-    PERF.md §6), else B2 where stream_beats_b1 says the card ran B2 faster
-    than B1's per-half-step form, B1 elsewhere; impl=stream forces B2,
+    PERF.md §6), else B2 where stream_beats_b1 says the card ran one of
+    B2's forms faster than B1's per-half-step form (its spill form for the
+    f32 and f64 grids its plan holds), B1 elsewhere; impl=stream forces B2,
     also on device=cpu (its plain version); impl=torch stays the tensor
     path.  Checked without building a model's device constants."""
     from slb2d_tpu_torch.ops.stepper_stream_cuda import stream_beats_b1

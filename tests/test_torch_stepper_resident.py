@@ -137,9 +137,11 @@ def test_every_plan_is_the_narrowest_band_that_fits(dtype):
 
 def test_resident_budget_matches_the_kernel_source():
     """The budget resident_plan computes with is the one the kernel checks
-    and allocates (csrc/stepper.cu)."""
-    src = open(os.path.join(os.path.dirname(sc.__file__), "..", "csrc",
-                            "stepper.cu")).read()
+    and allocates (csrc/stepper.cu, and csrc/band_step.cuh, which holds
+    the band loop it shares with the stream kernel's spill form)."""
+    csrc = os.path.join(os.path.dirname(sc.__file__), "..", "csrc")
+    src = "".join(open(os.path.join(csrc, f)).read()
+                  for f in ("stepper.cu", "band_step.cuh"))
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (-?\d+);",
@@ -413,9 +415,11 @@ def types_consts(model):
 
 
 def test_stream_runner_has_no_form():
+    """The stream runner has none of B1's forms: where B1's resident plan
+    holds the shape it takes its own tiling form, without a plan."""
     model, c, _ = _setup("f32")
     runner = sst.make_stream_runner(c, model)
-    assert runner.form is None and runner.plan is None
+    assert runner.form == "tiling" and runner.plan is None
     with pytest.raises(ValueError, match="no form"):
         runner._pick_form("resident", CPU)
 
@@ -430,6 +434,6 @@ def test_engine_tag_names_the_b1_form():
         sim._runner = sc.make_cuda_runner(c, model, form=form)
         assert sim.engine_tag() == f"cuda-b1 {form}"
     sim.engine, sim._runner = "stream", sst.make_stream_runner(c, model)
-    assert sim.engine_tag() == "stream"
+    assert sim.engine_tag() == "stream tiling"
     sim.engine, sim._runner = "torch", None
     assert sim.engine_tag() == "torch"
