@@ -149,18 +149,23 @@ Phases, one output line each (plus a few measurement lines):
               its pair in vpu_roofline.CHOSEN) with its launches, the SM
               clock sampled beside it: its rate as a share of the data
               sheet's and of the FP32 pipes' at that clock;
- 20. P2:      the roll kernels (csrc/probe_roll.cu, resident and one
-              launch per pass) against the plain version at 2 x 104 x
-              4096, 5 passes, both forms and axes, bit for bit; then the
-              probe's main path (perf/roll_cost_experiment.run) with its
-              launches: us per pass, stacked against split;
- 21. P3:      the transposed step kernel (csrc/probe_transposed.cu)
-              against its plain version and B1's plain version (av off) at
-              BASELINE #4, 200 steps in two chunks, bit for bit; then the
-              probe's main path (perf/transposed_experiment.run: 1000
-              steps against B1 on the form its plan picks, bit for bit,
-              both timed) with its launches, and each kernel's device
-              time per launch;
+ 20. P2:      the roll kernels (csrc/probe_roll.cu: registers, every line
+              in registers with a shuffle and a halo exchanged every T
+              passes; one launch per pass) against the plain version at
+              2 x 104 x 4096, 5 and 100 passes (three halo refreshes),
+              both forms and axes, bit for bit; then the probe's main
+              path (perf/roll_cost_experiment.run) with its launches: us
+              per pass, stacked against split;
+ 21. P3:      the transposed step kernel (csrc/probe_transposed.cu) in
+              both forms (resident: one cooperative launch a chunk;
+              per-half-step: two launches a step) against its plain
+              version, B1's plain version (av off), at BASELINE #4, 200
+              steps in two chunks (the second from parity 1), bit for
+              bit; then the probe's main path
+              (perf/transposed_experiment.run: 1000 steps on both forms
+              and both forms of B1, every state bit for bit, the four
+              timed in turns) with its launches per form; what each
+              form takes on the card against the resident plan;
  22. forms vs: B3's cluster form against its streaming form over the
               whole 64-point sweep and the whole paper map, f32: state and
               edges (and the map's frames) bit for bit, av and captures at
@@ -1551,15 +1556,16 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(lanes_half_step|lanes_cluster|t_half_step|"
-                          r"half_step|av_step|"
+                          r"t_resident_chunk|half_step|av_step|"
                           r"record_step|resident_chunk|sweep_chunk|"
                           r"sweep_cluster|"
                           r"stream_tile|"
-                          r"stream_replay|vpu_chain|roll_resident_rows|"
-                          r"roll_resident_cols|roll_pass)"
-                          r"(?:I([fd])?(?:Li(\d)E)?(?:Lb([01]))?)?",
+                          r"stream_replay|vpu_chain|roll_reg_warp|"
+                          r"roll_reg_halo|roll_pass)"
+                          r"((?:I(?:[fd]|Li\d+E|Lb[01])+)?)",
                           m.group(1))
-            args = [a for a in k.groups()[1:] if a] if k else []
+            args = (re.findall(r"[fd](?=Li|Lb|E|$)|(?<=Li)\d+|(?<=Lb)[01]",
+                               k.group(2).lstrip("I")) if k else [])
             name = (f"{k.group(1)}<{','.join(args)}>" if k
                     else m.group(1))
             continue
@@ -2482,8 +2488,10 @@ def zero_counts():
     sweep_lanes_cuda.streaming_launch_count = 0
     sweep_stack_cuda.cluster_launch_count = 0
     sweep_stack_cuda.streaming_launch_count = 0
-    roll_cost_experiment.resident_launch_count = 0
+    roll_cost_experiment.register_launch_count = 0
     roll_cost_experiment.pass_launch_count = 0
+    transposed_experiment.resident_launch_count = 0
+    transposed_experiment.per_half_step_launch_count = 0
 
 
 def _check_b1_forms(what, launches, engine):
@@ -2613,43 +2621,54 @@ def vpu_phase(card, lib_path, reps=3):
     return res, launches, plain_ms, err, counts, vr.pipe_rate(samples)
 
 
-def roll_phase(card, k_check=5):
+def roll_phase(card, k_check=5, k_refresh=100):
     """P2: both kernels against the plain version at the probe's full
-    shape, k_check passes, both forms and axes, bit for bit; then the
-    probe's main path, roll_cost_experiment.run, with its launches counted.
-    Returns (its result, its launches per kernel, the plain version's ms
-    per pass of form two along axis 1, the max abs error per kernel)."""
+    shape, k_check and k_refresh passes (the register kernel's halo
+    refreshed three times at T=32), both forms and axes, bit for bit; then
+    the probe's main path, roll_cost_experiment.run, with its launches
+    counted.  Returns (its result, its launches per kernel, the plain
+    version's ms per pass of form two along axis 1, the max abs error per
+    kernel)."""
     import torch
     from slb2d_tpu_torch.perf import roll_cost_experiment as rce, time_ms
     x, y = (torch.from_numpy(a).to(DEVICE) for a in rce.make_inputs())
     inputs = {"two": [x, y], "one": [torch.cat([x, y], 0)]}
     err = {kernel: 0.0 for kernel in rce.KERNELS}
+
+    def hold(what, kernel, got, ref):
+        e = max(float((g - r).abs().nan_to_num().max())
+                for g, r in zip(got, ref))
+        err[kernel] = max(err[kernel], e)
+        check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+              f"P2 {what}: not bit for bit with the plain version, max abs "
+              f"err {e:.3e}")
+
     for axis in rce.AXES:
         for form, arrays in inputs.items():
-            ref = rce.roll_plain(arrays, axis, k_check)
-            for kernel, fn in rce.KERNELS.items():
-                got = fn(arrays, axis, k_check)
-                e = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                err[kernel] = max(err[kernel], e)
-                check(all(torch.equal(g, r) for g, r in zip(got, ref)),
-                      f"P2 {kernel} axis {axis} form {form}: not bit for bit "
-                      f"with the plain version, max abs err {e:.3e}")
+            for k in (k_check, k_refresh):
+                ref = rce.roll_plain(arrays, axis, k)
+                for kernel, fn in rce.KERNELS.items():
+                    hold(f"{kernel} axis {axis} form {form} K={k}", kernel,
+                         fn(arrays, axis, k), ref)
     plain_ms = time_ms(lambda: rce.roll_plain(inputs["two"], 1, k_check),
                        DEVICE, 1) / k_check
     zero_counts()
     res = rce.run(DEVICE)
-    launches = {"resident": rce.resident_launch_count,
+    launches = {"registers": rce.register_launch_count,
                 "passes": rce.pass_launch_count}
     calls = len(rce.AXES) * 4               # a warm-up and 3 timed calls
-    want = {"resident": calls * len(rce.FORMS), "passes": calls * 3 * rce.K}
+    want = {"registers": calls * len(rce.FORMS), "passes": calls * 3 * rce.K}
     check(launches == want, f"P2 main path launches {launches}, expected "
           f"{want}")
     t = {(r["kernel"], r["axis"], r["form"]): r["us_per_pass"]
          for r in res["records"]}
-    print(f"P2 roll: vs plain at 2x{rce.NH}x{rce.MP}, {k_check} passes, "
-          f"both kernels, forms and axes: bit for bit (max abs err " +
-          ", ".join(f"{k} {e:.3e}" for k, e in err.items()) + "); us per "
-          "pass " +
+    plans = {f"axis {a} lines of {n}": rce.register_plan(n)
+             for a, n in ((1, rce.MP), (0, rce.NH), (0, 2 * rce.NH))}
+    print(f"P2 roll: vs plain at 2x{rce.NH}x{rce.MP}, {k_check} and "
+          f"{k_refresh} passes, both kernels, forms and axes: bit for bit "
+          f"(max abs err " +
+          ", ".join(f"{k} {e:.3e}" for k, e in err.items()) + "); register "
+          f"forms {plans}; us per pass " +
           "; ".join(f"{k} axis {a}: two {t[k, a, 'two']:.4f}, one "
                     f"{t[k, a, 'one']:.4f} (one/two "
                     f"{res['one_over_two'][f'{k} axis {a}']:.3f})"
@@ -2660,55 +2679,77 @@ def roll_phase(card, k_check=5):
 
 
 def transposed_phase(card, n_steps=200, split=101):
-    """P3: the transposed kernel against its plain version, B1's plain
-    version (av off) transposed, at BASELINE #4 over n_steps in two chunks
-    (the second from parity 1): the state, transposed back, bit for bit;
-    then the probe's main path, transposed_experiment.run (K steps on the
-    kernel and on B1, bit for bit, then both timed), with its launches
-    counted.  Returns (its result, its launches, the plain version's ms per
-    step, the max abs error, the model, the TConsts)."""
+    """P3: both forms of the transposed kernel against its plain version,
+    B1's plain version (av off) transposed, at BASELINE #4 over n_steps in
+    two chunks (the second from parity 1): the state, transposed back, bit
+    for bit, one launch a chunk on the resident form and two a step on the
+    other; then the probe's main path, transposed_experiment.run (K steps
+    on both forms and both forms of B1, every state bit for bit, the four
+    timed in turns), with its launches per form counted; then what each
+    form takes on the card against the resident plan.  Returns (its
+    result, its launches per form, the plain version's ms per step, the
+    max abs error, the model, the TConsts, the forms' info)."""
     import torch
     from slb2d_tpu_torch.perf import transposed_experiment as te
     model, c, tc, state0, xs = te.setup(DEVICE, steps=n_steps)
-    kern, plain = te.transpose_state(state0), te.transpose_state(state0)
+    plan = te.resident_plan(model.NHP, model.MP, tc.NHL,
+                            te.card_sms(DEVICE))
+    check(plan is not None and plan.bands <= te.card_sms(DEVICE),
+          f"P3: resident plan {plan}")
+    plain = te.transpose_state(state0)
+    kern = {form: te.transpose_state(state0) for form in te.FORMS}
     plain_s, err = 0.0, 0.0
     for part, parity in ((xs[:split], 0), (xs[split:], split % 2)):
-        launches0 = te.launch_count
-        kern = te.run_chunk(tc, kern, part, parity)
+        for form in te.FORMS:
+            launches0 = te.launch_count
+            kern[form] = te.run_chunk(tc, kern[form], part, parity,
+                                      form=form)
+            want = (te.LAUNCHES_PER_CHUNK if form == "resident"
+                    else te.LAUNCHES_PER_STEP * len(part))
+            check(te.launch_count - launches0 == want,
+                  f"P3 {form}: {te.launch_count - launches0} launches for "
+                  f"{len(part)} steps")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plain = te.run_chunk_plain(tc, plain, part, parity)
         torch.cuda.synchronize()
         plain_s += time.perf_counter() - t0
-        check(te.launch_count - launches0 == te.LAUNCHES_PER_STEP * len(part),
-              f"P3: {te.launch_count - launches0} launches for {len(part)} "
-              f"steps")
-        got = te.untranspose(kern, model.NHP)
-        for f, v in te.untranspose(plain, model.NHP).items():
-            e = float((got[f] - v).abs().max())
-            err = max(err, e)
-            check(torch.equal(got[f], v), f"P3 {f}: not B1's plain version "
-                  f"bit for bit, max abs err {e:.3e}")
+        ref = te.untranspose(plain, model.NHP)
+        for form, st in kern.items():
+            got = te.untranspose(st, model.NHP)
+            for f, v in ref.items():
+                e = float((got[f] - v).abs().max())
+                err = max(err, e)
+                check(torch.equal(got[f], v), f"P3 {form} {f}: not B1's "
+                      f"plain version bit for bit, max abs err {e:.3e}")
+            check(bool((st.a[:, model.NHP:] == 0).all()),
+                  f"P3 {form}: a padding column was written")
     check(bool(plain.a.abs().max() > 0), "P3: the state is zero")
     zero_counts()
     res = te.run(DEVICE)
-    launches = te.launch_count
-    want = te.LAUNCHES_PER_STEP * te.K * 5  # the checked run, warm-up, 3
-    check(launches == want, f"P3 main path: {launches} launches, expected "
-          f"{want}")
+    launches = {"resident": te.resident_launch_count,
+                "per-half-step": te.per_half_step_launch_count}
+    calls = 1 + 2 * 4      # the checked run, then 2 turns of a warm-up + 3
+    want = {"resident": calls * te.LAUNCHES_PER_CHUNK,
+            "per-half-step": calls * te.LAUNCHES_PER_STEP * te.K}
+    check(launches == want and te.launch_count == sum(want.values()),
+          f"P3 main path: {launches} launches, expected {want}")
     plain_ms = plain_s * 1e3 / n_steps
-    per_kernel = te.kernel_us(DEVICE)
-    print(f"P3 transposed: vs its plain version, B1's (av off), at "
-          f"BASELINE#4 (MP={model.MP}, NHL={tc.NHL}), {n_steps} steps in 2 "
-          f"chunks: bit for bit (max abs err {err:.3e}); main path {te.K} "
-          f"steps vs B1 bit for bit, {res['us_per_step']:.4f} us/step "
-          f"against B1 (av off, {planned_form(model)} form) "
-          f"{res['b1_us_per_step']:.4f}; "
-          f"device us per launch "
-          + ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items()) +
-          f"; plain version {plain_ms:.4f} ms/step; {launches} launches "
-          f"[{card}]", flush=True)
-    return res, launches, plain_ms, err, model, tc
+    info = te.form_info(plan, model.NHP, model.MP, tc.NHL)
+    check(info["resident"]["smem_bytes"] == plan.smem_bytes
+          and info["resident"]["threads"] == plan.threads
+          and info["resident"]["blocks_at_once"] >= plan.bands,
+          f"P3: {plan} against the card's {info['resident']}")
+    print(f"P3 transposed: both forms vs their plain version, B1's (av "
+          f"off), at BASELINE#4 (MP={model.MP}, NHL={tc.NHL}), {n_steps} "
+          f"steps in 2 chunks: bit for bit (max abs err {err:.3e}); main "
+          f"path {te.K} steps, every state bit for bit, us per step in "
+          f"turns: " + "; ".join(f"{k} " + "/".join(f"{v:.4f}" for v in vs)
+                                 for k, vs in res["us_turns"].items()) +
+          f"; resident plan {plan}; plain version {plain_ms:.4f} ms/step; "
+          f"launches {launches}; forms on the card {info} [{card}]",
+          flush=True)
+    return res, launches, plain_ms, err, model, tc, info
 
 
 def probe_bounds(p3_model, p3_tc, p1_rate):
@@ -3029,8 +3070,8 @@ def main():
         card, lib.path)
     p1_rate = p1["rate"]
     p2, p2_launches, p2_plain_ms, p2_err = roll_phase(card)
-    (p3, p3_launches, p3_plain_ms, p3_err, p3_model,
-     p3_tc) = transposed_phase(card)
+    (p3, p3_launches, p3_plain_ms, p3_err, p3_model, p3_tc,
+     p3_info) = transposed_phase(card)
 
     # 22. B3's cluster form against its streaming form over whole sweeps
     vs_stream = {shape: check_cluster_vs_streaming(shape)
@@ -3220,25 +3261,40 @@ def main():
         rate_op_s=p1_rate, pipe_rate_op_s=pipe, fma_per_s=p1["fma_rate"],
         chosen={k: {"ilp": v[0], "block": v[1]} for k, v in
                 vr.CHOSEN.items()}, sass=p1_sass), entry(
-        "P2", name="slb_roll_resident (roll_resident_rows, "
-                   "roll_resident_cols), per pass, form two, axis 1",
+        "P2", name="slb_roll_registers (roll_reg_halo<17,32> along axis "
+                   "1, roll_reg_warp<13> along axis 0), per pass, form "
+                   "two, axis 1",
         route="cuda", source=ROLL_SOURCE, replaces=ROLL_REPLACES,
         replaces_also=ROLL_REPLACES_ONE,
-        launches=p2_launches["resident"], max_abs_err=p2_err["resident"],
-        ms=p2t["resident", 1, "two"], plain_ms=p2_plain_ms,
+        launches=p2_launches["registers"], max_abs_err=p2_err["registers"],
+        ms=p2t["registers", 1, "two"], plain_ms=p2_plain_ms,
         us_per_pass=p2["records"]), entry(
         "P2", name="slb_roll_passes (roll_pass), per pass, form two, axis 1",
         route="cuda", source=ROLL_SOURCE, replaces=ROLL_REPLACES,
         replaces_also=ROLL_REPLACES_ONE,
         launches=p2_launches["passes"], max_abs_err=p2_err["passes"],
         ms=p2t["passes", 1, "two"], plain_ms=p2_plain_ms), entry(
-        "P3", name="slb_transposed_chunk (t_half_step<true>, "
-                   "t_half_step<false>), per step",
+        "P3", name="slb_transposed_resident (t_resident_chunk, one "
+                   "cooperative launch per chunk), per step",
         route="cuda", source=TRANSPOSED_SOURCE,
-        replaces=TRANSPOSED_REPLACES, launches=p3_launches,
+        replaces=TRANSPOSED_REPLACES, launches=p3_launches["resident"],
+        max_abs_err=p3_err, ms=p3["us_per_step"] * 1e-3,
+        plain_ms=p3_plain_ms, form="resident", plan=p3["plan"],
+        b1_av_off_ms=p3["b1_us_per_step"] * 1e-3,
+        us_turns=p3["us_turns"],
+        registers=p3_info["resident"]["registers"],
+        spill_bytes=p3_info["resident"]["local_bytes"],
+        smem_bytes=p3_info["resident"]["smem_bytes"],
+        blocks_at_once=p3_info["resident"]["blocks_at_once"]), entry(
+        "P3", name="slb_transposed_chunk (t_half_step<true>, "
+                   "t_half_step<false>, two launches per step), per step",
+        route="cuda", source=TRANSPOSED_SOURCE,
+        replaces=TRANSPOSED_REPLACES, launches=p3_launches["per-half-step"],
         max_abs_err=p3_err,
-        ms=p3["us_per_step"] * 1e-3, plain_ms=p3_plain_ms,
-        b1_av_off_ms=p3["b1_us_per_step"] * 1e-3)]}), flush=True)
+        ms=p3["us_per_step_per_half_step"] * 1e-3, plain_ms=p3_plain_ms,
+        form="per-half-step",
+        b1_av_off_ms=p3["b1_us_per_step_per_half_step"] * 1e-3,
+        kernels=p3_info["per-half-step"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -61,23 +61,29 @@ _ENTRY_ARGS = {
     # the tests/perf probes P1-P3 (slb2d_tpu_torch/perf/)
     "slb_vpu_chain": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p]),
-    "slb_roll_resident": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                          + [ctypes.c_void_p]),
     "slb_roll_passes": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                         + [ctypes.c_void_p]),
+    "slb_roll_registers": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p]),
     "slb_transposed_chunk": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p]),
+    "slb_transposed_resident": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                                + [ctypes.c_void_p]),
+    "slb_transposed_resident_info": [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "slb_transposed_step_info": [ctypes.c_void_p],
 }
 # the float and double symbols of each entry; the lane-packed sweep kernel
 # and the probes are float-only, as the JAX kernels they replace; the
 # form queries of the step and sweep kernels take the type as an argument
 _ENTRY_TYPES = {name: ("_f32",) for name in (
-    "slb_lanes_chunk", "slb_lanes_cluster", "slb_vpu_chain", "slb_roll_resident",
-    "slb_roll_passes", "slb_transposed_chunk")}
+    "slb_lanes_chunk", "slb_lanes_cluster", "slb_vpu_chain", "slb_roll_passes",
+    "slb_roll_registers", "slb_transposed_chunk", "slb_transposed_resident")}
 _ENTRY_TYPES["slb_sweep_form_info"] = ("",)
 _ENTRY_TYPES["slb_resident_info"] = ("",)
 _ENTRY_TYPES["slb_lanes_form_info"] = ("",)
 _ENTRY_TYPES["slb_stream_spill_info"] = ("",)
+_ENTRY_TYPES["slb_transposed_resident_info"] = ("",)
+_ENTRY_TYPES["slb_transposed_step_info"] = ("",)
 
 
 class BuildError(RuntimeError):

@@ -546,43 +546,103 @@ def test_vpu_kernel_matches_plain(card, fma):
 @pytest.mark.cuda
 @pytest.mark.parametrize("axis", [0, 1])
 def test_roll_kernels_match_plain(card, axis):
-    """P2's resident and per-pass kernels against the plain version, 5
-    passes, forms two and one, at the probe's shape and at 8 x 128: bit
-    for bit; the inputs unchanged."""
+    """P2's register and per-pass kernels against the plain version, 5
+    and 100 passes (three halo refreshes at T=32), forms two and one, at
+    the probe's shape and at 8 x 128: bit for bit; the inputs unchanged."""
     from slb2d_tpu_torch.perf import roll_cost_experiment as rce
     for shape in ((8, 128), (rce.NH, rce.MP)):
         x, y = (torch.from_numpy(a).to(card) for a in rce.make_inputs(shape))
         x0 = x.clone()
         for arrays in ([x, y], [torch.cat([x, y], 0)]):
-            ref = rce.roll_plain(arrays, axis, 5)
-            for fn in (rce.roll_resident, rce.roll_passes):
-                got = fn(arrays, axis, 5)
-                torch.cuda.synchronize()
-                assert all(torch.equal(g, r) for g, r in zip(got, ref))
+            for k in (5, 100):
+                ref = rce.roll_plain(arrays, axis, k)
+                for fn in (rce.roll_registers, rce.roll_passes):
+                    got = fn(arrays, axis, k)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(g, r) for g, r in zip(got, ref))
         assert torch.equal(x, x0)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("every", [None, 7, 1])
+def test_register_halo_forms_match_plain(card, every):
+    """roll_reg_halo along both axes of lines of 1024 and 2048, the halo
+    refreshed every T passes, every 7 and every pass, 70 passes: bit for
+    bit with the plain version."""
+    from slb2d_tpu_torch.perf import roll_cost_experiment as rce
+    x, y = (torch.from_numpy(a).to(card) for a in rce.make_inputs((4, 1024)))
+    for axis, arrays in ((1, [x, y]), (0, [x.t().contiguous()]),
+                         (1, [torch.cat([x, y], 1)])):
+        ref = rce.roll_plain(arrays, axis, 70)
+        got = rce.roll_registers(arrays, axis, 70, every=every)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), axis
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["resident", "per-half-step"])
 @pytest.mark.parametrize("nhl", [16, 32])
-def test_transposed_kernel_matches_b1_plain(card, nhl):
-    """P3's kernel against its plain version, B1's plain version (av off)
-    transposed, 41 steps in two chunks (the second from parity 1), N=8
-    M=64: the state, transposed back, bit for bit; padding columns stay
-    0."""
+def test_transposed_kernel_matches_b1_plain(card, nhl, form):
+    """P3's kernel in each form against its plain version, B1's plain
+    version (av off) transposed, 41 steps in two chunks (the second from
+    parity 1), N=8 M=64: the state, transposed back, bit for bit; padding
+    columns stay 0; one launch a chunk on the resident form, two a step on
+    the other."""
     from slb2d_tpu_torch.perf import transposed_experiment as te
     model, c, tc, state0, xs = te.setup(card, 8, 64, nhl, 41)
     kern, plain = te.transpose_state(state0, nhl), te.transpose_state(
         state0, nhl)
     launches0 = te.launch_count
     for part, parity in ((xs[:21], 0), (xs[21:], 1)):
-        kern = te.run_chunk(tc, kern, part, parity)
+        kern = te.run_chunk(tc, kern, part, parity, form=form)
         plain = te.run_chunk_plain(tc, plain, part, parity)
     torch.cuda.synchronize()
-    assert te.launch_count - launches0 == 2 * 41
+    assert te.launch_count - launches0 == (2 if form == "resident"
+                                           else 2 * 41)
     got, mine = (te.untranspose(s, model.NHP) for s in (kern, plain))
     for f, v in got.items():
         assert torch.equal(v, mine[f]), f
     assert bool((kern.a[:, model.NHP:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [None, 5])
+def test_transposed_resident_form_matches_per_half_step(card, sms):
+    """P3's resident form (its plan, and 5 bands of 26 rows) against its
+    per-half-step form over 61 steps in two chunks at N=13 M=300 NHL=32:
+    bit for bit."""
+    from slb2d_tpu_torch.perf import transposed_experiment as te
+    model, c, tc, state0, xs = te.setup(card, 13, 300, 32, 61)
+    plan = (None if sms is None else
+            te.resident_plan(model.NHP, model.MP, 32, sms))
+    res, per = te.transpose_state(state0, 32), te.transpose_state(state0, 32)
+    for part, parity in ((xs[:31], 0), (xs[31:], 1)):
+        res = te.run_chunk(tc, res, part, parity, plan=plan)
+        per = te.run_chunk(tc, per, part, parity, form="per-half-step")
+    torch.cuda.synchronize()
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+        assert torch.equal(getattr(res, f), getattr(per, f)), f
+
+
+@pytest.mark.cuda
+def test_transposed_resident_form_at_baseline4(card):
+    """P3's resident form at BASELINE #4 (128 bands of 32 rows) against its
+    plain version over 41 steps in two chunks: bit for bit; what it takes
+    on the card holds the plan."""
+    from slb2d_tpu_torch.perf import transposed_experiment as te
+    model, c, tc, state0, xs = te.setup(card, steps=41)
+    plan = te.resident_plan(model.NHP, model.MP, te.NHL, te.card_sms(card))
+    kern, plain = te.transpose_state(state0), te.transpose_state(state0)
+    for part, parity in ((xs[:21], 0), (xs[21:], 1)):
+        kern = te.run_chunk(tc, kern, part, parity)
+        plain = te.run_chunk_plain(tc, plain, part, parity)
+    torch.cuda.synchronize()
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    info = te.form_info(plan, model.NHP, model.MP)["resident"]
+    assert info["smem_bytes"] == plan.smem_bytes
+    assert info["threads"] == plan.threads
+    assert info["blocks_at_once"] >= plan.bands and info["local_bytes"] == 0
 
 
 @pytest.mark.cuda
@@ -592,18 +652,49 @@ def test_probe_wrappers_validate_before_launch(card):
     from slb2d_tpu_torch.perf import vpu_roofline as vr
     coef, bias, x = vr.make_coeffs((4, 128))
     xt = torch.from_numpy(x).to(card)
-    counts = (vr.launch_count, rce.resident_launch_count,
+    counts = (vr.launch_count, rce.register_launch_count,
               rce.pass_launch_count, te.launch_count)
     with pytest.raises(ValueError, match="float32"):
         vr.chain(xt.double(), coef, bias, 1)
     with pytest.raises(ValueError, match="ilp"):
         vr.chain(xt, coef, bias, 1, ilp=3)
-    with pytest.raises(ValueError, match="columns"):
-        rce.roll_resident([torch.zeros((8, 100), device=card)], 0, 2)
+    with pytest.raises(ValueError, match="lines of 100"):
+        rce.roll_registers([torch.zeros((100, 8), device=card)], 0, 2)
+    with pytest.raises(ValueError, match="every=40"):
+        rce.roll_registers([torch.zeros((8, 1024), device=card)], 1, 2,
+                           every=40)
     model, c, tc, state0, xs = te.setup(card, 8, 64, 16, 4)
     st = te.transpose_state(state0, 16)
     bad = te.TState(**{**vars(st), "b": st.b.t().contiguous().t()})
-    with pytest.raises(ValueError, match="contiguous"):
-        te.run_chunk(tc, bad, xs, 0)
-    assert counts == (vr.launch_count, rce.resident_launch_count,
+    for form in te.FORMS:
+        with pytest.raises(ValueError, match="contiguous"):
+            te.run_chunk(tc, bad, xs, 0, form=form)
+    with pytest.raises(ValueError, match="form must be"):
+        te.run_chunk(tc, st, xs, 0, form="banded")
+    assert counts == (vr.launch_count, rce.register_launch_count,
                       rce.pass_launch_count, te.launch_count)
+
+
+@pytest.mark.cuda
+def test_refused_transposed_resident_launch_raises(card):
+    """A plan the kernel cannot hold (rows past MAX_ROWS) and more bands
+    than the card runs at once (2 rows a band at MP=4096: 2048 blocks of
+    1024 threads at NHL=512): the launch is refused before anything runs,
+    run_chunk raises, and the state and the launch counts stay as they
+    were."""
+    from slb2d_tpu_torch.perf import transposed_experiment as te
+    nhl = 512
+    model, c, tc, state0, xs = te.setup(card, 8, 4000, nhl, 4)
+    st = te.transpose_state(state0, nhl)
+    before = st.clone()
+    counts = (te.launch_count, te.resident_launch_count)
+    for R, why in ((514, "cudaError_t"), (2, "at once")):
+        plan = te.TPlan(R, -(-model.MP // R),
+                        te.resident_smem_bytes(nhl, R),
+                        te.resident_threads(nhl, R))
+        with pytest.raises(RuntimeError, match=why):
+            te.run_chunk(tc, st, xs, 0, plan=plan)
+    torch.cuda.synchronize()
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+        assert torch.equal(getattr(st, f), getattr(before, f)), f
+    assert counts == (te.launch_count, te.resident_launch_count)

@@ -202,7 +202,7 @@ def test_roll_plain_matches_the_pallas_probe(shape, axis):
         out_shape=jax.ShapeDtypeStruct((2 * shape[0], shape[1]), f32),
         interpret=True)(np.concatenate([x, y]))
     X, Y = torch.from_numpy(x), torch.from_numpy(y)
-    for fn in (rce.roll_plain, rce.roll_resident, rce.roll_passes):
+    for fn in (rce.roll_plain, rce.roll_registers, rce.roll_passes):
         got_two = fn([X, Y], axis, 3)
         got_one = fn([torch.cat([X, Y])], axis, 3)
         for g, j in zip(got_two, two):
@@ -226,11 +226,11 @@ def test_roll_inputs_are_the_probes():
 def test_roll_wrappers_refuse_bad_input():
     x = torch.zeros((8, 128))
     with pytest.raises(ValueError, match="axis"):
-        rce.roll_resident([x], 2, 3)
+        rce.roll_registers([x], 2, 3)
     with pytest.raises(ValueError, match="float32"):
         rce.roll_passes([x, x.double()], 1, 3)
     with pytest.raises(ValueError, match="one or two"):
-        rce.roll_resident([x, x, x], 1, 3)
+        rce.roll_registers([x, x, x], 1, 3)
 
 
 def test_roll_run_on_the_cpu():
