@@ -139,7 +139,7 @@ Phases, one output line each (plus a few measurement lines):
               20, sweep torch, sweep stack, sweep stack omega; the plain
               engines' modes at a cut depth), each one parseable line with
               a finite value and B1's launches per form where it ran
-              B1, and movie refused with exit 1;
+              B1 (movie: phase 25);
  19. P1:      the float32 chain kernel (csrc/probe_vpu.cu) against its
               plain version at the probe's 104 x 4160, 3 turns, mul+add
               and fma at every (ILP, block) pair it was built for, bit for
@@ -173,18 +173,45 @@ Phases, one output line each (plus a few measurement lines):
  23. streaming: B3's streaming form where no cluster holds a point, 8
               points at N=100 M=4000 f32, against its plain version (an
               E_dc sweep 300 steps, an omega sweep to its end with
-              frames).
+              frames);
+ 24. displays golden: the row formatter built (native/slbio.cpp, or the
+              Python path named); displays 3 and 7 (d3_tiny_f32/f64,
+              d7_frame1/12 f32, d7_frame1/2 f64) and the three recorded
+              parameter-server sessions (repl_f64, repl_fuzz_f64,
+              repl_d77_f64) on B1 resident (impl=cuda), B2 tiling
+              (impl=stream) and B2 spill (a forced plan of 2 bands), at
+              tests/test_golden.py's tolerances with the headers byte for
+              byte; the f32 device frame against the host f64 frame of
+              the same state at BASELINE #3's grid;
+ 25. displays main, each path with every kernel count set to 0 just
+              before it and read just after: BASELINE #1 display 8
+              (frame.data against the host f64 frame of the final state,
+              one launch); the bench's movie mode at BASELINE #3 (N=20
+              M=1000, frames from t=0.83: a cut depth), frame-batch 8 and
+              1: frames/s, the wall per frame by part (chunk loop, frames'
+              reconstruction, the IO thread's fetch and formatting),
+              launches a chunk; display 9 at BASELINE #1's grid and
+              physics (101 periods, a launch a chunk), then the same run
+              split at period 40 by checkpoint and resume: the 101 strobe
+              files byte for byte, the state bit for bit; a BASELINE #4
+              parameter-server session of three mutations on B1 resident
+              against the forced per-half-step form (one runner each, one
+              launch a chunk on the resident form; state bit for bit);
+              one mutation at N=100 M=20000 on B2 spill against B2
+              tiling (state bit for bit).
 The last lines are the operation counts and bounds of the main paths, a
 JSON record of the kernels (ms, plain_ms and bound_ms per step, per turn
 for P1, per pass for P2; B1's with its form, band, blocks, threads,
 shared bytes, registers, spills, blocks at once, barrier_us (its fixed
 cost per step), ms_per_half_step (the per-half-step form's time in the
-same run), the three engines' times in turns and its SASS counts; B3's
+same run), the three engines' times in turns, its SASS counts and the
+launches, chunks, steps and walls of phase 25's paths on it; B3's
 with its form, cluster size, shared bytes, registers, clusters at once
 and ms_streaming, the streaming form's time in the same run; B4's with
 the same and its spills, its times in one chunk of 64 and the runner's
 walls; B2's tiling form's at the wide grid and its spill form's
-at N=100 M=20000 with phase 15's measurements;
+at N=100 M=20000 with phase 15's measurements and phase 25's
+parameter-server session;
 bound_ms is the larger of the main path's
 operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
 read once and each output written once, at 3.35 TB/s, over its steps;
@@ -2483,6 +2510,8 @@ def zero_counts():
         mod.launch_count = 0
     stepper_cuda.resident_launch_count = 0
     stepper_cuda.per_half_step_launch_count = 0
+    stepper_stream_cuda.spill_launch_count = 0
+    stepper_stream_cuda.tiling_launch_count = 0
     sweep_stack_cuda.omega_launch_count = 0
     sweep_lanes_cuda.cluster_launch_count = 0
     sweep_lanes_cuda.streaming_launch_count = 0
@@ -2512,8 +2541,7 @@ def bench_modes_phase(card):
     """Every other bench mode once: one parseable line with a finite
     value each (subprocesses for the two kernel driver modes; in this
     process the rest, the plain engines' modes at a cut depth), B1's
-    launches per form where a mode ran B1, and movie refused."""
-    import io
+    launches per form where a mode ran B1 (movie: phase 25)."""
     import math
     import re
     from slb2d_tpu_torch import bench
@@ -2547,15 +2575,6 @@ def bench_modes_phase(card):
         check(math.isfinite(line["value"]) and line["value"] > 0,
               f"bench {argv}: value {line['value']}")
         out.append(line)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf), \
-            contextlib.redirect_stderr(io.StringIO()):
-        rc = bench.main(["movie"])
-    lines = buf.getvalue().strip().splitlines()
-    movie = json.loads(lines[-1]) if lines else {}
-    check(rc == 1 and len(lines) == 1 and movie.get("value") is None
-          and "ROADMAP" in movie.get("error", ""),
-          f"bench movie: rc {rc}, {lines}")
     for line in out:
         b1 = line["launches"]
         print(f"bench: {line['metric']}: {line['value']:.4e} "
@@ -2563,7 +2582,6 @@ def bench_modes_phase(card):
               f"{line['steps']} steps; B1 launches resident "
               f"{b1['B1 resident']}, per-half-step {b1['B1 per-half-step']} "
               f"[{card}]", flush=True)
-    print(f"bench: movie refused (exit 1): {movie['error']}", flush=True)
     return out
 
 
@@ -2773,6 +2791,587 @@ def probe_bounds(p3_model, p3_tc, p1_rate):
             for k, w in work.items()}
 
 
+# -- phases 24-25: displays 3, 7, 8 and 9, the parameter server, resume= --
+
+# the displays' goldens at tests/test_golden.py's shapes and tolerances
+# (N=8 M=24, omega=10): display 3 at t-max 0.5, (golden, dtype, rtol, atol,
+# norm rtol); display 7 at t-max 0.2, (dtype, frames, rtol, atol)
+D3_GOLDENS = (("d3_tiny_f64.txt.gz", "f64", 1e-8, 1e-14, 1e-9),
+              ("d3_tiny_f32.txt.gz", "f32", 2e-4, 5e-6, 2e-5))
+D7_GOLDENS = (("f64", (1, 2), 1e-8, 1e-14), ("f32", (1, 12), 2e-4, 3e-6))
+# the recorded parameter-server sessions (tests/test_golden.py:233-300),
+# f64: (golden, display, t-max, script, rtol, atol)
+REPL_GOLDENS = (
+    ("repl_f64.txt", 4, 0.5,
+     "E_dc 1.5 0.5\nB 0.2 0.5\nmu 1.3 0.3\nomega 12.0 0.3\nexit\n",
+     1e-8, 1e-12),
+    ("repl_fuzz_f64.txt", 4, 0.5,
+     "E_dc 1.5x 0.40\nbogus 7 0.30\nB .25e0 0.35\nexit 0.9 0.30\n"
+     "mu abc 1.1 0.25\nexit\n", 1e-8, 1e-12),
+    ("repl_d77_f64.txt.gz", 77, 0.3, "E_dc 1.6 0.2\nexit\n", 5e-9, 1e-12))
+TINY_DISPLAY = dict(n_harmonics=8, g_grid=24, **{**PHYS, "omega": 10.0})
+# the D7 envelope of a float32 frame (tests/test_golden.py:219-227)
+FRAME_RTOL, FRAME_ATOL = 2e-4, 3e-6
+
+# BASELINE.md #1 (display 8, N=20, M=200, t-max=10; PHYS) and #3 (display
+# 7, N=20, M=1000; bench.py:281 bench_movie: t-max=0.3, omega=10); the
+# smoke's movie cuts its depth to the frames from t=0.83 on (~10 of 93),
+# `python -m slb2d_tpu_torch.bench movie` runs them all
+BASELINE1 = dict(n_harmonics=20, g_grid=200)
+BASELINE3 = dict(N=20, M=1000, t_start=0.3, omega=10.0)
+BASELINE3_GRID = dict(n_harmonics=BASELINE3["N"], g_grid=BASELINE3["M"])
+# the movie's chunks that its replay holds against the plain version: the
+# run up to the first frame, then nine of a frame each
+MOVIE_PLAIN_CHUNKS = 10
+MOVIE_FRAME_START = 0.83
+# the BASELINE #4 parameter-server session: three mutations
+REPL_MAIN = "E_dc 1.5 0.5\nB 0.2 0.5\nomega 1.2 0.5\nexit\n"
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    """Run the block with `path` (created) as the working directory: the
+    frame displays write their files there."""
+    os.makedirs(path, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(cwd)
+
+
+@contextlib.contextmanager
+def forced_form(form):
+    """Within it, the single-run driver's kernel engine takes `form`:
+    None (the plans' choice), "per-half-step" (impl=cuda: B1 without a
+    resident plan), "tiling" (impl=stream: B2 without a spill plan) or
+    "spill" (impl=stream: forced_spill(2) at any shape)."""
+    from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
+    saved = (stepper_cuda.resident_plan, sst.spill_plan, sst.stream_beats_b1)
+    try:
+        if form == "spill":
+            with forced_spill(2):
+                yield
+            return
+        if form == "per-half-step":
+            stepper_cuda.resident_plan = lambda *a, **k: None
+            sst.stream_beats_b1 = lambda *a, **k: False
+        elif form == "tiling":
+            sst.spill_plan = lambda *a, **k: None
+        yield
+    finally:
+        (stepper_cuda.resident_plan, sst.spill_plan,
+         sst.stream_beats_b1) = saved
+
+
+def run_sim(cfg_kw, impl, repl=None):
+    """A Simulation of SimConfig(**cfg_kw) with impl on the card, run in
+    the working directory (its output in out.txt there); repl: a
+    parameter-server script.  Returns the Simulation."""
+    import io
+    import torch
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.runtime.loop import Simulation
+    cfg = SimConfig(impl=impl, quiet=True, out_file="out.txt", **cfg_kw)
+    sim = Simulation(cfg, device=torch.device(DEVICE))
+    # the frames' `# norm=` echo (the reference's printf) stays off the
+    # smoke's output
+    with contextlib.redirect_stdout(io.StringIO()):
+        sim.run(repl_stream=io.StringIO(repl) if repl is not None else None)
+    return sim
+
+
+def _gold_lines(name):
+    import gzip
+    path = os.path.join(ROOT, "tests", "golden", name)
+    opener = gzip.open if name.endswith(".gz") else open
+    with opener(path, "rt") as fh:
+        return fh.read().splitlines()
+
+
+def _close(got, ref, rtol, atol, what):
+    """max |got - ref|, failing where it passes atol + rtol * |ref|."""
+    import numpy as np
+    got, ref = np.asarray(got, float), np.asarray(ref, float)
+    err = np.abs(got - ref)
+    check(got.shape == ref.shape and bool(np.all(err <= atol + rtol
+                                                 * np.abs(ref))),
+          f"{what}: outside rtol={rtol} atol={atol} (max abs err "
+          f"{err.max() if err.size else 'n/a'})")
+    return float(err.max()) if err.size else 0.0
+
+
+def displays_golden(impl, form, tmp):
+    """Displays 3 and 7 and the three parameter-server sessions through
+    impl on `form` (see forced_form) against the reference C solver's
+    recorded output, at tests/test_golden.py's tolerances; checks the run
+    took that form.  Returns {what: max abs err}."""
+    import numpy as np
+    want = {None: None, "per-half-step": "cuda-b1 per-half-step",
+            "tiling": "stream tiling", "spill": "stream spill"}[form]
+    errs = {}
+
+    def took(sim, what):
+        tag = sim.engine_tag()
+        check(tag == (want or ("cuda-b1 resident" if impl == "cuda"
+                               else "stream tiling")),
+              f"{what} impl={impl}: ran on {tag}, not {want}")
+        return tag
+
+    with forced_form(form):
+        for gold, dtype, rtol, atol, nrtol in D3_GOLDENS:
+            with in_dir(os.path.join(tmp, f"d3{dtype}")):
+                sim = run_sim(dict(display=3, dtype=dtype, t_start=0.5,
+                                   **TINY_DISPLAY), impl)
+                with open("out.txt") as fh:
+                    mine = fh.read().splitlines()
+            ref = _gold_lines(gold)
+            what = f"{gold} [{took(sim, gold)}]"
+            check(len(ref) == len(mine), f"{what}: {len(mine)} lines")
+            vals, rvals = [], []
+            for g, m in zip(ref, mine):
+                if g.startswith("# norm="):
+                    _close(float(m[7:]), float(g[7:]), nrtol, 0.0,
+                           f"{what} norm")
+                    continue
+                check(g.split()[:2] == m.split()[:2], f"{what}: coordinates")
+                vals.append(m.split()[2:])
+                rvals.append(g.split()[2:])
+            errs[gold] = _close(np.array(vals, float), np.array(rvals, float),
+                                rtol, atol, what)
+        for dtype, frames, rtol, atol in D7_GOLDENS:
+            d = os.path.join(tmp, f"d7{dtype}")
+            with in_dir(d):
+                sim = run_sim(dict(display=7, dtype=dtype, t_start=0.2,
+                                   **TINY_DISPLAY), impl)
+            M = TINY_DISPLAY["g_grid"]
+            for idx in frames:
+                gold = f"d7_frame{idx}_{dtype}.txt.gz"
+                what = f"{gold} [{took(sim, gold)}]"
+                ref = [l for l in _gold_lines(gold) if not l.startswith("#")]
+                with open(os.path.join(d, f"frame{idx:08d}.data")) as fh:
+                    mine = [l for l in fh.read().splitlines()
+                            if not l.startswith("#")]
+                n_gold, n_mine = 2 * M + 1, M + 1   # OOB rows in the gold
+                blocks = len(ref) // n_gold
+                check(len(mine) == blocks * n_mine, f"{what}: rows")
+                vals, rvals = [], []
+                for b in range(blocks):
+                    for g, m in zip(ref[b * n_gold: b * n_gold + n_mine],
+                                    mine[b * n_mine: (b + 1) * n_mine]):
+                        check(g.split()[:2] == m.split()[:2],
+                              f"{what}: coordinates")
+                        vals.append(float(m.split()[2]))
+                        rvals.append(float(g.split()[2]))
+                errs[gold] = _close(vals, rvals, rtol, atol, what)
+        for gold, display, t_max, script, rtol, atol in REPL_GOLDENS:
+            with in_dir(os.path.join(tmp, gold.split(".")[0])):
+                sim = run_sim(dict(display=display, dtype="f64",
+                                   t_start=t_max, read_from="stdin",
+                                   **TINY_DISPLAY), impl, repl=script)
+                with open("out.txt") as fh:
+                    mine = fh.read().splitlines()
+            what = f"{gold} [{took(sim, gold)}]"
+            ref = _gold_lines(gold)
+
+            def rows(lines):
+                return [l.split() for l in lines
+                        if l and not l.startswith("#")]
+
+            check(len(rows(ref)) == len(rows(mine)) > 4,
+                  f"{what}: {len(rows(mine))} lines")
+            errs[gold] = _close(np.array(rows(mine), float),
+                                np.array(rows(ref), float), rtol, atol, what)
+            check([l for l in ref if l.startswith("# display=")]
+                  == [l for l in mine if l.startswith("# display=")],
+                  f"{what}: headers differ")
+    return errs
+
+
+def device_frame_vs_host(dtype="f32", n_steps=2000):
+    """The device frame (ops/frames.reconstruct_on_device, two matrix
+    products on the card in the state's dtype) against the host f64 frame
+    from the same state, BASELINE #3's grid after n_steps on B1: f32 at
+    the D7 envelope, f64 at TOL["f64"]; the norm sums likewise (f32 at
+    rtol 1e-5).  Returns (max abs err, the frame's shape)."""
+    import torch
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
+    from slb2d_tpu_torch.ops import frames, stencil, stepper_cuda
+    cfg = SimConfig(display=7, t_start=BASELINE3["t_start"], dtype=dtype,
+                    **BASELINE3_GRID, **{**PHYS, "omega": BASELINE3["omega"]})
+    model = SuperlatticeModel(cfg)
+    c = stencil.consts_from_model(model, torch.device(DEVICE))
+    state = stepper_cuda.make_cuda_runner(c, model, av_enabled=False)(
+        stencil.bootstrap_state(c, model), n_steps)
+    recon = frames.FrameReconstructor(model)
+    F, ns = recon.reconstruct_on_device(state.a, state.b, 1, model.M + 2)
+    check(F.dtype == state.a.dtype, f"{dtype} device frame in {F.dtype}")
+    a, b = state.a.cpu().numpy(), state.b.cpu().numpy()
+    ref = recon.reconstruct(a, b, 1, model.M + 2)
+    tol = (dict(rtol=FRAME_RTOL, atol=FRAME_ATOL) if dtype == "f32"
+           else TOL["f64"])
+    err = _close(F.cpu().numpy(), ref, what=f"{dtype} device frame vs "
+                 f"host f64 frame", **tol)
+    _close(float(ns), float((a[0].astype("float64") * model.w_norm).sum()),
+           1e-5 if dtype == "f32" else TOL["f64"]["rtol"], 0.0,
+           f"{dtype} device norm sum vs host f64")
+    return err, tuple(F.shape)
+
+
+def displays_golden_phase(card, tmp):
+    """24. Every display and REPL golden on B1 resident (impl=cuda), B2
+    tiling (impl=stream) and B2 spill (a forced plan of 2 bands); the
+    device frame against the host frame.  One line."""
+    t0 = time.perf_counter()
+    done = {}
+    for impl, form in (("cuda", None), ("stream", None), ("stream",
+                                                          "spill")):
+        errs = displays_golden(impl, form,
+                               os.path.join(tmp, f"golden-{impl}-{form}"))
+        done[f"impl={impl}{'' if form is None else ' forced ' + form}"] = \
+            max(errs.values())
+    err, shape = device_frame_vs_host("f32")
+    err64, _ = device_frame_vs_host("f64")
+    wall = time.perf_counter() - t0
+    print("displays golden: d3_tiny f32/f64, d7_frame1/12 f32, "
+          "d7_frame1/2 f64, repl_f64, repl_fuzz_f64, repl_d77_f64 at "
+          "tests/test_golden.py's tolerances, headers byte for byte: " +
+          ", ".join(f"{k} max abs err {v:.3e}" for k, v in done.items()) +
+          f"; device frame {shape} vs host f64 frame at BASELINE#3 after "
+          f"2000 steps: f32 max abs err {err:.3e} (rtol {FRAME_RTOL}, atol "
+          f"{FRAME_ATOL}), f64 max abs err {err64:.3e} (rtol "
+          f"{TOL['f64']['rtol']}, atol {TOL['f64']['atol']}) ok; "
+          f"{wall:.1f} s [{card}]", flush=True)
+    return wall
+
+
+def _counted(fn):
+    """(fn(), launches): every kernel count set to 0 just before fn and
+    read just after (bench.launch_counts, plus B2 by form)."""
+    import torch
+    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    torch.cuda.synchronize()
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = bench.launch_counts()
+    got["B2 spill"] = sst.spill_launch_count
+    got["B2 tiling"] = sst.tiling_launch_count
+    return out, got
+
+
+def _only(launches, want):
+    """The kernels named in want launched that often, every other none."""
+    return all(n == want.get(k, 0) for k, n in launches.items())
+
+
+def _state_equal(x, y, what, dtype="f32"):
+    import torch
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b", "t",
+              "step"):
+        check(torch.equal(getattr(x, f), getattr(y, f)),
+              f"{what}: {f} not bit for bit")
+    return allclose(x.av, y.av, what=f"{what} av", **TOL[dtype])
+
+
+def _frame_rows(path):
+    import numpy as np
+    with open(path) as fh:
+        text = fh.read()
+    vals = np.array([l.split()[2] for l in text.splitlines()
+                     if l and not l.startswith("#")], float)
+    return text, vals
+
+
+def check_schedule_vs_plain(cfg_kw, what, max_chunks=None):
+    """A Simulation's own chunks (its schedule's xs tables, av off at
+    displays 7 and 8, cut at its frames) through the B1 runner it builds,
+    against B1's plain version (stepper_cuda.run_chunk_plain) from the
+    same bootstrap state.  A chunk of more than 16 steps is cut at an odd
+    step, so its rest starts at parity 1.  The state and edges bit for
+    bit after every chunk, av at TOL.  The first max_chunks chunks, or
+    all.  Returns (the kernel's state, steps, chunks, av max abs err)."""
+    import io
+    import torch
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.ops import stepper_cuda
+    from slb2d_tpu_torch.runtime import schedule
+    from slb2d_tpu_torch.runtime.loop import Simulation
+    sim = Simulation(SimConfig(impl="cuda", quiet=True, **cfg_kw),
+                     out=io.StringIO(), device=torch.device(DEVICE))
+    runner = sim._kernel_runner()
+    kern, plain = sim.state, sim.state.clone()
+    av_off = cfg_kw["display"] in (7, 8)
+    steps = chunks = 0
+    err = 0.0
+    for chunk in schedule.iter_chunks(**sim._schedule_kwargs()):
+        if chunks == max_chunks:
+            break
+        check(not av_off or not chunk.xs["do_av"].any(),
+              f"{what}: av on in chunk {chunks}")
+        n = chunk.n_steps
+        cut = (n // 2) | 1 if n > 16 else n
+        for lo, hi in ((0, cut), (cut, n)):
+            if lo == hi:
+                continue
+            part = {k: v[lo:hi] for k, v in chunk.xs.items()}
+            kern = runner.run_xs(kern, part, steps % 2)
+            plain, _ = stepper_cuda.run_chunk_plain(
+                sim.c, plain, stepper_cuda.pack_xs_dict(
+                    part, sim.model.np_dtype), steps % 2)
+            steps += hi - lo
+        chunks += 1
+        err = max(err, _state_equal(kern, plain, f"{what} vs plain after "
+                                    f"chunk {chunks} (step {steps})"))
+    check(runner.form == "resident" and runner.launches > 0,
+          f"{what}: B1 {runner.form}, {runner.launches} launches")
+    check(not av_off or not bool(kern.av.any()), f"{what}: av moved")
+    return kern, steps, chunks, err
+
+
+def displays_main_phase(card, tmp):
+    """25. The displays' main paths at full width, each with every kernel
+    count set to 0 just before it and read just after: BASELINE #1
+    display 8; the bench's movie at BASELINE #3, frame-batch 8 and 1;
+    display 9 at BASELINE #1's grid and physics (101 periods), then split
+    by checkpoint and resume; a BASELINE #4 parameter-server session on
+    B1 resident against the forced per-half-step form; one mutation at
+    N=100 M=20000 on B2 spill against B2 tiling.  Returns a dict of the
+    launches and walls for the kernels line."""
+    import io
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
+    t_phase = time.perf_counter()
+    res = {}
+
+    # BASELINE #1 display 8: frame.data against the host f64 frame of the
+    # run's final state, and that state against the plain version's over
+    # the run's own schedule
+    d8 = os.path.join(tmp, "d8")
+    with in_dir(d8):
+        t0 = time.perf_counter()
+        sim, got = _counted(lambda: run_sim(
+            dict(display=8, t_start=10.0, **BASELINE1, **PHYS), "cuda"))
+        wall = time.perf_counter() - t0
+    check(sim.engine_tag() == "cuda-b1 resident"
+          and _only(got, {"B1": sim.chunks_done,
+                          "B1 resident": sim.chunks_done}),
+          f"BASELINE#1 display 8 on {sim.engine_tag()}: launches {got}, "
+          f"{sim.chunks_done} chunks")
+    text, vals = _frame_rows(os.path.join(d8, "frame.data"))
+    model = sim.model
+    ref = sim._get_recon().reconstruct(sim.state.a.cpu().numpy(),
+                                       sim.state.b.cpu().numpy(), 1,
+                                       model.M + 2)
+    check(vals.size == ref.size and bool(np.all(np.isfinite(vals))),
+          f"display 8 frame.data: {vals.size} values")
+    err = _close(vals.reshape(ref.shape), ref, FRAME_RTOL, FRAME_ATOL,
+                 "display 8 frame vs host f64 frame")
+    norm = float(text.split("# norm=")[1].split()[0])
+    check(abs(norm - 1.0) < 1e-3, f"display 8 norm {norm}")
+    check(text.startswith("# t="), "display 8: no # t= header")
+    t0 = time.perf_counter()
+    replay, steps, _, _ = check_schedule_vs_plain(
+        dict(display=8, t_start=10.0, **BASELINE1, **PHYS),
+        "BASELINE#1 display 8")
+    check(steps == sim.steps_done, f"display 8 replay: {steps} steps")
+    _state_equal(sim.state, replay, "BASELINE#1 display 8 run vs its "
+                 "replay against the plain version")
+    plain_s = time.perf_counter() - t0
+    res["d8"] = dict(launches=got["B1"], chunks=sim.chunks_done,
+                     steps=sim.steps_done, wall_s=wall)
+    print(f"displays main: BASELINE#1 display 8 f32 impl=cuda "
+          f"[{sim.engine_tag()}]: {sim.steps_done} steps, {sim.chunks_done}"
+          f" chunk(s), B1 launches {got['B1']} (resident "
+          f"{got['B1 resident']}), frame.data {ref.shape[0]}x{ref.shape[1]}"
+          f" rows vs host f64 frame max abs err {err:.3e}, norm "
+          f"{norm:.9f}, wall {wall:.3f} s; the final state bit for bit "
+          f"with B1's plain version over the run's own av-off tables, cut "
+          f"at an odd step ({plain_s:.1f} s) [{card}]", flush=True)
+
+    # the movie at BASELINE #3, frame-batch 8 and 1
+    movies = {}
+    for fb in (8, 1):
+        rec, got = _counted(lambda: bench.run_mode(
+            ["movie", str(fb)], DEVICE, frame_start=MOVIE_FRAME_START))
+        check(rec["engine"] == "cuda-b1 resident"
+              and rec["frames"] >= 8
+              and rec["run_launches"] == rec["chunks"]
+              and got["B1 resident"] == got["B1"] == rec["chunks"] + 1
+              and _only(got, {"B1": got["B1"], "B1 resident": got["B1"]}),
+              f"movie {fb}: {rec}, launches {got} (one a chunk and one in "
+              f"warmup)")
+        movies[fb] = rec
+    # the movie's first chunks, cut at its frames, against the plain
+    # version
+    _, movie_steps, movie_chunks, _ = check_schedule_vs_plain(
+        dict(display=7, t_start=BASELINE3["t_start"],
+             frame_start=MOVIE_FRAME_START, **BASELINE3_GRID,
+             **{**PHYS, "omega": BASELINE3["omega"]}),
+        "BASELINE#3 movie", max_chunks=MOVIE_PLAIN_CHUNKS)
+    res["movie"] = {fb: dict(frames_per_s=r["value"], frames=r["frames"],
+                             wall_s=r["wall_s"], chunks=r["chunks"],
+                             launches=r["run_launches"],
+                             ms_per_frame=r["ms_per_frame"],
+                             formatter=r["formatter"])
+                    for fb, r in movies.items()}
+    print("displays main: bench movie at BASELINE#3 (N=20 M=1000 t-max=0.3 "
+          f"omega=10, frames from t={MOVIE_FRAME_START}) " + "; ".join(
+              f"frame-batch {fb}: {r['value']:.3f} frames/s, {r['frames']} "
+              f"frames, {r['steps']} steps, wall {r['wall_s']:.3f} s, "
+              f"{r['chunks']} chunks, launches a chunk "
+              f"{r['launches_per_chunk']:.2f}, ms a frame " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in r["ms_per_frame"].items())
+              for fb, r in movies.items()) +
+          f" [{movies[8]['engine']}; formatter {movies[8]['formatter']}]; "
+          f"its first {movie_chunks} chunks ({movie_steps} steps, av off) "
+          f"bit for bit with B1's plain version [{card}]", flush=True)
+
+    # display 9 at BASELINE #1 (101 periods), whole and split by
+    # checkpoint and resume
+    d9 = dict(display=9, t_start=10.0, **BASELINE1, **PHYS)
+    whole, split = os.path.join(tmp, "d9"), os.path.join(tmp, "d9split")
+    with in_dir(whole):
+        t0 = time.perf_counter()
+        sim9, got = _counted(lambda: run_sim(d9, "cuda"))
+        wall9 = time.perf_counter() - t0
+    check(sim9.engine_tag() == "cuda-b1 resident"
+          and _only(got, {"B1": sim9.chunks_done,
+                          "B1 resident": sim9.chunks_done}),
+          f"display 9 on {sim9.engine_tag()}: launches {got}")
+    names = sorted(f for f in os.listdir(whole) if f.startswith("strobe"))
+    check(len(names) == 101, f"display 9 wrote {len(names)} strobes")
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.runtime.loop import Simulation
+    with in_dir(split):
+        first = Simulation(SimConfig(impl="cuda", quiet=True,
+                                     out_file="out.txt", checkpoint="ck.npz",
+                                     **d9), device=torch.device(DEVICE))
+        D = first.model.np_dtype
+        first.t_max = float(D(D(10.0) + D(40 * first.model.T)))
+        with contextlib.redirect_stdout(io.StringIO()):
+            first.run()
+        n_first = len([f for f in os.listdir(".") if f.startswith("strobe")])
+        resumed, got_r = _counted(lambda: run_sim(
+            dict(d9, resume="ck.npz"), "cuda"))
+    check(resumed.steps_done == sim9.steps_done and 30 < n_first < 60,
+          f"display 9 split: {n_first} strobes first, "
+          f"{resumed.steps_done} steps (whole {sim9.steps_done})")
+    for name in names:
+        with open(os.path.join(whole, name), "rb") as a, \
+                open(os.path.join(split, name), "rb") as b:
+            check(a.read() == b.read(), f"display 9 split: {name} differs")
+    _state_equal(resumed.state, sim9.state, "display 9 split vs whole")
+    res["d9"] = dict(launches=got["B1"], chunks=sim9.chunks_done,
+                     steps=sim9.steps_done, wall_s=wall9,
+                     resumed_launches=got_r["B1"])
+    print(f"displays main: display 9 at BASELINE#1 (N=20 M=200 t-max=10, "
+          f"101 periods) impl=cuda [{sim9.engine_tag()}]: "
+          f"{sim9.steps_done} steps, {sim9.chunks_done} chunks, B1 launches "
+          f"{got['B1']}, 101 strobes, wall {wall9:.3f} s; split at period "
+          f"40 by checkpoint and resume ({n_first} strobes first, the rest "
+          f"resumed from step {first.steps_done}, parity "
+          f"{first.steps_done % 2}, {got_r['B1']} launches): 101 files byte "
+          f"for byte, state bit for bit [{card}]", flush=True)
+
+    # a BASELINE #4 parameter-server session: B1 resident against the forced
+    # per-half-step form, one runner build each
+    b4 = dict(display=4, t_start=10.0, read_from="stdin", **BASELINE4,
+              **PHYS)
+    sessions = {}
+    for form in (None, "per-half-step"):
+        built = []
+        init = stepper_cuda.Runner.__init__
+
+        def counting(self, *a, **k):
+            built.append(self)
+            init(self, *a, **k)
+
+        stepper_cuda.Runner.__init__ = counting
+        try:
+            with forced_form(form), in_dir(os.path.join(
+                    tmp, f"repl-{form}")):
+                t0 = time.perf_counter()
+                sim, got = _counted(lambda: run_sim(b4, "cuda",
+                                                    repl=REPL_MAIN))
+                wall = time.perf_counter() - t0
+                with open("out.txt") as fh:
+                    text = fh.read()
+        finally:
+            stepper_cuda.Runner.__init__ = init
+        tag = sim.engine_tag()
+        want = {"B1": got["B1"], f"B1 {tag.split()[1]}": got["B1"]}
+        check(len(built) == 1 and sim._runner is built[0]
+              and tag == ("cuda-b1 resident" if form is None
+                          else "cuda-b1 per-half-step")
+              and _only(got, want) and got["B1"] > 0
+              and (form is not None or got["B1"] == sim.chunks_done),
+              f"BASELINE#4 REPL on {tag}: {len(built)} runner builds, "
+              f"launches {got}, {sim.chunks_done} chunks")
+        rows = _rows(text)
+        check(rows.shape == (4, 13) and bool(np.all(np.isfinite(rows)))
+              and bool(np.all(np.abs(rows[:, 6] - 1) < 1e-3)),
+              f"BASELINE#4 REPL on {tag}: lines {rows}")
+        sessions[tag] = (sim, got, wall, text)
+    (res_sim, res_got, res_wall, res_text), (per_sim, _, per_wall,
+                                             per_text) = sessions.values()
+    av_err = _state_equal(res_sim.state, per_sim.state,
+                          "BASELINE#4 REPL resident vs per-half-step")
+    check([l for l in res_text.splitlines() if l.startswith("#")]
+          == [l for l in per_text.splitlines() if l.startswith("#")],
+          "BASELINE#4 REPL: headers differ between the forms")
+    res["repl"] = dict(launches=res_got["B1"], chunks=res_sim.chunks_done,
+                       steps=res_sim.steps_done, wall_s=res_wall,
+                       per_half_step_wall_s=per_wall)
+    print(f"displays main: BASELINE#4 REPL, 3 mutations (E_dc, B, omega), "
+          f"4 lines, {res_sim.steps_done} steps: B1 resident one runner, "
+          f"{res_got['B1']} launches for {res_sim.chunks_done} chunks, wall "
+          f"{res_wall:.3f} s; forced per-half-step one runner, wall "
+          f"{per_wall:.3f} s; state bit for bit, av max abs err "
+          f"{av_err:.3e}, headers equal [{card}]", flush=True)
+
+    # one mutation at N=100 M=20000: B2 spill against B2 tiling
+    own = dict(display=4, t_start=1.0, read_from="stdin", **B2_OWN, **PHYS)
+    b2 = {}
+    for form in (None, "tiling"):
+        with forced_form(form), in_dir(os.path.join(tmp, f"b2-{form}")):
+            t0 = time.perf_counter()
+            sim, got = _counted(lambda: run_sim(own, "stream",
+                                                repl="E_dc 1.5 0.2\nexit\n"))
+            wall = time.perf_counter() - t0
+            with open("out.txt") as fh:
+                text = fh.read()
+        tag = sim.engine_tag()
+        form_key = "B2 spill" if form is None else "B2 tiling"
+        check(tag == ("stream spill" if form is None else "stream tiling")
+              and got[form_key] == got["B2"] > 0
+              and (form is not None or got["B2"] == sim.chunks_done),
+              f"N=100 M=20000 REPL on {tag}: launches {got}")
+        b2[tag] = (sim, got, wall, text)
+    (sp_sim, sp_got, sp_wall, sp_text), (ti_sim, ti_got, ti_wall,
+                                         ti_text) = b2.values()
+    b2_err = _state_equal(sp_sim.state, ti_sim.state,
+                          "N=100 M=20000 REPL spill vs tiling")
+    check(_rows(sp_text).shape == (2, 13), "N=100 M=20000 REPL: lines")
+    res["repl_b2"] = dict(launches=sp_got["B2"], chunks=sp_sim.chunks_done,
+                          steps=sp_sim.steps_done, wall_s=sp_wall,
+                          tiling_launches=ti_got["B2"], tiling_wall_s=ti_wall)
+    wall = time.perf_counter() - t_phase
+    print(f"displays main: N=100 M=20000 REPL, one mutation, "
+          f"{sp_sim.steps_done} steps: B2 spill {sp_got['B2']} launches for "
+          f"{sp_sim.chunks_done} chunks, wall {sp_wall:.3f} s; B2 tiling "
+          f"{ti_got['B2']} launches, wall {ti_wall:.3f} s; state bit for "
+          f"bit, av max abs err {b2_err:.3e}; phase {wall:.1f} s [{card}]",
+          flush=True)
+    res["phase_s"] = wall
+    return res
+
+
 def main():
     try:
         import torch
@@ -2821,7 +3420,14 @@ def main():
         for form in ("resident", "per-half-step"):
             max_err[shape_name, "f32", form] = check_kernel_vs_plain(
                 shape, "f32", n_steps=200, form=form)[0]
-    print("kernel: vs plain, both forms, 500 steps (200 at N=400 M=4000 and "
+    # the displays' grids (BASELINE #1 and #3), where the resident form
+    # runs the frame displays, the strobe and the movie
+    for shape_name, shape in (("BASELINE#1", BASELINE1),
+                              ("BASELINE#3", BASELINE3_GRID)):
+        max_err[shape_name, "f32", "resident"] = check_kernel_vs_plain(
+            shape, "f32", form="resident")[0]
+    print("kernel: vs plain, both forms (the resident form alone at "
+          "BASELINE#1 and BASELINE#3), 500 steps (200 at N=400 M=4000 and "
           "N=100 M=12000) in 2 chunks + d77 records, state and edges bit "
           "for bit: " +
           ", ".join(f"{s} {d} {f} av/records max abs err {e:.3e}"
@@ -3097,6 +3703,18 @@ def main():
           f"to its end with frames av max abs err {ow_err:.3e} (capture "
           f"{ow_cap:.3e}, {ow_exits} exits) ok [{card}]", flush=True)
 
+    # 24-25. displays 3, 7, 8 and 9, the parameter server and resume=:
+    # the goldens on every form, then the main paths at full width
+    from slb2d_tpu_torch.io import native
+    formatter = native.build()
+    print(f"formatter: {formatter} [{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        golden_s = displays_golden_phase(card, tmp)
+        displays = displays_main_phase(card, tmp)
+    print(f"displays: phases 24-25 {golden_s + displays['phase_s']:.1f} s "
+          f"(24 {golden_s:.1f} s, 25 {displays['phase_s']:.1f} s) [{card}]",
+          flush=True)
+
     # the bounds of each main path's run (B1: the tall grid, where impl=cuda
     # takes it; B2: the wide grid's impl=stream run, the same work as B1
     # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
@@ -3215,7 +3833,9 @@ def main():
         barrier_us_per_half_step_form=mean(barrier_per),
         ms_per_half_step=b1_per_ms,
         ms_turns={k: v for k, v in routing["N=400 M=4000"].items()},
-        sass=b1_sass_counts), entry(
+        sass=b1_sass_counts,
+        displays={k: displays[k] for k in ("d8", "movie", "d9", "repl")}),
+        entry(
         "B3 shared", name="slb_sweep_chunk (sweep_cluster<T, false>; "
                           "streaming form sweep_chunk<T, false>)",
         route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
@@ -3241,7 +3861,7 @@ def main():
         launches=b2_own["launches"],
         max_abs_err=spill_err["N=100 M=20000", "f32"][0],
         ms=b2_spill_ms, plain_ms=spill_plain_ms, form="spill",
-        own_shape=b2_own), entry(
+        own_shape=b2_own, repl=displays["repl_b2"]), entry(
         "B4", name="slb_lanes_cluster (lanes_cluster, one launch per "
                    "call); streaming form slb_lanes_chunk "
                    "(lanes_half_step<true>, lanes_half_step<false>)",

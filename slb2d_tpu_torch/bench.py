@@ -23,16 +23,25 @@ Modes (the root bench.py's, on the port's engines):
                        sweep kernel (B3), or the lane-packed sweep kernel
                        (B4: one warm call, then one timed call of the
                        whole sweep)
-  movie                not ported (display 7): an error line, exit 1
+  movie [frame_batch]  display 7 (movie mode) at BASELINE #3's shape (N=20,
+                       M=1000, t-max=0.3, omega=10; bench.py:281
+                       bench_movie), frame-batch 8 by default, after
+                       warmup(): frames per second, with the frames, the
+                       engine, the formatter that wrote the rows
+                       (io/native.py's library, built from native/slbio.cpp
+                       at first use, or the Python path), the chunks and
+                       launches, and the wall split into the chunk loop,
+                       the frames' reconstruction, and the IO thread's
+                       fetch and formatting
 
 Each mode prints one JSON line: metric (its own per mode and arguments),
 value, unit, device (the nvidia-smi name and power limit of the card),
 wall_s, steps and the kernel launch counts of the mode's whole run,
-warm-up included.  The site-update count is 2·(N+1)·(M+1)·steps (times
-the points for a sweep).  Without a CUDA device, or on any exception (its
-traceback goes to stderr first), the line has value null and an error,
-and the exit code is 1.  No mode gives way to another engine when one
-fails.
+warm-up included (movie: also its own keys above).  The site-update
+count is 2·(N+1)·(M+1)·steps (times the points for a sweep).  Without a
+CUDA device, or on any exception (its traceback goes to stderr first),
+the line has value null and an error, and the exit code is 1.  No mode
+gives way to another engine when one fails.
 
 The bench functions take device= and their shapes, so that the tests can
 run them small on the CPU; main() runs on cuda:0 only.
@@ -40,6 +49,8 @@ run them small on the CPU; main() runs on cuda:0 only.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -149,6 +160,53 @@ def bench_driver(impl="auto", N=100, M=4000, t_start=10.0, exact_time=True,
     return _sites(N, M, steps) / wall, wall, steps, sim.engine_tag()
 
 
+def bench_movie(frame_batch=8, N=20, M=1000, t_start=0.3, omega=10.0,
+                frame_start=0.0, impl="auto", device=None):
+    """Display 7 (movie mode) end to end after warmup(), in a temporary
+    working directory: the chunk loop (a chunk per frame, every 10
+    steps), the frames' reconstruction (on the device on a card)
+    and the IO thread's batched fetch and formatting, drained at the end.
+    On a card the row formatter is built first (io/native.build).
+    Returns a dict: wall, frames, steps, engine, formatter, chunks, the
+    kernel launches of the timed run and the host seconds by part
+    (Simulation.timing)."""
+    from .config import SimConfig
+    from .io import native
+    from .runtime.loop import Simulation
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            cfg = SimConfig(display=7, omega=omega, n_harmonics=N,
+                            t_start=t_start, g_grid=M, impl=impl,
+                            quiet=True, frame_batch=frame_batch,
+                            frame_start=frame_start,
+                            out_file=os.path.join(tmp, "obs.txt"), **PHYS)
+            sim = Simulation(cfg, device=device)
+            if sim.device.type == "cuda":
+                native.build()
+            sim.warmup()
+            sim.timing = dict.fromkeys(sim.timing, 0.0)
+            launches0 = getattr(sim._runner, "launches", 0)
+            _sync(sim.device)
+            # the frames' `# norm=` echo (the reference's printf) stays off
+            # the bench's one JSON line
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                sim.run()             # ends in the IO thread's drain
+                wall = time.perf_counter() - t0
+            frames = sum(1 for f in os.listdir(tmp)
+                         if f.startswith("frame"))
+        finally:
+            os.chdir(cwd)
+    return dict(wall=wall, frames=frames, steps=sim.steps_done,
+                engine=sim.engine_tag(), formatter=native.formatter(),
+                chunks=sim.chunks_done,
+                launches=getattr(sim._runner, "launches", 0) - launches0,
+                timing=dict(sim.timing))
+
+
 def sweep_params(B=SWEEP_POINTS, axis="E_dc", omega=1.0):
     """The swept grid of bench.py:177-182: E_dc over [0.1, 3.0], or omega
     over [0.8, 1.2] times the base omega."""
@@ -238,9 +296,23 @@ def run_mode(argv, device, **depth):
     mode = argv[0] if argv else "auto"
     args = argv[1:]
     if mode == "movie":
-        raise NotImplementedError(
-            "display 7 (movie) is not ported yet (ROADMAP.md queue A items "
-            "3 and 5)")
+        fb = int(args[0]) if args else 8
+        kw = dict(frame_batch=fb, **depth)
+        r = bench_movie(device=device, **kw)
+        if r["frames"] == 0:
+            raise RuntimeError("movie: the run wrote no frame")
+        t = r["timing"]
+        return dict(
+            metric=(f"movie frames/sec (display 7, N={kw.get('N', 20)} "
+                    f"M={kw.get('M', 1000)}, frame-batch={fb}, "
+                    f"impl={kw.get('impl', 'auto')} [{r['engine']}], "
+                    f"formatter {r['formatter']})"),
+            value=r["frames"] / r["wall"], unit="frames/sec",
+            wall_s=r["wall"], steps=r["steps"], frames=r["frames"],
+            engine=r["engine"], formatter=r["formatter"],
+            chunks=r["chunks"], run_launches=r["launches"],
+            launches_per_chunk=r["launches"] / r["chunks"],
+            ms_per_frame={k: v * 1e3 / r["frames"] for k, v in t.items()})
     if mode in ("auto", "driver"):
         impl = "auto" if mode == "auto" else (args[0] if args else "auto")
         exact = not (mode == "driver" and len(args) > 1
@@ -327,9 +399,9 @@ def main(argv=None):
                           "value": None, "unit": UNIT, "device": card,
                           "error": f"{type(e).__name__}: {e}"}), flush=True)
         return 1
-    print(json.dumps({"metric": rec["metric"], "value": rec["value"],
-                      "unit": UNIT, "device": card,
-                      "wall_s": rec["wall_s"], "steps": rec["steps"],
+    print(json.dumps({"metric": rec.pop("metric"),
+                      "value": rec.pop("value"), "unit": rec.pop("unit"),
+                      "device": card, **rec,
                       "launches": launch_counts()}), flush=True)
     return 0
 

@@ -1,9 +1,10 @@
 """Command-line entry point: `slb2d-torch key=value ...` or
 `python -m slb2d_tpu_torch.cli key=value ...` — the reference CLI surface
-(reference: src/boltzmann_cli.c, README.md:30-66) plus the extensions
-impl= (auto|torch|cuda|stream), dtype=, steps-per-chunk=, checkpoint=,
-exact-time=, warmup= and profile-dir= (the run under torch.profiler, its
-Chrome trace written under DIR).
+(reference: src/boltzmann_cli.c, README.md:30-66: displays 3, 4, 7, 8,
+9 and 77, read-from=stdin) plus the extensions impl=
+(auto|torch|cuda|stream), dtype=, steps-per-chunk=, checkpoint=,
+resume=, frame-batch=, exact-time=, warmup= and profile-dir= (the run
+under torch.profiler, its Chrome trace written under DIR).
 The run uses CUDA device `device=` (default 0) for every impl; only
 device=cpu runs it on the CPU.  Without a CUDA device and without
 device=cpu it prints an error and returns 1.  Unless quiet, the closing

@@ -68,6 +68,9 @@ class SimConfig:
     checkpoint: Optional[str] = None   # save final state to .npz
     resume: Optional[str] = None       # load initial state from .npz
     shards: int = 1          # spatial shards of the phi_y axis
+    frame_batch: int = 8     # frame/strobe emissions accumulated on the
+                             # device per host transfer (displays 7 and
+                             # 9; 1 = write per emission)
     warmup: bool = False     # build every step runner before the timed run
     profile_dir: Optional[str] = None  # torch.profiler Chrome trace output
 
@@ -112,6 +115,7 @@ _KEYMAP = {
     "checkpoint": ("checkpoint", str),
     "resume": ("resume", str),
     "shards": ("shards", int),
+    "frame-batch": ("frame_batch", int),
     "warmup": ("warmup", lambda v: v not in ("0", "false", "no")),
     "profile-dir": ("profile_dir", str),
 }

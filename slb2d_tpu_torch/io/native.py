@@ -3,18 +3,22 @@
 Frame emission is millions of printf-formatted lines per frame — genuinely
 hot in movie mode (display 7), so like the reference (whose entire runtime
 is C) the formatter is native.  Falls back to the Python path when the
-shared library has not been built (`make -C native`).
+shared library has not been built (`make -C native`, or build() below);
+formatter() names the one that writes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
+import sys
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_BUILD_ERROR = None   # the last line of a failed build()'s error
 
 
 def _load():
@@ -22,8 +26,7 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    here = _root()
     for cand in (os.path.join(here, "native", "libslbio.so"),
                  os.path.join(os.path.dirname(__file__), "libslbio.so")):
         if not os.path.exists(cand):
@@ -44,6 +47,48 @@ def _load():
         except OSError:
             continue   # unloadable copy: try the next candidate
     return _LIB
+
+
+def _root():
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+
+def build():
+    """Build native/libslbio.so with `make -C native` (native/Makefile,
+    the one recipe; CXX and CXXFLAGS pass through the environment; the
+    library is gitignored) when it is missing, and load it.  Returns
+    formatter().  A failed build leaves the Python formatter in place:
+    the build's error goes to stderr, and formatter() names the Python
+    path with the error's last line."""
+    global _LIB, _TRIED, _BUILD_ERROR
+    native = os.path.join(_root(), "native")
+    if not os.path.exists(os.path.join(native, "libslbio.so")):
+        try:
+            run = subprocess.run(["make", "-C", native, "libslbio.so"],
+                                 capture_output=True, text=True,
+                                 timeout=300)
+            err = (run.stdout + run.stderr).strip() if run.returncode \
+                else None
+        except (OSError, subprocess.SubprocessError) as e:
+            err = f"{type(e).__name__}: {e}"
+        if err is not None:
+            _BUILD_ERROR = err.splitlines()[-1] if err else "no output"
+            print(f"io/native: make -C native failed; the Python formatter "
+                  f"writes the rows:\n{err}", file=sys.stderr)
+    if _LIB is None:
+        _TRIED = False
+    return formatter()
+
+
+def formatter() -> str:
+    """The formatter frame rows go through: "native (native/libslbio.so)"
+    or "python" (io/writers.py's Python path; after a failed build(),
+    "python (build failed: <its error's last line>)")."""
+    if _load() is not None:
+        return "native (native/libslbio.so)"
+    return "python" if _BUILD_ERROR is None else \
+        f"python (build failed: {_BUILD_ERROR})"
 
 
 def write_xy_rows_native(out, phi_x, phi_y, F) -> bool:

@@ -1,27 +1,36 @@
-"""The simulation driver: chunked time loop over the host step schedule.
+"""The simulation driver: chunked time loop, emissions and the REPL.
 
 The PyTorch counterpart of ``slb2d_tpu/runtime/loop.py`` for one process
 on one explicit device.  The hot loop runs host-precomputed step
 schedules (runtime/schedule.py) chunk by chunk; the device is
-synchronised only at chunk and round boundaries, never per step.
+synchronised only at emission and round boundaries, never per step.  The
+interactive parameter server (read-from=stdin) continues from the live
+state exactly like the reference (src/boltzmann_solver.c:270-281): the
+distribution is never reset, only the scalar drive parameters and the
+averaging window change, and a kernel engine keeps its runner.
 
-Ported: displays 4 and 77 (records batched per chunk on every engine),
-``checkpoint=``, ``warmup`` and ``exact-time=0``. Engines: ``impl=torch``
-the plain tensor path; ``impl=stream`` the stream kernel (B2,
-ops/stepper_stream_cuda, in its spill or tiling form); ``impl=cuda`` and
-``auto`` B1 (ops/stepper_cuda, in its resident or per-half-step form) or B2
-by what an H100 measured (stepper_stream_cuda.engine_choice: B1 resident,
-else B2 spill, else B2 tiling, else B1 per-half-step). ``exact-time=0``
-evaluates the trig on the device from the carried t on ``impl=torch``;
-display 77 and the kernel engines keep the schedule's exact tables, as the
-JAX package's XLA and pallas paths do. Not yet ported (they raise
-NotImplementedError and are listed in ROADMAP.md queue A item 3, or item 9
-for ``shards``): displays 3/7/8/9, the stdin parameter server and
-``resume=``.
+Displays 3, 4, 7, 8, 9 and 77, ``read-from=stdin``, ``checkpoint=``,
+``resume=``, ``frame-batch=``, ``warmup`` and ``exact-time=0``.  Engines:
+``impl=torch`` the plain tensor path; ``impl=stream`` the stream kernel
+(B2, ops/stepper_stream_cuda, in its spill or tiling form); ``impl=cuda``
+and ``auto`` B1 (ops/stepper_cuda, in its resident or per-half-step form)
+or B2 by what an H100 measured (stepper_stream_cuda.engine_choice: B1
+resident, else B2 spill, else B2 tiling, else B1 per-half-step).
+``exact-time=0`` evaluates the trig on the device from the carried t on
+``impl=torch``; display 77 and the kernel engines keep the schedule's exact
+tables, as the JAX package's XLA and pallas paths do.  Display-77 records
+are batched per chunk on every engine.  Frames (displays 7, 8 and 9) are
+reconstructed on the device in the state's dtype on a card
+(ops/frames.reconstruct_on_device), stacked frame-batch at a time and
+fetched, formatted and written by one IO thread, with at most
+IO_PENDING_MAX batches waiting for it; on the CPU on the host in float64.
+Not yet ported (it raises NotImplementedError and is listed in ROADMAP.md
+queue A item 9): ``shards``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import sys
 import time
 
@@ -30,11 +39,12 @@ import torch
 
 from .. import config as cfgmod
 from ..config import SimConfig  # noqa: F401  (public API)
+from ..constants import PI
 from ..models.superlattice import SuperlatticeModel
-from ..ops import stencil
+from ..ops import frames, observables, stencil
 from ..io import writers
 from . import schedule
-from .checkpoint import save_state
+from .checkpoint import load_state, save_state
 
 
 # Schedule chunk for the kernel engines.  Each chunk costs one
@@ -49,6 +59,12 @@ CUDA_CHUNK_DEFAULT = 16384
 # slices (the JAX package's XLA-scan default)
 TORCH_CHUNK_DEFAULT = 4096
 
+# frame batches queued for the IO thread at most: each holds its frames
+# on the device until it is written, and formatting a frame takes ~80x
+# longer than producing it (PERF.md §5), so an unbounded queue would hold
+# a whole movie on the card
+IO_PENDING_MAX = 2
+
 
 class NumericalInstability(RuntimeError):
     pass
@@ -56,12 +72,6 @@ class NumericalInstability(RuntimeError):
 
 def _unported(cfg: SimConfig):
     """The first feature of cfg this package does not run yet, or None."""
-    if cfg.display not in (4, 77):
-        return f"display={cfg.display} (ROADMAP.md queue A item 3)"
-    if cfg.read_from == "stdin":
-        return "read-from=stdin (ROADMAP.md queue A item 3)"
-    if cfg.resume:
-        return "resume= (ROADMAP.md queue A item 3)"
     if cfg.shards > 1:
         return "shards>1 (ROADMAP.md queue A item 9)"
     return None
@@ -76,16 +86,49 @@ class Simulation:
         self.cfg = cfg
         # default cuda:<cfg.device> for every impl; the CPU only when asked
         self.device = cfgmod.torch_device(cfg, device)
+        self._runner = None
         self._build_model()
         self.out = out if out is not None else cfgmod.open_out(cfg)
         self.quiet = cfg.quiet
+        self.recon = None
+        self.frame_number = 1
+        self.strobe_values = None
+        self._frame_batch = []
+        self._io_pool = None
+        self._io_futures = []
+        # host seconds by part of the run: chunks (schedule, table copy,
+        # launches), frames (reconstruction and queueing), wait (the loop
+        # blocked on a full IO queue), and in the IO thread fetch and
+        # format (the frames' transfer and file writes)
+        self.timing = dict(chunks=0.0, frames=0.0, wait=0.0, fetch=0.0,
+                           format=0.0)
+        self.chunks_done = 0
+        # cross-round float carries (the reference keeps these across the
+        # parameter-server loop)
         self.frame_time = 0.0
         self.last_rem = 0.0
         self.t_exit = 0.0
         self._steps_since_progress = 0
-        self.state = stencil.bootstrap_state(self.c, self.model)
-        self.t0 = 0.0
-        self.steps_done = 0
+        if cfg.resume:
+            self.state, extra = load_state(cfg.resume, self.model,
+                                           device=self.device)
+            self.t0 = float(extra.get("t0", float(self.state.t)))
+            self.frame_time = float(extra.get("frame_time", 0.0))
+            self.frame_number = int(extra.get("frame_number", 1))
+            # display-9 strobe carries: without these a resumed strobe run
+            # would drop the accumulated periods and reset the t/T
+            # wraparound reminder (src/boltzmann_solver.c:260-275,447-484)
+            self.last_rem = float(extra.get("last_rem", 0.0))
+            if "strobe_values" in extra:
+                sv = np.asarray(extra["strobe_values"])
+                self.strobe_values = (
+                    torch.as_tensor(sv, device=self.device)
+                    if self._device_frames() else sv)
+            self.steps_done = int(self.state.step)
+        else:
+            self.state = stencil.bootstrap_state(self.c, self.model)
+            self.t0 = 0.0
+            self.steps_done = 0
         self.t_start = float(cfg.t_start)
         self.t_max = self._compute_t_max()
 
@@ -95,7 +138,6 @@ class Simulation:
         self.model = SuperlatticeModel(self.cfg)
         self.engine = self._select_engine()
         self.c = stencil.consts_from_model(self.model, self.device)
-        self._runner = None
 
     def _select_engine(self):
         """'torch', 'cuda-b1' or 'stream'.  impl=stream on device=cpu runs
@@ -139,24 +181,66 @@ class Simulation:
 
     def _compute_t_max(self):
         D = self.model.np_dtype
-        return float(D(D(self.t_start) + self.model.T))
+        T = self.model.T
+        if self.cfg.display == 9:
+            # src/boltzmann_solver.c:80-82
+            return float(D(D(self.t_start) + D(101 * T)))
+        return float(D(D(self.t_start) + T))
+
+    def _get_recon(self):
+        if self.recon is None or self.recon.model is not self.model:
+            self.recon = frames.FrameReconstructor(self.model)
+        return self.recon
+
+    def _device_frames(self):
+        """Frames are reconstructed on the device on a card, in the state's
+        dtype (the JAX package: float32 on a TPU, whose products have no
+        float64), on the host in float64 on the CPU."""
+        return self.device.type == "cuda"
 
     # -- main ----------------------------------------------------------------
 
-    def run(self):
-        """One round (display 4: its line at the end; display 77: its
-        lines per chunk); returns the final State."""
+    def run(self, repl_stream=None):
+        """The whole run, the parameter-server rounds included; returns the
+        final State."""
         cfg = self.cfg
+        if cfg.read_from == "stdin" and repl_stream is None:
+            repl_stream = sys.stdin
         if not self.quiet:
             print(f"# t_max = {writers.f20(self.model.np_dtype(self.t_max))}")
         wall_t0 = time.perf_counter()
         steps0 = self.steps_done
 
-        self._run_round()
-        if cfg.display == 4:
-            av, a2, b2 = self._round_obs
-            writers.write_display4(self.out, self.model, cfg, a2, b2, av,
-                                   quiet=self.quiet, t_start=self.t_start)
+        while True:
+            self._run_round()
+
+            if cfg.display == 3:
+                a, b = self._host_ab()
+                writers.write_display3(self.out, self.model,
+                                       self._get_recon(), a, b)
+                break
+            if cfg.display == 8:
+                # single-shot frame.data (GPU driver semantics,
+                # src/boltzmann_solver.c:334-346)
+                recon, F, norm = self._frame_and_norm()
+                if not self.quiet:
+                    print("\nWriting frame frame.data")
+                with open("frame.data", "w") as fh:
+                    writers.write_frame(fh, self.model, recon, None, None,
+                                        self.t_exit, F=F, norm=norm)
+                break
+            if cfg.display == 4:
+                av, a2, b2 = self._round_obs
+                writers.write_display4(self.out, self.model, cfg, a2, b2,
+                                       av, quiet=self.quiet,
+                                       t_start=self.t_start)
+
+            if repl_stream is None:
+                break
+            mut = cfgmod.scan_for_new_parameters(repl_stream)
+            if mut is None:
+                break
+            self._apply_mutation(*mut)
 
         if not self.quiet:
             wall = time.perf_counter() - wall_t0
@@ -167,13 +251,25 @@ class Simulation:
                       f"{steps / wall:.1f} steps/s "
                       f"({sites / wall:.3e} site-updates/s) "
                       f"[impl={self.engine_tag()}]")
+        self._drain_io()
         if cfg.checkpoint:
+            extra = {}
+            if self.strobe_values is not None:
+                extra["strobe_values"] = self._fetch_np(self.strobe_values)
             save_state(cfg.checkpoint, self.state, model=self.model,
                        t0=self.t_exit, frame_time=self.frame_time,
-                       frame_number=1, last_rem=self.last_rem)
+                       frame_number=self.frame_number,
+                       last_rem=self.last_rem, **extra)
         if self.out not in (sys.stdout, sys.stderr):
             self.out.close()
         return self.state
+
+    @staticmethod
+    def _fetch_np(x):
+        """A device tensor (or host array) as a host numpy array."""
+        if isinstance(x, torch.Tensor):
+            return x.cpu().numpy()
+        return np.asarray(x)
 
     def _schedule_kwargs(self):
         cfg = self.cfg
@@ -199,8 +295,9 @@ class Simulation:
         Nothing here is jit-compiled: on a kernel engine this is the nvcc
         build of the kernel library (at first use in the process) and one
         run of the runner over the round's first chunk, on impl=torch one
-        run of each distinct chunk length.  Keeps the build and first-use
-        costs out of a timed run; it changes no result."""
+        run of each distinct chunk length; then, for the frame displays,
+        one reconstruction.  Keeps the build and first-use costs out of a
+        timed run; it changes no result."""
         seen = set()
         steps = self.steps_done
         for chunk in schedule.iter_chunks(**self._schedule_kwargs()):
@@ -212,6 +309,9 @@ class Simulation:
                 continue
             seen.add(key)
             self._run_chunk(self.state.clone(), chunk, parity)
+        if self.cfg.display in (3, 7, 8, 9):
+            F, _, _ = self._frame_parts()
+            self._fetch_np(F)
         self._fetch_round_obs()
 
     def _run_chunk(self, state, chunk, parity):
@@ -233,15 +333,25 @@ class Simulation:
 
     def _run_round(self):
         carry: dict = {}
+        clock = time.perf_counter
         for chunk in schedule.iter_chunks(
                 carry_out=carry, **self._schedule_kwargs()):
+            t0 = clock()
             self.state, records = self._run_chunk(
                 self.state, chunk, self.steps_done % 2)
             for rec in records:
                 writers.write_display77_from_record(
                     self.out, self.model, rec, quiet=self.quiet)
             self.steps_done += chunk.n_steps
+            self.chunks_done += 1
+            t1 = clock()
+            wait0 = self.timing["wait"]
+            self._handle_event(chunk)
             self._progress(chunk)
+            self.timing["chunks"] += t1 - t0
+            self.timing["frames"] += (clock() - t1
+                                      - (self.timing["wait"] - wait0))
+        self._flush_frame_batch()
         self.frame_time = carry.get("frame_time", self.frame_time)
         self.last_rem = carry.get("last_rem", self.last_rem)
         self.t_exit = carry.get("t_exit", self.t0)
@@ -262,13 +372,31 @@ class Simulation:
         return (packed[:8], packed[8:8 + 2 * MP].reshape(2, MP),
                 packed[8 + 2 * MP:].reshape(2, MP))
 
+    def _handle_event(self, chunk):
+        if chunk.event == "e7":
+            F, norm_sum, finish = self._frame_parts()
+            self._enqueue_frame("frame", F, norm_sum, finish, chunk.t_last)
+        elif chunk.event == "e9":
+            # strobe accumulation stays on the device on a card
+            # (on the host otherwise); each period's snapshot rides the
+            # same batched transfer as movie frames (reference: per-period
+            # D2H, src/boltzmann_solver.c:260-275)
+            F, norm_sum, finish = self._frame_parts()
+            if self.strobe_values is None:
+                self.strobe_values = F
+            else:
+                self.strobe_values = self.strobe_values + F
+            self._enqueue_frame("strobe", self.strobe_values, norm_sum,
+                                finish, chunk.t_last)
+
     def _progress(self, chunk):
         # reference: `\rt=... %` every 300 steps
         # (src/boltzmann_c_solver.c:206-213), backfilled after each chunk
         # from the schedule's per-step t values: one line per 300-step
         # boundary crossed, each printing the loop t of the step that
-        # completed the period (docs/DEVIATIONS.md D13).
-        if self.quiet or self.out is sys.stdout:
+        # completed the period (docs/DEVIATIONS.md D13).  Display 7 prints
+        # its frame lines instead.
+        if self.quiet or self.out is sys.stdout or self.cfg.display == 7:
             return
         prev = self._steps_since_progress
         total = prev + chunk.n_steps
@@ -288,9 +416,153 @@ class Simulation:
         sys.stdout.write("".join(lines))
         sys.stdout.flush()
 
+    # -- frames --------------------------------------------------------------
+
+    def _io_submit(self, fn):
+        """Queue fn on the IO thread, after waiting for the oldest batch
+        while IO_PENDING_MAX of them are queued."""
+        if self._io_pool is None:
+            self._io_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1)
+            self._io_futures = []
+        futures = self._io_futures
+        if len(futures) >= IO_PENDING_MAX:
+            t0 = time.perf_counter()
+            while len(futures) >= IO_PENDING_MAX:
+                futures.pop(0).result()
+            self.timing["wait"] += time.perf_counter() - t0
+        futures.append(self._io_pool.submit(fn))
+
+    def _drain_io(self):
+        if self._io_pool is not None:
+            self._io_pool.shutdown(wait=True)
+            self._io_pool = None
+            futures, self._io_futures = self._io_futures, []
+            for f in futures:
+                f.result()   # surface write errors instead of losing them
+
+    def _enqueue_frame(self, kind, F, norm_sum, finish, t):
+        """Queue one frame or strobe emission; they accumulate on the
+        device and cross to the host as ONE stacked transfer per
+        frame_batch entries (the reference paid a D2H pair per emission,
+        src/boltzmann_solver.c:260-287).  Up to frame_batch-1 queued
+        emissions are lost if the process dies mid-round; frame-batch=1
+        writes each emission as it comes."""
+        fname = f"{kind}{self.frame_number:08d}.data"
+        self.frame_number += 1
+        if not self.quiet:
+            print(f"\nWriting {kind} {fname}")
+        self._frame_batch.append((fname, F, norm_sum, finish, t, kind))
+        if len(self._frame_batch) >= max(1, self.cfg.frame_batch):
+            self._flush_frame_batch()
+
+    def _flush_frame_batch(self):
+        """Stack the pending frames (on the device on a card) and
+        submit one fetch + format + write job; the single IO worker keeps
+        the files in order.  Each F is a fresh tensor, never a view of the
+        state, so the kernels' in-place updates of the next chunks cannot
+        reach it."""
+        batch, self._frame_batch = self._frame_batch, []
+        if not batch:
+            return
+        model = self.model
+        recon = self._get_recon()
+        on_device = batch[0][2] is not None
+        Fs = (torch.stack([rec[1] for rec in batch]) if on_device
+              else np.stack([np.asarray(rec[1]) for rec in batch]))
+        ns = torch.stack([rec[2] for rec in batch]) if on_device else None
+        timing = self.timing
+
+        def write(batch=batch, Fs=Fs, ns=ns):
+            t0 = time.perf_counter()
+            Fh = self._fetch_np(Fs)           # ONE transfer for k frames
+            nh = (self._fetch_np(ns) if ns is not None
+                  else [None] * len(batch))
+            t1 = time.perf_counter()
+            for i, (fname, _, _, finish, t, kind) in enumerate(batch):
+                with open(fname, "w") as fh:
+                    if kind == "strobe":
+                        writers.write_strobe(fh, model, recon, Fh[i],
+                                             None, t, norm=finish(nh[i]))
+                    else:
+                        writers.write_frame(fh, model, recon, None, None,
+                                            t, F=Fh[i], norm=finish(nh[i]))
+            timing["fetch"] += t1 - t0
+            timing["format"] += time.perf_counter() - t1
+        self._io_submit(write)
+
+    def _frame_parts(self):
+        """(F, norm_sum, finish): the current frame (m = 1..M+1), on the
+        device on a card (F and norm_sum stay device tensors;
+        finish(norm_sum_host) applies the final scaling), else on the host
+        in float64 (norm_sum None, finish returns the norm)."""
+        model = self.model
+        recon = self._get_recon()
+        if self._device_frames():
+            F, norm_sum = recon.reconstruct_on_device(
+                self.state.a, self.state.b, 1, model.M + 2)
+            D = model.np_dtype
+            scale = 2 * PI * np.sqrt(np.float64(model.alpha))
+
+            def finish(s):
+                return D(np.float64(D(s)) * scale)
+            return F, norm_sum, finish
+        a, b = self._host_ab()
+        F = recon.reconstruct(a, b, 1, model.M + 2)
+        norm = observables.eval_norm(model, a)
+        return F, None, (lambda s, _n=norm: _n)
+
+    def _host_ab(self):
+        return self._fetch_np(self.state.a), self._fetch_np(self.state.b)
+
+    def _frame_and_norm(self):
+        """(recon, F, norm) of the current frame, fetched to the host."""
+        F, ns, finish = self._frame_parts()
+        norm = finish(self._fetch_np(ns) if ns is not None else None)
+        return self._get_recon(), self._fetch_np(F), norm
+
     def _check_finite(self, av, a_rows):
         a0row = a_rows[0, :8]
         if not (np.all(np.isfinite(av)) and np.all(np.isfinite(a0row))):
             raise NumericalInstability(
                 "non-finite values in solver state — decrease dt "
                 "(reference guidance, src/boltzmann_c_solver.c:56-57)")
+
+    # -- parameter server ----------------------------------------------------
+
+    def _apply_mutation(self, name, value, timeout):
+        """One live parameter change: t_start moves to t+timeout, t_max =
+        t_start + OLD T, then T re-derives; averaging restarts; the
+        distribution state is preserved (reference :270-281).
+
+        Mutation semantics follow the GPU driver (docs/DEVIATIONS.md D11):
+        drive scalars (E_dc, E_omega, omega, B) and the output multipliers
+        go live, but the equilibrium a0 and the magnetic stencil constant
+        bdt stay frozen at their startup values (src/boltzmann_solver.c
+        never recomputes them, :112-126).  A kernel engine keeps its
+        runner, its form and its buffers: only its scalars change
+        (Runner.update_consts), and each launch reads them."""
+        model = self.model
+        D = model.np_dtype
+        t = D(self.t_exit)             # C's loop-exit t
+        old_T = model.T
+        if name is not None:
+            frozen = (model.a0, model.a0_ghost, model.bdt)
+            self.cfg = self.cfg.replace(**{name: value})
+            self.model = SuperlatticeModel(self.cfg)
+            self.model.a0, self.model.a0_ghost, self.model.bdt = frozen
+            model = self.model
+        self.t_start = float(D(t + D(timeout)))
+        self.t_max = float(D(D(self.t_start) + old_T))
+        self.t0 = float(D(t + model.dt))
+        # the averaging window moved: the live t_start in the stencil
+        # consts (fast-trig mode gates on it) and in the runner's scalars
+        self.c = stencil.consts_from_model(model, self.device,
+                                           t_start=self.t_start)
+        if self._runner is not None:
+            self._runner.update_consts(self.c)
+        self.state = self.state.replace(
+            av=torch.zeros(8, dtype=self.state.a.dtype, device=self.device),
+            t=torch.tensor(D(self.t0), device=self.device))
+        if not self.quiet:
+            print(f"# t_max = {writers.f20(D(self.t_max))}")

@@ -74,14 +74,42 @@ def test_sweep_lanes_returns_the_runner_result():
 
 def test_engines_that_need_a_card_refuse_the_cpu():
     """No mode gives way to another engine: impl=auto and impl=cuda need
-    a card, and movie is not ported."""
+    a card, and so does movie, which runs impl=auto."""
     for argv in (["auto"], ["driver", "cuda"]):
         with pytest.raises(ValueError, match="needs a CUDA device"):
             bench.run_mode(argv, "cpu", **DRIVER)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
         bench.run_mode(["movie"], "cpu")
     with pytest.raises(ValueError, match="unknown bench mode"):
         bench.run_mode(["pallas"], "cpu")
+
+
+# display 7 at a tiny shape: frames every 10 steps from t=0.55 to the end
+# (~8 frames); both frame batches
+MOVIE = dict(N=8, M=24, t_start=0.01, omega=10.0, frame_start=0.55)
+
+
+@pytest.mark.parametrize("impl", ["torch", "stream"])
+@pytest.mark.parametrize("fb", ["8", "1"])
+def test_movie_runs_small_on_the_cpu(impl, fb):
+    """movie [frame_batch] on the CPU through impl=torch and impl=stream
+    (the runner's plain version): frames per second, the frames, the
+    engine, the formatter, the chunks and the wall split by part."""
+    rec = bench.run_mode(["movie", fb], "cpu", impl=impl, **MOVIE)
+    assert rec["unit"] == "frames/sec" and rec["value"] > 0
+    assert 5 <= rec["frames"] <= 10 and rec["steps"] > 600
+    assert rec["chunks"] >= rec["frames"]
+    assert rec["engine"] == ("torch" if impl == "torch" else
+                             "stream tiling")
+    assert rec["formatter"] in ("python", "native (native/libslbio.so)")
+    assert f"frame-batch={fb}" in rec["metric"]
+    assert rec["formatter"] in rec["metric"] and rec["engine"] in \
+        rec["metric"]
+    assert set(rec["ms_per_frame"]) == {"chunks", "frames", "wait",
+                                        "fetch", "format"}
+    assert rec["ms_per_frame"]["format"] > 0
+    assert rec["run_launches"] == 0           # no kernel on the CPU
+    json.dumps(rec)
 
 
 def _one_json_line(out):
@@ -106,7 +134,8 @@ def test_main_on_an_exception_prints_the_traceback_first(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(bench, "device_line",
                         lambda: "NVIDIA H100 80GB HBM3, 700.00 W")
-    for argv, what in ((["movie"], "ROADMAP"), (["bogus"], "unknown")):
+    for argv, what in ((["movie"], "invalid device ordinal"),
+                       (["bogus"], "unknown")):
         assert bench.main(argv) == 1
         cap = capsys.readouterr()
         line = _one_json_line(cap.out)

@@ -698,3 +698,77 @@ def test_refused_transposed_resident_launch_raises(card):
     for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
         assert torch.equal(getattr(st, f), getattr(before, f)), f
     assert counts == (te.launch_count, te.resident_launch_count)
+
+
+# the single-run driver's kernel engines in every form: (impl, the form
+# chip_smoke.forced_form gives it; None is the plans' own choice)
+DRIVER_FORMS = [("cuda", None), ("cuda", "per-half-step"),
+                ("stream", None), ("stream", "spill")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,form", DRIVER_FORMS)
+def test_display_and_repl_goldens(card, tmp_path, impl, form):
+    """Displays 3 and 7 (d3_tiny_*, d7_frame*) and the three recorded
+    parameter-server sessions on each form, at tests/test_golden.py's
+    tolerances with the headers byte for byte, as chip_smoke.py phase 24
+    checks them; the form is checked to be the one that ran."""
+    import chip_smoke
+    errs = chip_smoke.displays_golden(impl, form, str(tmp_path))
+    assert len(errs) == 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_device_frame_matches_host_frame(card, dtype):
+    """The device frame (in the state's dtype) against the host f64 frame
+    of the same state at BASELINE #3's grid: f32 at the D7 envelope (rtol
+    2e-4, atol 3e-6), f64 at rtol 1e-12 atol 1e-14."""
+    import chip_smoke
+    err, shape = chip_smoke.device_frame_vs_host(dtype, n_steps=300)
+    assert shape == (629, 1001) and err < (3e-6 if dtype == "f32"
+                                           else 1e-13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [(("cuda", None), ("cuda", "per-half-step")),
+                                  (("stream", None), ("stream", "spill"))])
+@pytest.mark.parametrize("display", [4, 9])
+def test_mutations_and_resume_reach_every_form(card, tmp_path, pair,
+                                               display):
+    """A parameter-server session (display 4) or a display-9 run resumed
+    from a checkpoint at an odd step on two forms: the states bit for bit
+    (av at chip_smoke.TOL), the strobe files byte for byte."""
+    import chip_smoke
+    kw = dict(n_harmonics=8, g_grid=64, dtype="f32",
+              **{**chip_smoke.PHYS, "omega": 50.0})
+    out = []
+    for impl, form in pair:
+        d = str(tmp_path / f"{impl}-{form}")
+        with chip_smoke.forced_form(form), chip_smoke.in_dir(d):
+            if display == 4:
+                sim = chip_smoke.run_sim(
+                    dict(display=4, t_start=0.1, read_from="stdin", **kw),
+                    impl, repl="E_dc 1.5 0.05\nomega 60 0.03\nexit\n")
+            else:
+                cfg = dict(display=9, t_start=0.05, **kw)
+                from slb2d_tpu_torch.config import SimConfig
+                from slb2d_tpu_torch.runtime.loop import Simulation
+                first = Simulation(SimConfig(impl=impl, quiet=True,
+                                             out_file="o.txt",
+                                             checkpoint="ck.npz", **cfg),
+                                   device=card)
+                first.t_max = 0.4005
+                first.run()
+                assert first.steps_done % 2 == 1
+                sim = chip_smoke.run_sim(dict(cfg, resume="ck.npz"), impl)
+        assert (sim.engine_tag().split()[1] ==
+                (form or ("resident" if impl == "cuda" else "tiling")))
+        files = {f.name: f.read_bytes()
+                 for f in (tmp_path / f"{impl}-{form}").iterdir()
+                 if f.name.startswith("strobe")}
+        out.append((sim, files))
+    chip_smoke._state_equal(out[0][0].state, out[1][0].state,
+                            f"{pair} display {display}")
+    assert out[0][1] == out[1][1]
+    assert len(out[0][1]) == (101 if display == 9 else 0)

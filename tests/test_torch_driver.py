@@ -183,13 +183,7 @@ def test_impl_cuda_without_cuda_raises(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(display=7), "display=7"),
-    (dict(display=3), "display=3"),
-    (dict(read_from="stdin"), "read-from=stdin"),
-    (dict(resume="x.npz"), "resume="),
-    (dict(display=8), "display=8"),
     (dict(shards=2), "shards>1"),
-    (dict(display=9), "display=9"),
 ])
 def test_unported_features_raise(kw, what):
     cfg = SimConfig(**{**COMMON, **TINY, **kw}, impl="torch")

@@ -165,6 +165,9 @@ REQ = ["display=4", "E_dc=1.0", "E_omega=2.0", "omega=1.0", "mu=1",
     REQ + ["g-grid=2"],
     REQ + ["read-from=file"],
     REQ + ["shards=0"],
+    REQ + ["display=7", "frame-batch=1"],
+    REQ + ["display=9", "frame-batch=32", "frame-start=0.25"],
+    REQ + ["frame-batch=x"],               # invalid value
 ])
 def test_parse_cmd_parity(argv):
     jc, jerr = _parse(jcfg, argv)

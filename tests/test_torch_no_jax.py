@@ -28,6 +28,8 @@ def test_port_imports_no_jax():
               "slb2d_tpu_torch.sweep_cli",
               "slb2d_tpu_torch.ops.frames",
               "slb2d_tpu_torch.absorption_map",
+              "slb2d_tpu_torch.relaxation_repl",
+              "slb2d_tpu_torch.io.native",
               "slb2d_tpu_torch.ops.sweep_lanes_cuda",
               "slb2d_tpu_torch.bench",
               "slb2d_tpu_torch.perf.vpu_roofline",
