@@ -198,7 +198,25 @@ Phases, one output line each (plus a few measurement lines):
               against the forced per-half-step form (one runner each, one
               launch a chunk on the resident form; state bit for bit);
               one mutation at N=100 M=20000 on B2 spill against B2
-              tiling (state bit for bit).
+              tiling (state bit for bit);
+ 26. shards: B2's sharded form (csrc/stepper_stream.cu's tiles over each
+              shard's extended slice, one replay a round) on 2 and 4
+              slots of cuda:0 against its plain version, K+3 steps then
+              5 from parity 1 with display-77 records, at N=100 M=12000
+              f32 and N=18 M=300 f64 (state and edges bit for bit, av and
+              records at TOL), and against the unsharded tiling form over
+              203 steps at N=100 M=20000 f32 (bit for bit); the main
+              path, Simulation with shards=2 on two slots of cuda:0 at
+              N=100 M=20000 (BASELINE #4's physics) display 4 and 77, each
+              with every count set to 0 just before and read just after
+              (S tile launches and one replay a round, nothing else),
+              against the unsharded impl=cuda run; the same display-4 run
+              by two processes (one slot each) over Gloo, spawned here,
+              the table byte for byte; the 64-point E_dc sweep on 2 slots
+              (B3 a slot) against 1, bit for bit, in turns; the sharded
+              form per step at S = 1, 2, 4 in turns with the tiling and
+              spill forms, and its exchange and replay per round (~42 s,
+              ~20 of them the two processes).
 The last lines are the operation counts and bounds of the main paths, a
 JSON record of the kernels (ms, plain_ms and bound_ms per step, per turn
 for P1, per pass for P2; B1's with its form, band, blocks, threads,
@@ -211,7 +229,7 @@ and ms_streaming, the streaming form's time in the same run; B4's with
 the same and its spills, its times in one chunk of 64 and the runner's
 walls; B2's tiling form's at the wide grid and its spill form's
 at N=100 M=20000 with phase 15's measurements and phase 25's
-parameter-server session;
+parameter-server session; B2's sharded form's with phase 26's;
 bound_ms is the larger of the main path's
 operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
 read once and each output written once, at 3.35 TB/s, over its steps;
@@ -264,6 +282,8 @@ SWEEP_SOURCE = "slb2d_tpu_torch/csrc/sweep_stack.cu"
 SWEEP_REPLACES = "slb2d_tpu/ops/sweep_stack.py:101"
 STREAM_SOURCE = "slb2d_tpu_torch/csrc/stepper_stream.cu"
 STREAM_REPLACES = "slb2d_tpu/ops/stepper_stream.py:85"
+# the sharded form's runner: _stream_kernel under shard_map
+SHARD_REPLACES = "slb2d_tpu/ops/stepper_stream.py:448"
 LANES_SOURCE = "slb2d_tpu_torch/csrc/sweep_lanes.cu"
 LANES_REPLACES = "slb2d_tpu/ops/sweep_pallas.py:50"
 # the tests/perf probes P1-P3 (slb2d_tpu_torch/perf/)
@@ -2503,6 +2523,7 @@ def zero_counts():
     them)."""
     from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda,
                                      sweep_lanes_cuda, sweep_stack_cuda)
+    from slb2d_tpu_torch.parallel import stream_shard
     from slb2d_tpu_torch.perf import (roll_cost_experiment,
                                       transposed_experiment, vpu_roofline)
     for mod in (stepper_cuda, stepper_stream_cuda, sweep_lanes_cuda,
@@ -2512,6 +2533,8 @@ def zero_counts():
     stepper_cuda.per_half_step_launch_count = 0
     stepper_stream_cuda.spill_launch_count = 0
     stepper_stream_cuda.tiling_launch_count = 0
+    stream_shard.tile_launch_count = 0
+    stream_shard.replay_launch_count = 0
     sweep_stack_cuda.omega_launch_count = 0
     sweep_lanes_cuda.cluster_launch_count = 0
     sweep_lanes_cuda.streaming_launch_count = 0
@@ -3372,6 +3395,397 @@ def displays_main_phase(card, tmp):
     return res
 
 
+# ---- 26. shards ------------------------------------------------------------
+
+# the sharded form of B2 against its plain version: the main path's
+# shape (N=100 M=20000 f32), the wide grid in f32 and a small f64 grid,
+# on 2 and 4 slots of the one card
+SHARD_CHECKS = (("N=100 M=20000", B2_OWN, "f32"),
+                ("N=100 M=12000", WIDE, "f32"),
+                ("N=18 M=300", dict(n_harmonics=18, g_grid=300), "f64"))
+SHARD_SLOTS = (2, 4)
+# the two-process run's worker: one slot of cuda:0 a process over Gloo
+SHARD_WORKER = r"""
+import json, os, sys, time
+rank, port, out, root, argv = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                               sys.argv[4], json.loads(sys.argv[5]))
+sys.path.insert(0, root)
+import torch
+from slb2d_tpu_torch.config import parse_cmd
+from slb2d_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from slb2d_tpu_torch.runtime.loop import Simulation
+assert init_distributed("127.0.0.1:" + port, 2, rank, backend="gloo")
+mesh = make_mesh((2,), ("space",), devices=["cuda:0"])
+sim = Simulation(parse_cmd(argv + ["o=" + out]), mesh=mesh)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+sim.run()
+torch.cuda.synchronize()
+print(json.dumps({"rank": rank, "wall_s": time.perf_counter() - t0,
+                  "engine": sim.engine_tag()}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def _shard_setup(shape, dtype, S, **kw):
+    """(model, consts, xs, layout, sharded runner) at one shape on S slots
+    of the card."""
+    import torch
+    from slb2d_tpu_torch.parallel.mesh import make_mesh
+    from slb2d_tpu_torch.parallel.spatial import SpaceLayout
+    from slb2d_tpu_torch.parallel.stream_shard import ShardedStreamRunner
+    model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
+    lay = SpaceLayout(make_mesh((S,), ("space",), devices=[DEVICE] * S),
+                      model.MP)
+    return model, c, xs, lay, ShardedStreamRunner(c, model, lay, **kw)
+
+
+def check_shard_vs_plain(shape, dtype, S):
+    """The sharded form on S slots of the card and its plain version from
+    one state over the same rows (from step 45, across the averaging
+    window's start), K+3 steps then 5 from parity 1, with display-77
+    records in both: state and edges bit for bit, av and records at TOL;
+    S + 1 launches a round.  Returns (largest abs difference, runner, ms
+    per step of the plain version over the first K+3 steps, host clock to
+    a synchronise)."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    from slb2d_tpu_torch.parallel.stream_shard import (
+        run_chunk_plain_stream_sharded)
+    model, c, xs, lay, runner = _shard_setup(shape, dtype, S)
+    K = runner.geom.K
+    rows = {k: v[45:45 + K + 8] for k, v in xs.items()}
+    parts = [({k: v[:K + 3] for k, v in rows.items()}, (0, 4, K + 2)),
+             ({k: v[K + 3:] for k, v in rows.items()}, (0, 2, 4))]
+    state0 = stencil.bootstrap_state(c, model)
+    kern, plain = lay.scatter_state(state0), lay.scatter_state(state0)
+    torch.cuda.synchronize()
+    what = f"stream sharded S={S} {dtype} {shape} {tuple(runner.geom)}"
+    err, steps, plain_ms = 0.0, 0, None
+    for xs_part, emit in parts:
+        n = len(xs_part["t"])
+        launches0 = runner.launches
+        kern = runner.run_xs(kern, xs_part, steps % 2, emit_idx=emit)
+        table = stepper_cuda.pack_xs_dict(xs_part, model.np_dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, plain_obs = run_chunk_plain_stream_sharded(
+            c, plain, table, steps % 2, emit, runner.geom, lay)
+        torch.cuda.synchronize()
+        if plain_ms is None:
+            plain_ms = (time.perf_counter() - t0) * 1e3 / n
+        steps += n
+        want = (S + 1) * -(-n // K)
+        check(runner.launches - launches0 == want,
+              f"{what}: {runner.launches - launches0} launches for {n} "
+              f"steps (expected {want})")
+        k_st, p_st = lay.gather_state(kern), lay.gather_state(plain)
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            k, p = getattr(k_st, f), getattr(p_st, f)
+            check(torch.equal(k, p), f"{what} {f} not bit for bit, max abs "
+                  f"err {float((k - p).abs().max()):.3e}")
+        check(bool(k_st.av[0] > 0), f"{what}: av never fired")
+        err = max(err, allclose(k_st.av, p_st.av, what=f"{what} av",
+                                **TOL[dtype]))
+        obs = torch.from_numpy(runner.take_obs(len(emit)))
+        ref = plain_obs[:, :13].cpu()
+        check(torch.equal(obs[:, 4], ref[:, 4]), f"{what}: record loop t")
+        err = max(err, allclose(obs, ref, what=f"{what} d77 records",
+                                **TOL[dtype]))
+    return err, runner, plain_ms
+
+
+def check_shard_vs_tiling(S, n_steps=203):
+    """The sharded form on S slots against the unsharded tiling form over
+    n_steps at N=100 M=20000 f32: state and edges bit for bit (a tile's
+    centre depends only on the cells within 2K <= H columns), av and the
+    records at TOL."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_stream_cuda as ssc
+    model, c, xs, lay, runner = _shard_setup(B2_OWN, "f32", S)
+    tiling = ssc.make_stream_runner(c, model, form="tiling")
+    part = {k: v[:n_steps] for k, v in xs.items()}
+    emit = (0, 57, 130, n_steps - 1)
+    state0 = stencil.bootstrap_state(c, model)
+    sh = lay.gather_state(runner.run_xs(lay.scatter_state(state0), part, 0,
+                                        emit_idx=emit))
+    one = tiling.run_xs(state0.clone(), part, 0, emit_idx=emit)
+    torch.cuda.synchronize()
+    what = f"stream sharded S={S} vs tiling N=100 M=20000 f32"
+    for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+        check(torch.equal(getattr(sh, f), getattr(one, f)),
+              f"{what}: {f} not bit for bit")
+    err = allclose(sh.av, one.av, what=f"{what} av", **TOL["f32"])
+    allclose(torch.from_numpy(runner.take_obs(len(emit))),
+             torch.from_numpy(tiling.take_obs(len(emit))),
+             what=f"{what} d77 records", **TOL["f32"])
+    return err
+
+
+def shard_ms(S, n=2000, reps=3):
+    """ms per step of the sharded form on S slots at N=100 M=20000 f32:
+    n steps in one chunk, CUDA events, after a warm-up."""
+    from slb2d_tpu_torch.ops import stencil
+    model, c, xs, lay, runner = _shard_setup(B2_OWN, "f32", S)
+    win = {k: v[:n] for k, v in xs.items()}
+    st = lay.scatter_state(stencil.bootstrap_state(c, model))
+    return time_per_step(lambda: runner.run_xs(st, win, 0), n, reps=reps)
+
+
+def shard_round_costs(S, rounds=500):
+    """(us of one halo exchange, us of one replay) per launch round on S
+    slots at N=100 M=20000 f32: the runner's exchange (the halo columns
+    and the M+1 edges, fill_halos and send) `rounds` times on its
+    buffers, host clock to a synchronise; its replay launch `rounds`
+    times, CUDA events."""
+    import torch
+    from slb2d_tpu_torch.ops import _build, stencil, stepper_cuda
+    from slb2d_tpu_torch.parallel.spatial import Slots
+    model, c, xs, lay, runner = _shard_setup(B2_OWN, "f32", S)
+    win = {k: v[:8] for k, v in xs.items()}
+    runner.run_xs(lay.scatter_state(stencil.bootstrap_state(c, model)),
+                  win, 0)
+    slots, carry = runner._buffers()
+    ext = Slots(sl["ext"][0] for sl in slots)
+    edges = Slots(sl["edges"][0] for sl in slots)
+    H = runner.geom.H
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        lay.fill_halos(ext, H)
+        lay.send(edges, runner.owner, runner.readers)
+    torch.cuda.synchronize()
+    xch_us = (time.perf_counter() - t0) * 1e6 / rounds
+    fn = _build.load().cdll.slb_stream_replay_f32
+    table = torch.from_numpy(stepper_cuda.pack_xs_dict(
+        win, model.np_dtype)).to(DEVICE)
+    av = torch.zeros(8, device=DEVICE)
+    obs = torch.zeros((1, 16), device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def replays():
+        for _ in range(rounds):
+            fn(slots[0]["partials"].data_ptr(), table.data_ptr(),
+               runner.params.ctypes.data, av.data_ptr(), carry.data_ptr(),
+               obs.data_ptr(), lay.S * runner.geom.n_tiles, runner.geom.K,
+               stream)
+    return xch_us, time_per_step(replays, rounds) * 1e3
+
+
+def shard_rounds(model, display, K, t_start=10.0):
+    """Launch rounds of a Simulation run of model at `display`: ceil(n / K)
+    per chunk of the schedule."""
+    from slb2d_tpu_torch.runtime import schedule
+    from slb2d_tpu_torch.runtime.loop import CUDA_CHUNK_DEFAULT
+    D = model.np_dtype
+    return sum(-(-ch.n_steps // K) for ch in schedule.iter_chunks(
+        omega=model.omega, dt=model.dt, t0=0.0,
+        t_max=float(D(D(t_start) + model.T)), t_start=t_start,
+        E_omega=model.E_omega, display=display, frame_start=0.0, T=model.T,
+        dtype=D, chunk_max=CUDA_CHUNK_DEFAULT, break_on_e77=False))
+
+
+def run_sharded_sim(argv, S, path):
+    """Simulation(parse_cmd(argv)) on a mesh of S slots of the card, its
+    output to path, every count set to 0 just before the run and read
+    just after: (wall s, text, sharded tile and replay launches, every
+    other kernel's launches, engine tag)."""
+    import torch
+    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch.config import parse_cmd
+    from slb2d_tpu_torch.parallel import stream_shard
+    from slb2d_tpu_torch.parallel.mesh import make_mesh
+    from slb2d_tpu_torch.runtime.loop import Simulation
+    sim = Simulation(parse_cmd(argv + [f"o={path}"]),
+                     mesh=make_mesh((S,), ("space",), devices=[DEVICE] * S))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shard = (stream_shard.tile_launch_count,
+             stream_shard.replay_launch_count)
+    others = {k: v for k, v in bench.launch_counts().items()
+              if k != "B2" and v}
+    with open(path) as fh:
+        text = fh.read()
+    return wall, text, shard, others, sim.engine_tag()
+
+
+def shards_phase(card, tmp):
+    """Phase 26: the sharded form of B2 against its plain version and
+    against the unsharded tiling form; the sharded driver's main path
+    (Simulation, shards=2 on two slots of the card, N=100 M=20000, BASELINE
+    #4's physics, displays 4 and 77) against the unsharded run with its
+    launches; two processes on the one card over Gloo against one; the
+    64-point sweep on 2 slots against 1; the sharded form per step at S =
+    1, 2, 4 in turns with the tiling and spill forms, the exchange and the
+    replay per round.  Returns a dict for the kernels line."""
+    import json as _json
+    import subprocess
+
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch.config import SimConfig, parse_cmd
+    from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as ssc
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as sscu
+    from slb2d_tpu_torch.parallel import ParameterSweep, make_mesh
+    t_phase = time.perf_counter()
+
+    # (a) against the plain version and against the unsharded tiling form
+    err, plain = {}, {}
+    for name, shape, dtype in SHARD_CHECKS:
+        for S in SHARD_SLOTS:
+            err[name, dtype, S], _, plain[name, dtype, S] = (
+                check_shard_vs_plain(shape, dtype, S))
+    vs_tiling = {S: check_shard_vs_tiling(S) for S in SHARD_SLOTS}
+    print("shards: B2's sharded form vs plain on 2 and 4 slots of "
+          f"{DEVICE}, K+3 then 5 steps with d77 records, state and edges "
+          "bit for bit: " + ", ".join(
+              f"{n} {d} S={S} av/records max abs err {e:.3e}"
+              for (n, d, S), e in err.items()) +
+          "; vs the unsharded tiling form over 203 steps at N=100 M=20000 "
+          "f32, state and edges bit for bit: " + ", ".join(
+              f"S={S} av max abs err {e:.3e}" for S, e in vs_tiling.items())
+          + f" ok [{card}]", flush=True)
+
+    # (b) the main path: the driver with shards=2, display 4 and 77
+    argv = cli_argv(B2_OWN) + ["shards=2"]
+    model = SuperlatticeModel(parse_cmd(argv))
+    K = ssc.DEFAULT_K
+    main = {}
+    for display in (4, 77):
+        dargv = [a for a in argv if not a.startswith("display=")] + [
+            f"display={display}"]
+        wall, text, shard, others, tag = run_sharded_sim(
+            dargv, 2, os.path.join(tmp, f"shard{display}.txt"))
+        rounds = shard_rounds(model, display, K)
+        check(tag == "stream sharded shards=2",
+              f"shards=2 display {display}: ran on {tag}")
+        check(shard == (2 * rounds, rounds) and not others,
+              f"shards=2 display {display}: (tile, replay) launches "
+              f"{shard}, expected {(2 * rounds, rounds)}; others {others}")
+        one_wall, one_text, _, _ = run_cli(
+            [a for a in dargv if a != "shards=2"])
+        got, ref = _rows(text), _rows(one_text)
+        check(got.shape == ref.shape and len(got) >= 1
+              and bool(np.all(np.isfinite(got))),
+              f"shards=2 display {display}: {got.shape} rows against "
+              f"{ref.shape}")
+        # display 77's columns are sums over the whole grid taken in
+        # another order on every record: the D77_GOLDENS f32 tolerance;
+        # the record's t exact
+        tol = TOL["f32"] if display == 4 else dict(rtol=D77_GOLDENS[0][2],
+                                                   atol=D77_GOLDENS[0][3])
+        if display == 77:
+            check(np.array_equal(got[:, 13], ref[:, 13]),
+                  "shards=2 display 77: the records' t differ")
+        e = allclose(torch.as_tensor(got), torch.as_tensor(ref),
+                     what=f"shards=2 display {display} vs unsharded", **tol)
+        main[display] = dict(wall_s=wall, unsharded_wall_s=one_wall,
+                             rounds=rounds, tile_launches=shard[0],
+                             replay_launches=shard[1], max_abs_err=e,
+                             rows=len(got))
+        print(f"shards main: Simulation shards=2 on 2 slots of {DEVICE}, "
+              f"N=100 M=20000 f32 display {display} [{tag}]: "
+              f"{run_steps(model)} steps, {rounds} rounds, launches tiles "
+              f"{shard[0]} replays {shard[1]}, {len(got)} line(s) vs the "
+              f"unsharded run (impl=cuda) max abs err {e:.3e}, wall "
+              f"{wall:.3f} s (unsharded {one_wall:.3f} s) [{card}]",
+              flush=True)
+    d4_text = open(os.path.join(tmp, "shard4.txt")).read()
+
+    # (c) two processes on the one card over Gloo: (b)'s display-4 run
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = str(sk.getsockname()[1])
+    worker = os.path.join(tmp, "shard_worker.py")
+    with open(worker, "w") as fh:
+        fh.write(SHARD_WORKER)
+    out2 = os.path.join(tmp, "two.txt")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(r), port, out2, ROOT,
+         _json.dumps(argv)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, o in zip(procs, outs):
+        check(p.returncode == 0, f"two-process run: exit {p.returncode}: "
+              f"{o[-2000:]}")
+    two = [_json.loads(l) for o in outs for l in o.splitlines()
+           if l.startswith("{")]
+    two_text = open(out2).read()
+    check(two_text == d4_text, "two processes over Gloo: the display-4 "
+          "table differs from the one-process run on the same slots")
+    two_wall = max(r["wall_s"] for r in two)
+    print(f"shards two processes: 2 processes x 1 slot of {DEVICE} over "
+          f"Gloo, shards=2 display 4 N=100 M=20000: the table byte for "
+          f"byte as one process on 2 slots; wall {two_wall:.3f} s against "
+          f"{main[4]['wall_s']:.3f} s in one process [{card}]", flush=True)
+
+    # (d) the 64-point sweep on 2 slots of the card against one
+    kw, params = sweep_grid("full")
+    cfg = SimConfig(display=4, dtype="f32", impl="cuda", quiet=True, **kw)
+    sweeps = {1: lambda: ParameterSweep(cfg, params, device=DEVICE),
+              2: lambda: ParameterSweep(cfg, params, mesh=make_mesh(
+                  (2,), ("sweep",), devices=[DEVICE] * 2))}
+    res, walls, launches = {}, {1: [], 2: []}, {}
+    for S in (1, 2, 2, 1, 1, 2):
+        sw = sweeps[S]()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res[S] = sw.run()
+        walls[S].append(time.perf_counter() - t0)
+        launches[S] = (sscu.launch_count, sscu.cluster_launch_count)
+    for k in res[1]:
+        check(np.array_equal(res[1][k], res[2][k]),
+              f"64-point sweep on 2 slots: {k} not bit for bit")
+    check(launches[2] == (2, 2) and launches[1] == (1, 1),
+          f"64-point sweep launches (all, cluster form): 1 slot "
+          f"{launches[1]}, 2 slots {launches[2]}")
+    print(f"shards sweep: the 64-point E_dc sweep (N=40 M=500 f32, B3) on 2 "
+          f"slots of {DEVICE} vs 1, bit for bit; launches {launches[2]} vs "
+          f"{launches[1]}; wall s in turns 1 slot "
+          f"{'/'.join(f'{w:.4f}' for w in walls[1])}, 2 slots "
+          f"{'/'.join(f'{w:.4f}' for w in walls[2])} [{card}]", flush=True)
+
+    # the sharded form per step in turns with the unsharded forms, and
+    # the exchange and the replay per round
+    fns = {"tiling": lambda: engine_ms(B2_OWN, "stream", form="tiling"),
+           "spill": lambda: engine_ms(B2_OWN, "stream", form="spill"),
+           **{f"sharded S={S}": (lambda S=S: shard_ms(S))
+              for S in (1, 2, 4)}}
+    t = {k: [] for k in fns}
+    for k in mirrored(fns):
+        t[k].append(fns[k]())
+    costs = {S: shard_round_costs(S) for S in (2, 4)}
+    plain_ms = plain["N=100 M=20000", "f32", 2]
+    print(f"shards time: N=100 M=20000 f32 per step (CUDA events, 2000 "
+          f"steps, in turns) {fmt_turns(t)} us; per round of K={K} steps "
+          f"(launches per round: S tiles + 1 replay, plus the halo copies) "
+          f"exchange " + ", ".join(f"S={S} {x:.2f} us" for S, (x, _) in
+                                   costs.items()) +
+          ", replay " + ", ".join(f"S={S} {r:.2f} us" for S, (_, r) in
+                                  costs.items()) +
+          f"; plain version {plain_ms:.4f} ms/step; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return dict(err=max(err.values()), vs_tiling=vs_tiling, main=main,
+                ms_turns=t, round_costs_us=costs, plain_ms=plain_ms,
+                two_process_wall_s=two_wall, sweep_walls_s=walls,
+                model=model)
+
+
 def main():
     try:
         import torch
@@ -3715,6 +4129,11 @@ def main():
           f"(24 {golden_s:.1f} s, 25 {displays['phase_s']:.1f} s) [{card}]",
           flush=True)
 
+    # 26. shards: B2's sharded form, the sharded driver, two processes,
+    # the sweep mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        shards = shards_phase(card, tmp)
+
     # the bounds of each main path's run (B1: the tall grid, where impl=cuda
     # takes it; B2: the wide grid's impl=stream run, the same work as B1
     # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
@@ -3745,6 +4164,14 @@ def main():
         "B2 spill": (b2_model, b2_own["steps"], main_path_flops(
             b2_model, b2_own["steps"], av_steps=window_steps(
                 b2_model, 10.0, b2_own["steps"])), 1),
+        # the sharded form's main path: the same grid's display-4 run (its
+        # halo cells and exchanges are its overhead)
+        "B2 sharded": (shards["model"], run_steps(shards["model"]),
+                       main_path_flops(shards["model"],
+                                       run_steps(shards["model"]),
+                                       av_steps=window_steps(
+                                           shards["model"], 10.0,
+                                           run_steps(shards["model"]))), 1),
         "B4": (lanes_sweep.base, b4_steps, main_path_flops(
             lanes_sweep.base, b4_steps, points=lanes_sweep.B,
             av_steps=int(expected_av_counts(lanes_sweep).sum())),
@@ -3761,8 +4188,10 @@ def main():
     b2_ms = mean(routing["N=100 M=12000"]["stream"])
     b1_plan, b1_info = b1_forms["N=400 M=4000", "f32"]
     b2_spill_ms = mean(b2_own["ms_turns"]["spill"])
+    b2_shard_ms = mean(shards["ms_turns"]["sharded S=2"])
     times = {"B1": b1_ms, "B3 shared": sk_ms, "B3 per-omega": pk_ms,
-             "B2": b2_ms, "B2 spill": b2_spill_ms, "B4": b4_ms}
+             "B2": b2_ms, "B2 spill": b2_spill_ms,
+             "B2 sharded": b2_shard_ms, "B4": b4_ms}
     # B3's form on each main path, and what it takes on the card
     b3_form = {}
     for key, shape, per_omega in (("B3 shared", "full", False),
@@ -3862,6 +4291,23 @@ def main():
         max_abs_err=spill_err["N=100 M=20000", "f32"][0],
         ms=b2_spill_ms, plain_ms=spill_plain_ms, form="spill",
         own_shape=b2_own, repl=displays["repl_b2"]), entry(
+        "B2 sharded", name="slb_stream_shard_tiles (stream_tile over a "
+                           "shard's extended slice, one launch per shard "
+                           "a round) + slb_stream_replay (stream_replay, "
+                           "one a round): B2's sharded form, shards=2 on "
+                           "two slots of one card, at N=100 M=20000",
+        route="cuda", source=STREAM_SOURCE, replaces=STREAM_REPLACES,
+        replaces_also=SHARD_REPLACES,
+        launches=(shards["main"][4]["tile_launches"]
+                  + shards["main"][4]["replay_launches"]),
+        max_abs_err=shards["err"], ms=b2_shard_ms,
+        plain_ms=shards["plain_ms"], form="sharded",
+        ms_turns=shards["ms_turns"],
+        round_costs_us={S: {"exchange": x, "replay": r} for S, (x, r) in
+                        shards["round_costs_us"].items()},
+        main_path=shards["main"],
+        two_process_wall_s=shards["two_process_wall_s"],
+        sweep_two_slots_wall_s=shards["sweep_walls_s"]), entry(
         "B4", name="slb_lanes_cluster (lanes_cluster, one launch per "
                    "call); streaming form slb_lanes_chunk "
                    "(lanes_half_step<true>, lanes_half_step<false>)",

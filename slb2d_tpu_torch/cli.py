@@ -7,8 +7,9 @@ resume=, frame-batch=, exact-time=, warmup= and profile-dir= (the run
 under torch.profiler, its Chrome trace written under DIR).
 The run uses CUDA device `device=` (default 0) for every impl; only
 device=cpu runs it on the CPU.  Without a CUDA device and without
-device=cpu it prints an error and returns 1.  Unless quiet, the closing
-`# perf:` line names the engine that ran: torch, cuda-b1 resident or
+device=cpu, or with fewer devices than shards= (the CPU is one device,
+parallel/mesh.local_devices), it prints an error and returns 1.  Unless
+quiet, the closing `# perf:` line names the engine that ran: torch, cuda-b1 resident or
 cuda-b1 per-half-step (the step kernel in the form it took) or stream
 (the temporal-tiling kernel).
 """
@@ -36,7 +37,11 @@ def main(argv=None):
 
     from .runtime.loop import Simulation
 
-    sim = Simulation(cfg, device=device)
+    try:
+        sim = Simulation(cfg, device=device)
+    except ValueError as e:     # e.g. fewer devices than shards=
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
     if cfg.warmup:
         sim.warmup()
     with profiled(cfg.profile_dir, device):

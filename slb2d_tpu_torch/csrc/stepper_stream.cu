@@ -92,8 +92,18 @@ constexpr int SUMS = 4;                       // norm, v_dr, v_y, m_x
 constexpr int REPLAY_BLOCK = 128;
 constexpr int MAX_K = REPLAY_BLOCK / SUMS;    // steps per launch at most
 
+// A launch's tiles over an array of `ld` columns a row whose column 0 is
+// global column `base`: the tiles' centres cover the array's columns
+// [own_lo, own_hi), W a tile; a column is on the grid where it lies in the
+// array and its global column in [0, MP).  The whole grid: ld = MP,
+// base = 0, [0, MP).  A shard's extended slice (the sharded form):
+// ld = L + 2H, base = shard * L - H, [H, H + L): its halo columns are read
+// but never written.  Tile t's step sums go to partials slot
+// (s * part_stride + part_off + t).
 struct Tiling {
   int W, H, WT, n_tiles;
+  int ld, base, own_lo, own_hi;
+  int part_off, part_stride;
 };
 
 // A thread's cells of a tile: columns l0, l0 + dl, ... and, in each,
@@ -107,9 +117,11 @@ struct Lanes {
 // only at its own cell and its neighbours from nb, which no thread of the
 // phase writes).  Neighbour reads wrap within the tile, as torch.roll
 // wraps the plain version's tile batch: a wrapped value reaches only halo
-// columns within a launch (the trapezoid bound).  a0, a0_ghost, phi and the
-// column masks follow the global column mg and read as 0 outside the grid
-// (mg < 0 or mg >= MP), so cells there stay finite and masked.  Per column
+// columns within a launch (the trapezoid bound).  a0, a0_ghost, phi and
+// the observable weights are arrays of the launch's columns (la); the
+// column masks follow the global column mg; all read as 0 off the grid
+// (outside the array or mg outside [0, MP)), so cells there stay finite
+// and masked.  Per column
 // the mu parts (E_dc + E_omega cos + B phi) dt / 2 are computed once and
 // multiplied by each row's n, the operations of half_step_cell.  The half
 // grid's stale column M+1 swaps with the tile's edge chain (ea, eb), and
@@ -125,17 +137,18 @@ __device__ __forceinline__ void tile_half_step(
   const int WT = tl.WT;
   const int m_hi = MAIN ? g.M + 1 : g.M;
   for (int l = ln.l0; l < WT; l += ln.dl) {
-    const int mg = col0 + l;
-    const bool in_grid = mg >= 0 && mg < g.MP;
-    const T ph = in_grid ? phi[mg] : T(0);
+    const int la = col0 + l;
+    const int mg = tl.base + la;
+    const bool in_grid = la >= 0 && la < tl.ld && mg >= 0 && mg < g.MP;
+    const T ph = in_grid ? phi[la] : T(0);
     const T mu_col = (p.E_dc + p.E_omega * cos_t + p.B * ph) * p.dt / T(2);
     const T mu1_col =
         (p.E_dc + p.E_omega * cos_t_dt + p.B * ph) * p.dt / T(2);
     const T colf = (mg >= 1 && mg <= m_hi) ? T(1) : T(0);
     const int lp1 = l + 1 == WT ? 0 : l + 1;
     const int lm1 = l == 0 ? WT - 1 : l - 1;
-    const bool center =
-        !MAIN && in_grid && l >= tl.H && l < tl.H + tl.W;
+    const bool center = !MAIN && in_grid && l >= tl.H &&
+                        l < tl.H + tl.W && la < tl.own_hi;
     for (int n = ln.n0; n < g.NHP; n += ln.dn) {
       const T nf = n < g.N ? T(n) : T(0);
       const T n_ge2 = n >= 2 ? T(1) : T(0);
@@ -145,7 +158,7 @@ __device__ __forceinline__ void tile_half_step(
       const int rp = (n + 1 == g.NHP ? 0 : n + 1) * WT;
       const int rm = (n == 0 ? g.NHP - 1 : n - 1) * WT;
       const int i = n * WT + l;
-      const size_t gi = (size_t)n * g.MP + (in_grid ? mg : 0);
+      const size_t gi = (size_t)n * tl.ld + (in_grid ? la : 0);
 
       const T a_src = dst_a[i];
       const T b_src = dst_b[i];
@@ -170,11 +183,11 @@ __device__ __forceinline__ void tile_half_step(
       dst_b[i] = b_new;
       if (center && n < 2) {
         if (n == 0) {
-          v[0] += nb_a[i] * w_av[mg];             // norm
-          v[2] += nb_a[i] * w_av_phi[mg];         // v_y
+          v[0] += nb_a[i] * w_av[la];             // norm
+          v[2] += nb_a[i] * w_av_phi[la];         // v_y
         } else {
-          v[1] += nb_b[i] * w_av[mg];             // v_dr
-          v[3] += nb_a[i] * w_av[mg];             // m_x
+          v[1] += nb_b[i] * w_av[la];             // v_dr
+          v[3] += nb_a[i] * w_av[la];             // m_x
         }
       }
     }
@@ -207,8 +220,8 @@ __global__ void __launch_bounds__(TILE_BLOCK) stream_tile(
   T* const wbhs = wahs + n_cells;
   T* const ea = SMEM ? sm + 4 * n_cells : sm;    // the tile's edge chain
   T* const eb = ea + g.NHP;
-  const int c0 = blockIdx.x * tl.W;              // first center column
-  const int col0 = c0 - tl.H;                    // global column of l = 0
+  const int c0 = tl.own_lo + blockIdx.x * tl.W;  // first center column
+  const int col0 = c0 - tl.H;                    // array column of l = 0
   Lanes ln;
   ln.dl = WT < (int)blockDim.x ? WT : (int)blockDim.x;
   ln.dn = blockDim.x / ln.dl;
@@ -217,9 +230,9 @@ __global__ void __launch_bounds__(TILE_BLOCK) stream_tile(
 
   // the extended tile; columns outside the grid start (and stay) finite
   for (int i = threadIdx.x; i < n_cells; i += blockDim.x) {
-    const int n = i / WT, mg = col0 + (i - n * WT);
-    const bool in_grid = mg >= 0 && mg < g.MP;
-    const size_t gi = (size_t)n * g.MP + (in_grid ? mg : 0);
+    const int n = i / WT, la = col0 + (i - n * WT), mg = tl.base + la;
+    const bool in_grid = la >= 0 && la < tl.ld && mg >= 0 && mg < g.MP;
+    const size_t gi = (size_t)n * tl.ld + (in_grid ? la : 0);
     wa[i] = in_grid ? a_in[gi] : T(0);
     wb[i] = in_grid ? b_in[gi] : T(0);
     wahs[i] = in_grid ? ahs_in[gi] : T(0);
@@ -247,22 +260,24 @@ __global__ void __launch_bounds__(TILE_BLOCK) stream_tile(
     slb::block_sums<T, SUMS>(v);
     if (threadIdx.x == 0)
       for (int k = 0; k < SUMS; ++k)
-        partials[((size_t)s * tl.n_tiles + blockIdx.x) * SUMS + k] = v[k];
+        partials[((size_t)s * tl.part_stride + tl.part_off + blockIdx.x) *
+                     SUMS + k] = v[k];
     // the next main half-step overwrites wa, wb and reads wahs, wbhs
     __syncthreads();
   }
 
   for (int i = threadIdx.x; i < g.NHP * tl.W; i += blockDim.x) {
-    const int n = i / tl.W, lc = i - n * tl.W, mg = c0 + lc;
-    if (mg < g.MP) {
-      const size_t gi = (size_t)n * g.MP + mg, li = (size_t)n * WT + tl.H + lc;
+    const int n = i / tl.W, lc = i - n * tl.W, la = c0 + lc;
+    if (la < tl.own_hi) {
+      const size_t gi = (size_t)n * tl.ld + la, li = (size_t)n * WT + tl.H + lc;
       a_out[gi] = wa[li];
       b_out[gi] = wb[li];
       ahs_out[gi] = wahs[li];
       bhs_out[gi] = wbhs[li];
     }
   }
-  if (c0 <= g.M + 1 && g.M + 1 < c0 + tl.W)     // this tile owns M+1
+  const int own_m1 = g.M + 1 - tl.base;          // M+1's array column
+  if (c0 <= own_m1 && own_m1 < c0 + tl.W && own_m1 < tl.own_hi)  // owns M+1
     for (int n = threadIdx.x; n < g.NHP; n += blockDim.x) {
       edge_a_out[n] = ea[n];
       edge_b_out[n] = eb[n];
@@ -322,6 +337,21 @@ __global__ void __launch_bounds__(REPLAY_BLOCK) stream_replay(
 }
 
 template <typename T>
+using TileKernel = decltype(&stream_tile<T, true>);
+
+// stream_tile's instance for a launch over `tl`'s tiles (working tiles in
+// shared memory where `smem`, else in the caller's scratch), its dynamic
+// shared memory allowed; the bytes a block takes in *smem_bytes.
+template <typename T>
+cudaError_t tile_kernel(const Tiling& tl, int NHP, bool smem,
+                        TileKernel<T>* kern, size_t* smem_bytes) {
+  *smem_bytes = ((smem ? 4 * (size_t)NHP * tl.WT : 0) + 2 * NHP) * sizeof(T);
+  *kern = smem ? stream_tile<T, true> : stream_tile<T, false>;
+  return cudaFuncSetAttribute(
+      *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem_bytes);
+}
+
+template <typename T>
 int stream_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
                  const T* a0, const T* a0_ghost, const T* phi,
                  const T* w_av, const T* w_av_phi, const T* params,
@@ -335,13 +365,12 @@ int stream_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
                        params[4], params[5], params[6], params[7],
                        params[8], params[9], params[10]};
   const Geometry g = {N, M, NHP, MP};
-  const Tiling tl = {W, H, W + 2 * H, (MP + W - 1) / W};
-  const bool smem = scratch == nullptr;
-  const size_t n_cells = (size_t)NHP * tl.WT;
-  const size_t smem_bytes = ((smem ? 4 * n_cells : 0) + 2 * NHP) * sizeof(T);
-  auto kern = smem ? stream_tile<T, true> : stream_tile<T, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  const int n_tiles = (MP + W - 1) / W;
+  const Tiling tl = {W, H, W + 2 * H, n_tiles, MP, 0, 0, MP, 0, n_tiles};
+  TileKernel<T> kern;
+  size_t smem_bytes;
+  cudaError_t err = tile_kernel<T>(tl, NHP, scratch == nullptr, &kern,
+                                   &smem_bytes);
   if (err != cudaSuccess) return (int)err;
 
   const size_t plane = (size_t)NHP * MP;
@@ -372,6 +401,59 @@ int stream_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
       if (err != cudaSuccess) return (int)err;
     }
   return 0;
+}
+
+// ---- the sharded tiling form --------------------------------------------
+
+// One launch of the tiling form over a shard's extended slice (ld = L + 2H
+// columns a row, its halo columns filled from the neighbouring shards by
+// the host), src to dst, n_steps <= MAX_K steps; the tiles' step sums go to
+// partials columns part_off.. of a (n_steps, part_stride, 4) table that
+// the replay below reads for every shard at once.
+template <typename T>
+int shard_tiles(const T* a_in, const T* b_in, const T* ahs_in,
+                const T* bhs_in, const T* ea_in, const T* eb_in, T* a_out,
+                T* b_out, T* ahs_out, T* bhs_out, T* ea_out, T* eb_out,
+                T* scratch, const T* a0, const T* a0_ghost, const T* phi,
+                const T* w_av, const T* w_av_phi, const T* params,
+                const T* xs, T* partials, int N, int M, int NHP, int MP,
+                int ld, int base, int own_lo, int own_hi, int W, int H,
+                int n_steps, int parity, int part_off, int part_stride,
+                void* stream) {
+  if (n_steps < 1 || n_steps > MAX_K || 2 * n_steps > H || W < 1 ||
+      own_lo < H || own_hi + H > ld || own_hi <= own_lo)
+    return (int)cudaErrorInvalidValue;
+  const Params<T> p = {params[0], params[1], params[2], params[3],
+                       params[4], params[5], params[6], params[7],
+                       params[8], params[9], params[10]};
+  const Geometry g = {N, M, NHP, MP};
+  const int n_tiles = (own_hi - own_lo + W - 1) / W;
+  const Tiling tl = {W,  H,      W + 2 * H, n_tiles,  ld,
+                     base, own_lo, own_hi,  part_off, part_stride};
+  TileKernel<T> kern;
+  size_t smem_bytes;
+  cudaError_t err = tile_kernel<T>(tl, NHP, scratch == nullptr, &kern,
+                                   &smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<n_tiles, TILE_BLOCK, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      a_in, b_in, ahs_in, bhs_in, ea_in, eb_in, a_out, b_out, ahs_out,
+      bhs_out, ea_out, eb_out, scratch, a0, a0_ghost, phi, w_av, w_av_phi, p,
+      xs, g, tl, n_steps, parity, partials);
+  return (int)cudaGetLastError();
+}
+
+// The replay of one launch round over every shard's tile sums (added in
+// partials' column order: shard by shard, tile by tile), from the pre-step
+// sums in carry, which the host sets at a chunk's start.
+template <typename T>
+int shard_replay(const T* partials, const T* xs, const T* params, T* av,
+                 T* carry, T* obs, int n_tiles, int n_steps, void* stream) {
+  if (n_steps < 1 || n_steps > MAX_K || n_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  stream_replay<T><<<1, REPLAY_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      partials, n_tiles, n_steps, xs, params[4], av, carry, nullptr, nullptr,
+      nullptr, nullptr, 0, obs);
+  return (int)cudaGetLastError();
 }
 
 // ---- the spill form ----------------------------------------------------
@@ -513,6 +595,42 @@ int spill_info(int R, int bands, int NHP, int MP, int* out) {
 
 SLB_STREAM_ENTRY(slb_stream_chunk_f32, float)
 SLB_STREAM_ENTRY(slb_stream_chunk_f64, double)
+
+// The sharded tiling form's entry points (parallel/stream_shard.py
+// ShardedStreamRunner): slb_stream_shard_tiles_* enqueues shard_tiles'
+// one launch, slb_stream_replay_* shard_replay's; device pointers except
+// `params` (16 host values); they do not synchronise and return 0 or the
+// first cudaError_t (cudaErrorInvalidValue for a geometry they cannot
+// run).
+#define SLB_SHARD_ENTRIES(TILES, REPLAY, T)                                   \
+  extern "C" int TILES(                                                      \
+      const void* a_in, const void* b_in, const void* ahs_in,                \
+      const void* bhs_in, const void* ea_in, const void* eb_in, void* a_out, \
+      void* b_out, void* ahs_out, void* bhs_out, void* ea_out, void* eb_out, \
+      void* scratch, const void* a0, const void* a0_ghost, const void* phi,  \
+      const void* w_av, const void* w_av_phi, const void* params,            \
+      const void* xs, void* partials, int N, int M, int NHP, int MP, int ld, \
+      int base, int own_lo, int own_hi, int W, int H, int n_steps,           \
+      int parity, int part_off, int part_stride, void* stream) {             \
+    return shard_tiles<T>(                                                   \
+        (const T*)a_in, (const T*)b_in, (const T*)ahs_in, (const T*)bhs_in,  \
+        (const T*)ea_in, (const T*)eb_in, (T*)a_out, (T*)b_out,              \
+        (T*)ahs_out, (T*)bhs_out, (T*)ea_out, (T*)eb_out, (T*)scratch,       \
+        (const T*)a0, (const T*)a0_ghost, (const T*)phi, (const T*)w_av,     \
+        (const T*)w_av_phi, (const T*)params, (const T*)xs, (T*)partials, N, \
+        M, NHP, MP, ld, base, own_lo, own_hi, W, H, n_steps, parity,         \
+        part_off, part_stride, stream);                                      \
+  }                                                                          \
+  extern "C" int REPLAY(const void* partials, const void* xs,                \
+                        const void* params, void* av, void* carry, void* obs, \
+                        int n_tiles, int n_steps, void* stream) {            \
+    return shard_replay<T>((const T*)partials, (const T*)xs,                 \
+                           (const T*)params, (T*)av, (T*)carry, (T*)obs,     \
+                           n_tiles, n_steps, stream);                        \
+  }
+
+SLB_SHARD_ENTRIES(slb_stream_shard_tiles_f32, slb_stream_replay_f32, float)
+SLB_SHARD_ENTRIES(slb_stream_shard_tiles_f64, slb_stream_replay_f64, double)
 
 // The spill form's entry points: the arguments of slb_resident_chunk_*
 // (stepper.cu) with the bands' slabs (bands x NHP x (2 (Smax + 2) +

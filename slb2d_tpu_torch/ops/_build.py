@@ -52,6 +52,10 @@ _ENTRY_ARGS = {
                          + [ctypes.c_void_p]),
     "slb_stream_spill_chunk": ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
                                + [ctypes.c_void_p]),
+    "slb_stream_shard_tiles": ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 14
+                               + [ctypes.c_void_p]),
+    "slb_stream_replay": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                          + [ctypes.c_void_p]),
     "slb_stream_spill_info": [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "slb_lanes_chunk": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),

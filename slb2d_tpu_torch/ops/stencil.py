@@ -129,7 +129,7 @@ def _shift(arr, dn: int, dm: int):
 
 
 def apply_half_step(c: StencilConsts, a_src, b_src, a_nb, b_nb,
-                    cos_t, cos_t_dt, *, main: bool,
+                    cos_t, cos_t_dt, *, main: bool, shift=_shift,
                     use_reciprocal: bool = False):
     """One stencil application.
 
@@ -137,6 +137,8 @@ def apply_half_step(c: StencilConsts, a_src, b_src, a_nb, b_nb,
     a_nb/b_nb are the time-staggered arrays read at (n±1, m±1).
     `main=True` uses the main-grid write bounds m=1..M+1
     (src/boltzmann_c_solver.c:361), else the half-grid bounds m=1..M (:391).
+    shift: the (n±1, m±1) read (default _shift; the sharded scan's halo
+    exchange, parallel/spatial.py).
     """
     # operand order mirrors the C expressions so float32 rounding matches
     mu_t_part = (c.E_dc + c.E_omega * cos_t + c.B * c.phi) * c.dt / 2
@@ -151,15 +153,15 @@ def apply_half_step(c: StencilConsts, a_src, b_src, a_nb, b_nb,
     # subtracted INDIVIDUALLY, :372-373).  The use_reciprocal form reuses
     # dm_a for h's n+1 term — one association swap, sub-ulp
     # (docs/DEVIATIONS.md D7 class).
-    dm_b = _shift(b_nb, 0, 1) - _shift(b_nb, 0, -1)
-    dm_a = _shift(a_nb, 0, 1) - _shift(a_nb, 0, -1)
+    dm_b = shift(b_nb, 0, 1) - shift(b_nb, 0, -1)
+    dm_a = shift(a_nb, 0, 1) - shift(a_nb, 0, -1)
     g = (c.dt * c.a0 + a_src * c.nu_tilde - b_src * mu_t
-         + c.bdt * (_shift(dm_b, 1, 0) - c.n_ge2 * _shift(dm_b, -1, 0)))
+         + c.bdt * (shift(dm_b, 1, 0) - c.n_ge2 * shift(dm_b, -1, 0)))
     if use_reciprocal:
-        h_np1 = c.w_n * _shift(dm_a, -1, 0) - _shift(dm_a, 1, 0)
+        h_np1 = c.w_n * shift(dm_a, -1, 0) - shift(dm_a, 1, 0)
     else:
-        h_np1 = (c.w_n * _shift(dm_a, -1, 0)
-                 - _shift(a_nb, 1, 1) + _shift(a_nb, 1, -1))
+        h_np1 = (c.w_n * shift(dm_a, -1, 0)
+                 - shift(a_nb, 1, 1) + shift(a_nb, 1, -1))
     h = b_src * c.nu_tilde + a_src * mu_t + c.bdt * h_np1
 
     # Row masking folds into the nu factor: nu_a/nu_b are (NHP, 1)
@@ -180,7 +182,7 @@ def apply_half_step(c: StencilConsts, a_src, b_src, a_nb, b_nb,
         return a_new, b_new
     a_new = (g * nu_a - h * mu_t1) / xi
     b_new = (g * mu_t1 + h * nu_b) / xi
-    zero = torch.zeros((), dtype=dtype, device=a_new.device)
+    zero = a_new.new_zeros(())
     a_new = torch.where(cols, a_new, zero)
     b_new = torch.where(cols, b_new, zero)
     return a_new, b_new
@@ -218,16 +220,23 @@ def bootstrap_state(c: StencilConsts, model) -> State:
     )
 
 
-def av_update(c: StencilConsts, av, a_new, b_new, cos_av, sin_av):
+def _sum_m(v):
+    """The sum over the m axis (the sharded scan's is the slot-order sum
+    of each slot's, parallel/spatial.py)."""
+    return torch.sum(v, dim=-1)
+
+
+def av_update(c: StencilConsts, av, a_new, b_new, cos_av, sin_av,
+              sum_m=_sum_m):
     """Running observable averages (reference: src/boltzmann_c_solver.c:413-437).
 
     av[0]: sample count; av[1..3]: incremental means of v_dr, v_y, m/m_x;
     av[4], av[5]: absorption quadratures Sum cos/sin(w t) * v_dr * dt with
     Kahan compensation carried in av[6], av[7].
     """
-    v_dr = torch.sum(b_new[..., 1, :] * c.w_av, dim=-1)
-    v_y = torch.sum(a_new[..., 0, :] * c.w_av_phi, dim=-1)
-    m_x = torch.sum(a_new[..., 1, :] * c.w_av, dim=-1)
+    v_dr = sum_m(b_new[..., 1, :] * c.w_av)
+    v_y = sum_m(a_new[..., 0, :] * c.w_av_phi)
+    m_x = sum_m(a_new[..., 1, :] * c.w_av)
     return av_update_from_sums(c, av, v_dr, v_y, m_x, cos_av, sin_av)
 
 
@@ -249,41 +258,43 @@ def av_update_from_sums(c, av, v_dr, v_y, m_x, cos_av, sin_av):
 
 
 def full_step(c: StencilConsts, state: State, trig, do_av, *,
-              use_reciprocal: bool = False) -> State:
+              use_reciprocal: bool = False, shift=_shift,
+              sum_m=_sum_m) -> State:
     """One full time step = main-grid + half-grid stencil application plus
     optional observable accumulation (reference loop body,
     src/boltzmann_c_solver.c:164-194).  trig: (cos_t, cos_t_dt, cos_hs,
     cos_hs_dt, cos_av, sin_av) as Python floats or 0-d tensors; with a
     point axis the first four may be (B, 1, 1) and the last two (B,).
     do_av: a bool, or a (B,) bool tensor gating each point's av.
-    use_reciprocal selects apply_half_step's form (the kernel's)."""
+    use_reciprocal selects apply_half_step's form (the kernel's).  shift
+    and sum_m: the (n±1, m±1) read and the sum over m (defaults: one
+    device's roll and sum; the sharded scan injects its halo exchange and
+    slot-order sum, as the JAX package's full_step takes them)."""
     cos_t, cos_t_dt, cos_hs, cos_hs_dt, cos_av, sin_av = trig
     a_new, b_new = apply_half_step(
         c, state.a, state.b, state.a_hs, state.b_hs, cos_t, cos_t_dt,
-        main=True, use_reciprocal=use_reciprocal)
+        main=True, shift=shift, use_reciprocal=use_reciprocal)
     # Parity ghost fill: this step writes main buffer (step+1) % 2; buffer 0
     # keeps a0's ghost cells from the initial copy, buffer 1 keeps zeros.
     # a_new is zero outside the write region, so the add is exact.
     ghost_on = ((state.step + 1) % 2 == 0)[..., None, None]
-    a_new = a_new + torch.where(ghost_on, c.a0_ghost,
-                                torch.zeros((), dtype=a_new.dtype,
-                                            device=a_new.device))
+    a_new = a_new + torch.where(ghost_on, c.a0_ghost, a_new.new_zeros(()))
     ahs_new, bhs_new = apply_half_step(
         c, state.a_hs, state.b_hs, a_new, b_new, cos_hs, cos_hs_dt,
-        main=False, use_reciprocal=use_reciprocal)
+        main=False, shift=shift, use_reciprocal=use_reciprocal)
     # stale column M+1 of the retired half-step buffer (4-buffer rotation)
     emask = c.col_edge.to(a_new.dtype)
     ahs_new = torch.where(c.col_edge, state.hs_edge_a[..., None], ahs_new)
     bhs_new = torch.where(c.col_edge, state.hs_edge_b[..., None], bhs_new)
     # exact: a row dot with a one-hot mask picks the single column value
-    new_edge_a = torch.sum(state.a_hs * emask, dim=-1)
-    new_edge_b = torch.sum(state.b_hs * emask, dim=-1)
-    if isinstance(do_av, torch.Tensor):
-        av_new = torch.where(do_av[..., None], av_update(
-            c, state.av, a_new, b_new, cos_av, sin_av), state.av)
+    new_edge_a = sum_m(state.a_hs * emask)
+    new_edge_b = sum_m(state.b_hs * emask)
+    if isinstance(do_av, (bool, np.bool_)):
+        av_new = (av_update(c, state.av, a_new, b_new, cos_av, sin_av,
+                            sum_m) if do_av else state.av)
     else:
-        av_new = (av_update(c, state.av, a_new, b_new, cos_av, sin_av)
-                  if do_av else state.av)
+        av_new = torch.where(do_av[..., None], av_update(
+            c, state.av, a_new, b_new, cos_av, sin_av, sum_m), state.av)
     return State(
         a=a_new, b=b_new, a_hs=ahs_new, b_hs=bhs_new,
         hs_edge_a=new_edge_a, hs_edge_b=new_edge_b,
@@ -305,17 +316,18 @@ def device_trig(c: StencilConsts, t):
     )
 
 
-def emission_record(c: StencilConsts, pre: State, post: State):
+def emission_record(c: StencilConsts, pre: State, post: State,
+                    sum_m=_sum_m):
     """Raw per-step observables for batched display-77 emission: sums over
     the PRE-step arrays (the reference prints a[current], the pre-swap
     state, src/boltzmann_c_solver.c:182) plus the POST-step av_data and the
     step's loop t.  Host-side formatting applies the multipliers."""
     return torch.cat([
         torch.stack([
-            torch.sum(pre.a[..., 0, :] * c.w_av, dim=-1),  # norm bounds
-            torch.sum(pre.b[..., 1, :] * c.w_av, dim=-1),  # == av bounds
-            torch.sum(pre.a[..., 0, :] * c.w_av_phi, dim=-1),
-            torch.sum(pre.a[..., 1, :] * c.w_av, dim=-1),
+            sum_m(pre.a[..., 0, :] * c.w_av),       # norm bounds
+            sum_m(pre.b[..., 1, :] * c.w_av),       # == av bounds
+            sum_m(pre.a[..., 0, :] * c.w_av_phi),
+            sum_m(pre.a[..., 1, :] * c.w_av),
             pre.t.to(pre.a.dtype)], dim=-1),
         post.av], dim=-1)
 
@@ -335,7 +347,8 @@ def capture_sums(state: State, w_d4, w_d4_phi, w_norm):
         torch.sum(state.a[..., 0, :] * w_norm, dim=-1)], dim=-1)
 
 
-def fast_step(c: StencilConsts, state: State, av_enabled: bool) -> State:
+def fast_step(c: StencilConsts, state: State, av_enabled: bool,
+              **hooks) -> State:
     """One full step with the trig evaluated on the device from the
     carried t (exact-time=0; the JAX package's make_step_fn with
     exact_trig=False): where av_enabled (the display policy), av is gated
@@ -343,7 +356,7 @@ def fast_step(c: StencilConsts, state: State, av_enabled: bool) -> State:
     [t_start, t_end) on the device, with no host read."""
     do_av = ((c.E_omega > 0) & (state.t >= c.t_start) & (state.t < c.t_end)
              if av_enabled else False)
-    return full_step(c, state, device_trig(c, state.t), do_av)
+    return full_step(c, state, device_trig(c, state.t), do_av, **hooks)
 
 
 XS_TRIG = ("cos_t", "cos_t_dt", "cos_hs", "cos_hs_dt", "cos_av", "sin_av")
@@ -351,24 +364,26 @@ XS_TRIG = ("cos_t", "cos_t_dt", "cos_hs", "cos_hs_dt", "cos_av", "sin_av")
 
 def run_chunk(c: StencilConsts, state: State, xs: dict, *,
               collect_obs: bool, exact_trig: bool = True,
-              av_enabled: bool = True):
+              av_enabled: bool = True, shift=_shift, sum_m=_sum_m):
     """Advance len(xs["t"]) full steps over host schedule columns (from
     runtime/schedule.iter_chunks): the counterpart of the JAX package's
     make_step_fn + lax.scan.  exact_trig=False takes each step's trig and
     av gate from fast_step (av_enabled: the display policy) instead of
-    the columns.  Returns (state, ys) where ys stacks one emission_record
-    per step when collect_obs, else None."""
+    the columns.  shift and sum_m go to full_step.  Returns (state, ys)
+    where ys stacks one emission_record per step when collect_obs, else
+    None."""
     cols = [np.asarray(xs[k]) for k in XS_TRIG]
     do_av = np.asarray(xs["do_av"])
     records = []
     for i in range(len(xs["t"])):
         if exact_trig:
             trig = tuple(float(col[i]) for col in cols)
-            new = full_step(c, state, trig, bool(do_av[i]))
+            new = full_step(c, state, trig, bool(do_av[i]), shift=shift,
+                            sum_m=sum_m)
         else:
-            new = fast_step(c, state, av_enabled)
+            new = fast_step(c, state, av_enabled, shift=shift, sum_m=sum_m)
         if collect_obs:
-            records.append(emission_record(c, state, new))
+            records.append(emission_record(c, state, new, sum_m))
         state = new
     return state, (torch.stack(records) if collect_obs else None)
 

@@ -246,19 +246,26 @@ def stream_beats_b1(NHP: int, MP: int, dtype, sms: int = SM_COUNT) -> bool:
     return engine_choice(NHP, MP, dtype, sms)[0] == "stream"
 
 
-def _tiles(c: stencil.StencilConsts, geom: Geometry, MP: int):
-    """The tile batch's constants: (cols, valid) of each local column's
-    global column, tile-local StencilConsts (a0, a0_ghost (n_tiles, NHP,
-    WT); phi and column masks (n_tiles, 1, WT), False and 0 outside the
-    grid), and the center weights w_av, w_av_phi (n_tiles, WT), 0 off the
+def tile_consts(c: stencil.StencilConsts, geom: Geometry, MP: int,
+                first=0, own=None):
+    """The tile batch's constants for tiles whose centres cover the
+    global columns [first, first + own) (the whole grid by default; a
+    shard's own columns in the sharded form, whose data reach H columns
+    past them): (cols, valid) of each local column's global column,
+    tile-local StencilConsts (a0, a0_ghost (n_tiles, NHP, WT); phi and
+    column masks (n_tiles, 1, WT), False and 0 off the grid or past the
+    data), and the center weights w_av, w_av_phi (n_tiles, WT), 0 off the
     tile's own center columns."""
+    own = MP - first if own is None else own
     dev = c.a0.device
     tile = torch.arange(geom.n_tiles, device=dev)[:, None]
     local = torch.arange(geom.WT, device=dev)[None, :]
-    cols = tile * geom.W - geom.H + local
-    valid = (cols >= 0) & (cols < MP)
+    cols = first + tile * geom.W - geom.H + local
+    valid = ((cols >= 0) & (cols < MP) & (cols >= first - geom.H)
+             & (cols < first + own + geom.H))
+    center = (valid & (local >= geom.H) & (local < geom.H + geom.W)
+              & (cols < first + own))
     cols = cols.clamp(0, MP - 1)
-    center = valid & (local >= geom.H) & (local < geom.H + geom.W)
 
     def row(v, mask):
         return torch.where(mask, v[cols], torch.zeros((), dtype=v.dtype,
@@ -283,12 +290,13 @@ def _gather(x, cols, valid):
 
 
 def _centers(t, geom: Geometry, MP: int):
-    """(n_tiles, NHP, WT) -> the (NHP, MP) array of the tiles' centers."""
+    """(n_tiles, NHP, WT) -> the (NHP, MP) array of the tiles' centers (MP:
+    the columns they cover)."""
     cen = t[:, :, geom.H:geom.H + geom.W].permute(1, 0, 2)
     return cen.reshape(t.shape[1], -1)[:, :MP].contiguous()
 
 
-def _sums(a, b, w_av, w_av_phi):
+def raw_sums(a, b, w_av, w_av_phi):
     """(..., 4) raw sums norm, v_dr, v_y, m_x of main arrays a, b."""
     return torch.stack([
         torch.sum(a[..., 0, :] * w_av, dim=-1),
@@ -297,14 +305,78 @@ def _sums(a, b, w_av, w_av_phi):
         torch.sum(a[..., 1, :] * w_av, dim=-1)], dim=-1)
 
 
+def plain_launch(tiles, geom: Geometry, quad, ea, eb, av, t, xs, s0: int,
+                 parity: int, width: int):
+    """One launch of the plain version: the four (NHP, ...) arrays of quad
+    (a, b, a_hs, b_hs) gathered into the tile batch of `tiles` (
+    tile_consts' tuple; zeros off the grid or past the data), every tile
+    starting from the edge chain (ea, eb), stepped min(K, len(xs) - s0)
+    times from xs row s0 with stencil.full_step in the reciprocal form,
+    columns wrapping within a tile.  Returns (the four arrays' centres,
+    (NHP, width) each; the tiles' edge chains (n_tiles, NHP) a and b; the
+    (steps, n_tiles, 4) per-tile centre sums of each step)."""
+    idx, valid, tc, w_c, wphi_c = tiles
+    n_tiles, NHP = geom.n_tiles, ea.shape[-1]
+    a, b, ahs, bhs = (_gather(x, idx, valid) for x in quad)
+    tile = stencil.State(
+        a=a, b=b, a_hs=ahs, b_hs=bhs, hs_edge_a=ea.expand(n_tiles, NHP),
+        hs_edge_b=eb.expand(n_tiles, NHP), av=av, t=t,
+        step=torch.tensor(parity, dtype=torch.int32, device=ea.device))
+    parts = []
+    for s in range(s0, min(s0 + geom.K, xs.shape[0])):
+        trig = tuple(float(v) for v in xs[s, :6])
+        tile = stencil.full_step(tc, tile, trig, False, use_reciprocal=True)
+        parts.append(raw_sums(tile.a, tile.b, w_c, wphi_c))
+    centres = [_centers(x, geom, width)
+               for x in (tile.a, tile.b, tile.a_hs, tile.b_hs)]
+    return centres, (tile.hs_edge_a, tile.hs_edge_b), torch.stack(parts)
+
+
+def add_in_order(parts):
+    """(ns, n, 4) -> (ns, 4), the n tiles' sums added in tile order."""
+    tot = parts[:, 0]
+    for j in range(1, parts.shape[1]):
+        tot = tot + parts[:, j]
+    return tot
+
+
+def replay_sums(c, av, carry, tot, xs, s0, emit, records):
+    """The replay of one launch's steps s0.. from their (ns, 4) totals: the
+    av() chain gated by xs lane 6, and a display-77 record (pre-step sums,
+    loop t, post-step av) appended to records at each step in emit.
+    Returns (av, carry), carry the last step's sums."""
+    for s in range(tot.shape[0]):
+        row = xs[s0 + s]
+        if row[6] > 0:
+            av = stencil.av_update_from_sums(
+                c, av, tot[s, 1], tot[s, 2], tot[s, 3], float(row[4]),
+                float(row[5]))
+        if s0 + s in emit:
+            records.append(torch.cat([
+                carry, torch.tensor([row[7]], dtype=av.dtype,
+                                    device=av.device), av]))
+        carry = tot[s]
+    return av, carry
+
+
+def obs_table(records):
+    """The records as an (n, OBS_LANES) table, or None."""
+    if not records:
+        return None
+    rec = torch.stack(records)
+    obs = torch.zeros((len(records), OBS_LANES), dtype=rec.dtype,
+                      device=rec.device)
+    obs[:, :rec.shape[1]] = rec
+    return obs
+
+
 def run_chunk_plain_stream(c: stencil.StencilConsts, state: stencil.State,
                            xs, parity0: int, emit_idx, geom: Geometry):
     """The kernel's plain PyTorch version at the same geometry: per launch
     the extended tiles are gathered into an (n_tiles, NHP, WT) batch
     (zeros outside the grid, each tile its own edge chain) and stepped K
-    times with stencil.full_step in the reciprocal form, columns wrapping
-    within a tile; the centers and the owning tile's edges go back.  The
-    per-tile center sums of each step are added in tile order, and the
+    times (plain_launch); the centers and the owning tile's edges go back.
+    The per-tile center sums of each step are added in tile order, and the
     av() chain (gated by xs lane 6) and the display-77 records (pre-step
     sums, loop t, post-step av) are replayed from them.  parity0 must be
     state.step % 2.  Returns (state, obs) as run_chunk_plain does."""
@@ -312,58 +384,25 @@ def run_chunk_plain_stream(c: stencil.StencilConsts, state: stencil.State,
         raise ValueError(f"parity0={parity0} disagrees with the state's "
                          f"step count {int(state.step)}")
     n = xs.shape[0]
-    NHP, MP = state.a.shape
-    dev = state.a.device
+    MP = state.a.shape[1]
     owner = int(c.col_edge[0].nonzero()[0]) // geom.W   # owns column M+1
-    cols, valid, tc, w_c, wphi_c = _tiles(c, geom, MP)
+    tiles = tile_consts(c, geom, MP)
     emit = set(int(i) for i in emit_idx)
-    a, b, ahs, bhs = state.a, state.b, state.a_hs, state.b_hs
+    quad = (state.a, state.b, state.a_hs, state.b_hs)
     ea, eb, av = state.hs_edge_a, state.hs_edge_b, state.av
-    carry = _sums(a, b, c.w_av, c.w_av_phi)
+    carry = raw_sums(state.a, state.b, c.w_av, c.w_av_phi)
     records = []
     for s0 in range(0, n, geom.K):
-        ns = min(geom.K, n - s0)
-        tile = stencil.State(
-            a=_gather(a, cols, valid), b=_gather(b, cols, valid),
-            a_hs=_gather(ahs, cols, valid), b_hs=_gather(bhs, cols, valid),
-            hs_edge_a=ea.expand(geom.n_tiles, NHP),
-            hs_edge_b=eb.expand(geom.n_tiles, NHP), av=av, t=state.t,
-            step=torch.tensor((parity0 + s0) % 2, dtype=torch.int32,
-                              device=dev))
-        parts = []
-        for s in range(ns):
-            trig = tuple(float(v) for v in xs[s0 + s, :6])
-            tile = stencil.full_step(tc, tile, trig, False,
-                                     use_reciprocal=True)
-            parts.append(_sums(tile.a, tile.b, w_c, wphi_c))
-        part = torch.stack(parts)                  # (ns, n_tiles, 4)
-        tot = part[:, 0]
-        for j in range(1, geom.n_tiles):           # tile order
-            tot = tot + part[:, j]
-        a, b = _centers(tile.a, geom, MP), _centers(tile.b, geom, MP)
-        ahs, bhs = _centers(tile.a_hs, geom, MP), _centers(tile.b_hs, geom,
-                                                           MP)
-        ea, eb = tile.hs_edge_a[owner], tile.hs_edge_b[owner]
-        for s in range(ns):
-            row = xs[s0 + s]
-            if row[6] > 0:
-                av = stencil.av_update_from_sums(
-                    c, av, tot[s, 1], tot[s, 2], tot[s, 3], float(row[4]),
-                    float(row[5]))
-            if s0 + s in emit:
-                records.append(torch.cat([
-                    carry, torch.tensor([row[7]], dtype=av.dtype,
-                                        device=dev), av]))
-            carry = tot[s]
-    obs = None
-    if records:
-        rec = torch.stack(records)
-        obs = torch.zeros((len(records), OBS_LANES), dtype=rec.dtype,
-                          device=rec.device)
-        obs[:, :rec.shape[1]] = rec
+        quad, (ea, eb), part = plain_launch(
+            tiles, geom, quad, ea, eb, av, state.t, xs, s0,
+            (parity0 + s0) % 2, MP)
+        ea, eb = ea[owner], eb[owner]
+        av, carry = replay_sums(c, av, carry, add_in_order(part), xs, s0,
+                                emit, records)
+    a, b, ahs, bhs = quad
     return stencil.State(a=a, b=b, a_hs=ahs, b_hs=bhs, hs_edge_a=ea,
                          hs_edge_b=eb, av=av, t=state.t,
-                         step=state.step + n), obs
+                         step=state.step + n), obs_table(records)
 
 
 class StreamRunner(Runner):

@@ -34,14 +34,26 @@ at least 23.3 s and 19.5 s for the batched engine (chip_smoke.py phase
 ``impl=cuda`` never falls back to the batched engine: a CPU device
 raises.
 
-Not ported (ROADMAP.md): meshes and ``shards>1`` (queue A item 9).
+A "sweep" mesh (parallel/mesh.py) gives each of its slots a contiguous
+block of ceil(B / S) points (the JAX package shards the batch over the
+axis, slb2d_tpu/parallel/sweep.py:304-361); each slot runs its block on
+its own device with the engine choose_engine picks there, every block for
+the whole sweep's step count.  A ragged batch (B % S != 0) leaves the last
+slots fewer points, or none, where the JAX package replicates it.  Across
+processes every process gets the whole table (its blocks allgathered),
+and process 0 alone writes checkpoints and the instability report.
+
+Not ported (ROADMAP.md queue A item 9, its next step): ``shards>1`` in a
+sweep, the combined sweep x space layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
+import types
 
 import numpy as np
 import torch
@@ -57,6 +69,11 @@ SWEEPABLE = ("E_dc", "E_omega", "omega", "mu", "alpha", "B")
 
 # per-point StencilConsts fields (the JAX package's in_axes=0 fields)
 _POINT_FIELDS = ("E_dc", "E_omega", "omega", "B", "bdt")
+
+
+def _rank() -> int:
+    from .mesh import process_index
+    return process_index()
 
 
 def choose_engine(cfg: SimConfig, device) -> str:
@@ -124,30 +141,38 @@ def _run_sweep(consts, states, cap, weights, n_steps):
 
 class ParameterSweep:
     def __init__(self, cfg: SimConfig, params: dict, device=None,
-                 capture_state=False):
+                 capture_state=False, mesh=None, axis="sweep"):
         """params: {name: 1-D array}; all arrays broadcast together into a
         flat batch (numpy meshgrid + ravel upstream for grids).  device:
         the one device of the sweep (default: cuda:<cfg.device> for every
         impl, the CPU for device=cpu).  capture_state: run() also freezes
         each point's (a, b) at its own loop exit, for per-point frames
-        (sweep frames-dir=)."""
+        (sweep frames-dir=).  mesh, axis: spread the points over the mesh's
+        `axis` slots, a block of ceil(B / S) each (device is then the
+        first local slot's)."""
         if cfg.shards > 1:
             raise NotImplementedError(
-                "slb2d_tpu_torch does not run sweeps with shards>1 yet "
-                "(ROADMAP.md queue A item 9)")
+                "slb2d_tpu_torch does not run sweeps with shards>1 yet: the "
+                "combined sweep x space layout (ROADMAP.md queue A item 9)")
         for k in params:
             if k not in SWEEPABLE:
                 raise ValueError(f"cannot sweep over {k!r}")
         self.cfg = cfg
-        self.device = torch_device(cfg, device)
         arrs = np.broadcast_arrays(*[np.asarray(v, np.float64)
                                      for v in params.values()])
         flat = [np.ravel(np.asarray(a)) for a in arrs]
         self.B = len(flat[0]) if flat else 1
         self.params = dict(zip(params.keys(), flat))
         self.capture_state = capture_state
-        self.engine = choose_engine(cfg, self.device)
         self.final_ab = None
+        self.mesh = mesh
+        self.blocks = None
+        if mesh is not None:
+            self.slots = mesh.axis_slots(axis)
+            self.device = torch.device(
+                next(s.device for s in self.slots if s.rank == _rank()))
+        else:
+            self.device = torch_device(cfg, device)
 
         # per-point models: scalar derivations are cheap; a0 differs only
         # when mu/alpha vary
@@ -158,6 +183,16 @@ class ParameterSweep:
         m0 = self.models[0]
         self.base = m0
         D = m0.np_dtype
+        # per-point averaging window end: t_max = D(t_start + T_b)
+        t_end = np.asarray([D(D(cfg.t_start) + m.T) for m in self.models])
+        # shared step count: the longest point's loop trip count
+        self.n_steps = max(
+            count_steps(0.0, float(t_end[i]), float(m0.dt), D)
+            for i in range(self.B))
+        if mesh is not None:
+            self._split(capture_state)
+            return
+        self.engine = choose_engine(cfg, self.device)
 
         def stack(field):
             return torch.as_tensor(
@@ -169,18 +204,34 @@ class ParameterSweep:
         if any(k in self.params for k in ("mu", "alpha")):
             batched["a0"] = stack("a0")
             batched["a0_ghost"] = stack("a0_ghost")
-        # per-point averaging window end: t_max = D(t_start + T_b)
-        t_end = np.asarray([D(D(cfg.t_start) + m.T) for m in self.models])
         batched["t_end"] = torch.as_tensor(
             t_end, device=self.device).reshape(self.B, 1, 1)
         self.consts = dataclasses.replace(
             stencil.consts_from_model(m0, self.device), **batched)
         self._stack_runner = None
 
-        # shared step count: the longest point's loop trip count
-        self.n_steps = max(
-            count_steps(0.0, float(t_end[i]), float(m0.dt), D)
-            for i in range(self.B))
+    def _split(self, capture_state):
+        """The mesh's blocks: per slot its points [lo, hi), ceil(B / S) a
+        slot in slot order; for this process's non-empty blocks a sweep of
+        their points on the slot's device, run for the whole sweep's step
+        count."""
+        S = len(self.slots)
+        per = math.ceil(self.B / S)
+        self.bounds = [(min(i * per, self.B), min((i + 1) * per, self.B))
+                       for i in range(S)]
+        self.blocks = []
+        for i, slot in enumerate(self.slots):
+            lo, hi = self.bounds[i]
+            if slot.rank != _rank() or lo == hi:
+                continue
+            sub = ParameterSweep(self.cfg, {k: v[lo:hi] for k, v in
+                                            self.params.items()},
+                                 device=slot.device,
+                                 capture_state=capture_state)
+            sub.n_steps = self.n_steps
+            self.blocks.append((i, sub))
+        engines = sorted({sub.engine for _, sub in self.blocks})
+        self.engine = "+".join(engines) if engines else "none"
 
     # -- device program -------------------------------------------------------
 
@@ -229,18 +280,49 @@ class ParameterSweep:
         0) every checkpoint_every steps, in the JAX package's sweep
         checkpoint layout (either package loads the other's).  resume:
         continue an interrupted sweep from such a file (the grid must
-        match)."""
+        match).  On a mesh every block advances chunk by chunk, each
+        block's launches enqueued before any block's results are read."""
         checkpoint = checkpoint or None          # '' from the CLI == unset
         resume = resume or None
-        weights = self._weights()
         self.final_ab = None
-        done = 0
+        done, saved = 0, None
         if resume is not None:
-            states, cap, done = self._load_checkpoint(resume)
-        else:
-            cap = self._zero_cap()
-            states = self._initial_states()
+            *saved, done = self._load_checkpoint(resume)
+        parts = ([(0, self.B, self)] if self.blocks is None else
+                 [(*self.bounds[i], sub) for i, sub in self.blocks])
+        live = []
+        for lo, hi, sw in parts:
+            if saved is None:
+                st, cp = sw._initial_states(), sw._zero_cap()
+            else:
+                st = stencil.state_from_numpy(
+                    {k: v[lo:hi] for k, v in saved[0].items()}, sw.device)
+                cp = {k: torch.as_tensor(v[lo:hi], device=sw.device)
+                      for k, v in saved[1].items()}
+            live.append([st, cp, sw._advancer(done)])
 
+        chunk = (checkpoint_every if checkpoint and checkpoint_every > 0
+                 else self.n_steps - done)
+        while done < self.n_steps:
+            k = min(chunk, self.n_steps - done)
+            for p in live:
+                p[0], p[1] = p[2](p[0], p[1], k)
+            done += k
+            if checkpoint is not None and done < self.n_steps:
+                self._save_checkpoint(checkpoint, *self._whole(live), done)
+        if checkpoint is not None:
+            self._save_checkpoint(checkpoint, *self._whole(live), done)
+        states, cap = self._whole(live, full=False)
+        if self.capture_state:
+            cap = dict(cap)
+            self.final_ab = (cap.pop("a").cpu().numpy(),
+                             cap.pop("b").cpu().numpy())
+        return self._finalize(states, cap)
+
+    def _advancer(self, done):
+        """advance(states, cap, k) -> (states, cap) on this sweep's engine,
+        from step `done` on."""
+        weights = self._weights()
         if self.engine == "cuda":
             from ..ops.sweep_stack_cuda import SweepStackRunner
             if self._stack_runner is None:
@@ -258,25 +340,35 @@ class ParameterSweep:
                 def advance(st, cp, k):
                     st = runner.advance(st, k)
                     return st, _capture(st, weights, self.capture_state)
-        else:
-            def advance(st, cp, k):
-                return _run_sweep(self.consts, st, cp, weights, k)
+            return advance
 
-        chunk = (checkpoint_every if checkpoint and checkpoint_every > 0
-                 else self.n_steps - done)
-        while done < self.n_steps:
-            k = min(chunk, self.n_steps - done)
-            states, cap = advance(states, cap, k)
-            done += k
-            if checkpoint is not None and done < self.n_steps:
-                self._save_checkpoint(checkpoint, states, cap, done)
-        if checkpoint is not None:
-            self._save_checkpoint(checkpoint, states, cap, done)
-        if self.capture_state:
-            cap = dict(cap)
-            self.final_ab = (cap.pop("a").cpu().numpy(),
-                             cap.pop("b").cpu().numpy())
-        return self._finalize(states, cap)
+        def advance(st, cp, k):
+            return _run_sweep(self.consts, st, cp, weights, k)
+        return advance
+
+    def _whole(self, live, full=True):
+        """(states, cap) of the whole batch from the live (states, cap,
+        advance) of this process's blocks: a sweep's own, or on a mesh
+        every block's on the host, in slot order (allgathered across
+        processes).  full=False: of the states only av (the table's)."""
+        if self.blocks is None:
+            return live[0][0], live[0][1]
+        fields = stencil.FIELDS if full else ("av",)
+        mine = []
+        for (st, cp, _), (i, _sub) in zip(live, self.blocks):
+            d = {f"state_{f}": getattr(st, f).cpu().numpy() for f in fields}
+            d.update({f"cap_{k}": v.cpu().numpy() for k, v in cp.items()})
+            mine.append((i, d))
+        from .collectives import all_gather_object
+        mine = sorted(sum(all_gather_object(mine), []), key=lambda x: x[0])
+        host = {k: torch.as_tensor(np.concatenate([d[k] for _, d in mine]))
+                for k in mine[0][1]}
+        cap = {k[len("cap_"):]: v for k, v in host.items()
+               if k.startswith("cap_")}
+        if not full:
+            return types.SimpleNamespace(av=host["state_av"]), cap
+        return stencil.State(**{f: host[f"state_{f}"]
+                                for f in stencil.FIELDS}), cap
 
     # -- checkpoint/resume ----------------------------------------------------
 
@@ -286,7 +378,10 @@ class ParameterSweep:
                     "dt", "t_start")
 
     def _save_checkpoint(self, path, states, cap, done):
-        """Atomic .npz snapshot of the whole batch mid-sweep."""
+        """Atomic .npz snapshot of the whole batch mid-sweep (on a mesh
+        gathered by every process; process 0 alone writes it)."""
+        if _rank() != 0:
+            return
         data = {f"state_{k}": v
                 for k, v in stencil.state_to_numpy(states).items()}
         data.update({f"cap_{k}": cap[k].cpu().numpy() for k in cap})
@@ -344,10 +439,8 @@ class ParameterSweep:
             raise ValueError(
                 f"sweep checkpoint dtype {arrays['a'].dtype} does not match "
                 f"the dtype= setting ({np.dtype(self.base.np_dtype).name})")
-        states = stencil.state_from_numpy(arrays, self.device)
-        cap = {k: torch.as_tensor(z[f"cap_{k}"], device=self.device)
-               for k in sorted(expected_cap)}
-        return states, cap, int(z["done"])
+        cap = {k: z[f"cap_{k}"] for k in sorted(expected_cap)}
+        return arrays, cap, int(z["done"])
 
     def _finalize(self, final: stencil.State, cap):
         D = self.base.np_dtype
@@ -360,7 +453,7 @@ class ParameterSweep:
         # should not kill the rest of the map either
         bad = ~(np.all(np.isfinite(av), axis=1)
                 & np.all([np.isfinite(v) for v in out.values()], axis=0))
-        if np.any(bad) and not self.cfg.quiet:
+        if np.any(bad) and not self.cfg.quiet and _rank() == 0:
             idx = np.flatnonzero(bad)
             vals = {k: np.asarray(v)[idx][:4].tolist()
                     for k, v in self.params.items()}

@@ -1,9 +1,11 @@
 """The simulation driver: chunked time loop, emissions and the REPL.
 
-The PyTorch counterpart of ``slb2d_tpu/runtime/loop.py`` for one process
-on one explicit device.  The hot loop runs host-precomputed step
-schedules (runtime/schedule.py) chunk by chunk; the device is
-synchronised only at emission and round boundaries, never per step.  The
+The PyTorch counterpart of ``slb2d_tpu/runtime/loop.py``, on one device
+or, with ``shards>1``, on the "space" slots of a mesh (parallel/mesh.py),
+across processes under torch.distributed.  The hot loop runs
+host-precomputed step schedules (runtime/schedule.py) chunk by chunk;
+the device is synchronised only at emission and round boundaries, never
+per step.  The
 interactive parameter server (read-from=stdin) continues from the live
 state exactly like the reference (src/boltzmann_solver.c:270-281): the
 distribution is never reset, only the scalar drive parameters and the
@@ -24,13 +26,25 @@ reconstructed on the device in the state's dtype on a card
 (ops/frames.reconstruct_on_device), stacked frame-batch at a time and
 fetched, formatted and written by one IO thread, with at most
 IO_PENDING_MAX batches waiting for it; on the CPU on the host in float64.
-Not yet ported (it raises NotImplementedError and is listed in ROADMAP.md
-queue A item 9): ``shards``.
+
+``shards=S`` (or a mesh passed in) cuts the phi_y grid over S slots
+(parallel/spatial.py): each holds its (NHP, MP/S) slice of the state.
+``impl=torch`` runs the sharded plain scan; ``impl=stream``, ``cuda`` and
+``auto`` the sharded form of B2 (parallel/stream_shard.ShardedStreamRunner).
+The JAX package sends ``auto`` to its sharded XLA scan; the port's plain
+scan is a Python loop a step, so ``auto`` takes the kernel.  Values are
+gathered onto the first slot's device for frames, the round's observables
+and checkpoints (across processes every process gathers).  Across
+processes every process runs the same schedule in lockstep: process 0
+alone writes files and the output stream (the others write to devnull),
+reads the parameter server and broadcasts each mutation, and IO runs
+inline, so that no thread orders a collective against the main one.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import sys
 import time
 
@@ -70,26 +84,30 @@ class NumericalInstability(RuntimeError):
     pass
 
 
-def _unported(cfg: SimConfig):
-    """The first feature of cfg this package does not run yet, or None."""
-    if cfg.shards > 1:
-        return "shards>1 (ROADMAP.md queue A item 9)"
-    return None
-
-
 class Simulation:
-    def __init__(self, cfg: SimConfig, out=None, device=None):
-        missing = _unported(cfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"slb2d_tpu_torch does not run {missing} yet")
+    # one device, one process, until __init__ says otherwise
+    layout = None
+    _p0, _nprocs = True, 1
+
+    def __init__(self, cfg: SimConfig, out=None, device=None, mesh=None):
+        """device: the run's device (default cuda:<cfg.device>; the CPU
+        only when asked).  mesh: a mesh whose "space" axis holds cfg.shards
+        slots (default, with shards>1: make_mesh over this process's
+        devices, parallel/mesh.local_devices; for the tests and the smoke
+        run, a mesh may repeat a device)."""
+        from ..parallel.mesh import process_count, process_index
         self.cfg = cfg
-        # default cuda:<cfg.device> for every impl; the CPU only when asked
-        self.device = cfgmod.torch_device(cfg, device)
+        self._p0 = process_index() == 0
+        self._nprocs = process_count()
         self._runner = None
-        self._build_model()
-        self.out = out if out is not None else cfgmod.open_out(cfg)
-        self.quiet = cfg.quiet
+        self._build_model(device, mesh)
+        if out is not None:
+            self.out = out
+        elif self._p0:
+            self.out = cfgmod.open_out(cfg)
+        else:
+            self.out = open(os.devnull, "w")
+        self.quiet = cfg.quiet or not self._p0
         self.recon = None
         self.frame_number = 1
         self.strobe_values = None
@@ -129,34 +147,84 @@ class Simulation:
             self.state = stencil.bootstrap_state(self.c, self.model)
             self.t0 = 0.0
             self.steps_done = 0
+        if self.layout is not None:
+            self.state = self.layout.scatter_state(self.state)
         self.t_start = float(cfg.t_start)
         self.t_max = self._compute_t_max()
 
     # -- setup ---------------------------------------------------------------
 
-    def _build_model(self):
+    def _build_model(self, device=None, mesh=None):
         self.model = SuperlatticeModel(self.cfg)
+        self.layout = self._space_layout(device, mesh)
+        # default cuda:<cfg.device> for every impl; the CPU only when asked
+        self.device = (cfgmod.torch_device(self.cfg, device)
+                       if self.layout is None else self.layout.home)
         self.engine = self._select_engine()
-        self.c = stencil.consts_from_model(self.model, self.device)
+        self._set_consts(stencil.consts_from_model(self.model, self.device))
+
+    def _space_layout(self, device, mesh):
+        """The SpaceLayout of a sharded run (shards>1 or a mesh), else
+        None.  Fewer devices than shards= raise (make_mesh)."""
+        from ..parallel.mesh import local_devices, make_mesh
+        from ..parallel.spatial import SpaceLayout
+        S = self.cfg.shards
+        if mesh is None:
+            if S == 1:
+                return None
+            first = cfgmod.torch_device(self.cfg, device)   # no card: raise
+            mesh = make_mesh((S,), ("space",),
+                             devices=local_devices(device=first))
+        elif mesh.shape.get("space") != S:
+            raise ValueError(f"shards={S}, but the mesh's \"space\" axis "
+                             f"holds {mesh.shape.get('space')} slots")
+        return SpaceLayout(mesh, self.model.MP)
+
+    def _set_consts(self, c):
+        """The run's consts, and on the sharded plain scan each slot's."""
+        self.c = c
+        self.cs = (self.layout.scatter_consts(c) if self.layout is not None
+                   and self.engine == "torch" else None)
+
+    def _gather(self, x):
+        """A state array (a, b, a_hs, b_hs, or rows of them) whole: on a
+        sharded run gathered onto the first slot's device (a collective
+        across processes)."""
+        return x if self.layout is None else self.layout.gather(x)
+
+    def _first(self, x):
+        """A replicated field's value (the first slot's on a sharded
+        run)."""
+        return x if self.layout is None else x.items[0]
+
+    def _rep(self, x):
+        """x on every slot of a sharded run."""
+        return x if self.layout is None else self.layout.replicate(x)
 
     def _select_engine(self):
         """'torch', 'cuda-b1' or 'stream'.  impl=stream on device=cpu runs
         the stream kernel's plain version, as the JAX package's impl=stream
         runs its kernel in interpret mode on the CPU; impl=cuda and auto run
         on a card or not at all.  The kernel engine's runner picks its form
-        by the same plans (stepper_stream_cuda.engine_choice)."""
+        by the same plans (stepper_stream_cuda.engine_choice); a sharded
+        run's kernel engine is B2's sharded form, whose geometry is checked
+        here."""
         impl = self.cfg.impl
         if impl == "torch":
             return "torch"
-        if impl == "stream" and self.device.type == "cpu":
-            return "stream"
-        if self.device.type != "cuda":
-            raise ValueError(f"impl={impl} needs a CUDA device, got "
-                             f"{self.device}")
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"impl={impl}: no CUDA device is available")
+        if impl != "stream" or self.device.type != "cpu":
+            if self.device.type != "cuda":
+                raise ValueError(f"impl={impl} needs a CUDA device, got "
+                                 f"{self.device}")
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"impl={impl}: no CUDA device is available")
         from ..ops.stepper_stream_cuda import stream_beats_b1
         m = self.model
+        if self.layout is not None:
+            from ..parallel.stream_shard import validate_shard_geometry
+            validate_shard_geometry(m.NHP, m.MP, self.layout.S)
+            return "stream"
         if impl == "stream" or stream_beats_b1(m.NHP, m.MP, m.np_dtype):
             return "stream"
         return "cuda-b1"
@@ -165,13 +233,21 @@ class Simulation:
         """The engine and the form its runner took: 'torch', 'cuda-b1
         resident', 'cuda-b1 per-half-step', 'stream spill' or 'stream
         tiling' (before the first chunk the form is not chosen yet:
-        'cuda-b1' or 'stream')."""
+        'cuda-b1' or 'stream'); a sharded run adds its shard count:
+        'torch shards=2', 'stream sharded shards=2'."""
         form = getattr(self._runner, "form", None)
-        return f"{self.engine} {form}" if form else self.engine
+        tag = f"{self.engine} {form}" if form else self.engine
+        if self.layout is not None:
+            tag += f" shards={self.layout.S}"
+        return tag
 
     def _kernel_runner(self):
         if self._runner is None:
-            if self.engine == "stream":
+            if self.layout is not None:
+                from ..parallel.stream_shard import ShardedStreamRunner
+                self._runner = ShardedStreamRunner(self.c, self.model,
+                                                   self.layout)
+            elif self.engine == "stream":
                 from ..ops.stepper_stream_cuda import make_stream_runner
                 self._runner = make_stream_runner(self.c, self.model)
             else:
@@ -225,9 +301,11 @@ class Simulation:
                 recon, F, norm = self._frame_and_norm()
                 if not self.quiet:
                     print("\nWriting frame frame.data")
-                with open("frame.data", "w") as fh:
-                    writers.write_frame(fh, self.model, recon, None, None,
-                                        self.t_exit, F=F, norm=norm)
+                if self._p0:
+                    with open("frame.data", "w") as fh:
+                        writers.write_frame(fh, self.model, recon, None,
+                                            None, self.t_exit, F=F,
+                                            norm=norm)
                 break
             if cfg.display == 4:
                 av, a2, b2 = self._round_obs
@@ -237,7 +315,7 @@ class Simulation:
 
             if repl_stream is None:
                 break
-            mut = cfgmod.scan_for_new_parameters(repl_stream)
+            mut = self._scan_params(repl_stream)
             if mut is None:
                 break
             self._apply_mutation(*mut)
@@ -253,13 +331,19 @@ class Simulation:
                       f"[impl={self.engine_tag()}]")
         self._drain_io()
         if cfg.checkpoint:
+            # the whole state, gathered on every process (a collective
+            # across processes); process 0 alone writes the file, in the
+            # format of an unsharded run
+            state = (self.state if self.layout is None
+                     else self.layout.gather_state(self.state))
             extra = {}
             if self.strobe_values is not None:
                 extra["strobe_values"] = self._fetch_np(self.strobe_values)
-            save_state(cfg.checkpoint, self.state, model=self.model,
-                       t0=self.t_exit, frame_time=self.frame_time,
-                       frame_number=self.frame_number,
-                       last_rem=self.last_rem, **extra)
+            if self._p0:
+                save_state(cfg.checkpoint, state, model=self.model,
+                           t0=self.t_exit, frame_time=self.frame_time,
+                           frame_number=self.frame_number,
+                           last_rem=self.last_rem, **extra)
         if self.out not in (sys.stdout, sys.stderr):
             self.out.close()
         return self.state
@@ -326,10 +410,14 @@ class Simulation:
         # 77 averages only at emission steps, which only the schedule's
         # tables know, so it keeps them (slb2d_tpu/runtime/loop.py:188-195)
         exact = self.cfg.exact_time or self.cfg.display == 77
+        hooks = ({} if self.layout is None else
+                 dict(shift=self.layout.shift, sum_m=self.layout.sum_m))
         state, ys = stencil.run_chunk(
-            self.c, state, chunk.xs, collect_obs=bool(emit),
-            exact_trig=exact, av_enabled=self.cfg.display not in (7, 77, 8))
-        return state, (ys[list(emit)].cpu().numpy() if emit else ())
+            self.cs if self.layout is not None else self.c, state,
+            chunk.xs, collect_obs=bool(emit), exact_trig=exact,
+            av_enabled=self.cfg.display not in (7, 77, 8), **hooks)
+        return state, (self._first(ys)[list(emit)].cpu().numpy() if emit
+                       else ())
 
     def _run_round(self):
         carry: dict = {}
@@ -363,12 +451,14 @@ class Simulation:
         display 4) harmonic rows 0/1 of a and b — everything the round-end
         NaN guard and the display-4 observable line read."""
         st = self.state
+        av = self._first(st.av)
         if self.cfg.display != 4:
-            packed = torch.cat([st.av, st.a[0, :8]]).cpu().numpy()
+            packed = torch.cat([av, self._gather(st.a[0])[:8]]).cpu().numpy()
             return packed[:8], packed[8:16].reshape(1, 8), None
         MP = self.model.MP
-        packed = torch.cat([st.av, st.a[:2].reshape(-1),
-                            st.b[:2].reshape(-1)]).cpu().numpy()
+        packed = torch.cat([av, self._gather(st.a[:2]).reshape(-1),
+                            self._gather(st.b[:2]).reshape(-1)]
+                           ).cpu().numpy()
         return (packed[:8], packed[8:8 + 2 * MP].reshape(2, MP),
                 packed[8 + 2 * MP:].reshape(2, MP))
 
@@ -420,7 +510,12 @@ class Simulation:
 
     def _io_submit(self, fn):
         """Queue fn on the IO thread, after waiting for the oldest batch
-        while IO_PENDING_MAX of them are queued."""
+        while IO_PENDING_MAX of them are queued; across processes run it
+        inline (the JAX driver's rule: no thread of a process may order
+        a collective against its main thread)."""
+        if self._nprocs > 1:
+            fn()
+            return
         if self._io_pool is None:
             self._io_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1)
@@ -474,6 +569,8 @@ class Simulation:
         timing = self.timing
 
         def write(batch=batch, Fs=Fs, ns=ns):
+            if not self._p0:
+                return                        # process 0's files
             t0 = time.perf_counter()
             Fh = self._fetch_np(Fs)           # ONE transfer for k frames
             nh = (self._fetch_np(ns) if ns is not None
@@ -500,7 +597,8 @@ class Simulation:
         recon = self._get_recon()
         if self._device_frames():
             F, norm_sum = recon.reconstruct_on_device(
-                self.state.a, self.state.b, 1, model.M + 2)
+                self._gather(self.state.a), self._gather(self.state.b), 1,
+                model.M + 2)
             D = model.np_dtype
             scale = 2 * PI * np.sqrt(np.float64(model.alpha))
 
@@ -513,7 +611,8 @@ class Simulation:
         return F, None, (lambda s, _n=norm: _n)
 
     def _host_ab(self):
-        return self._fetch_np(self.state.a), self._fetch_np(self.state.b)
+        return (self._fetch_np(self._gather(self.state.a)),
+                self._fetch_np(self._gather(self.state.b)))
 
     def _frame_and_norm(self):
         """(recon, F, norm) of the current frame, fetched to the host."""
@@ -529,6 +628,16 @@ class Simulation:
                 "(reference guidance, src/boltzmann_c_solver.c:56-57)")
 
     # -- parameter server ----------------------------------------------------
+
+    def _scan_params(self, stream):
+        """One parameter-server read; across processes process 0 reads the
+        stream and broadcasts the mutation, so that every process applies
+        the same change in lockstep."""
+        if self._nprocs == 1:
+            return cfgmod.scan_for_new_parameters(stream)
+        from ..parallel.collectives import broadcast_object
+        return broadcast_object(cfgmod.scan_for_new_parameters(stream)
+                                if self._p0 else None)
 
     def _apply_mutation(self, name, value, timeout):
         """One live parameter change: t_start moves to t+timeout, t_max =
@@ -557,12 +666,13 @@ class Simulation:
         self.t0 = float(D(t + model.dt))
         # the averaging window moved: the live t_start in the stencil
         # consts (fast-trig mode gates on it) and in the runner's scalars
-        self.c = stencil.consts_from_model(model, self.device,
-                                           t_start=self.t_start)
+        self._set_consts(stencil.consts_from_model(model, self.device,
+                                                   t_start=self.t_start))
         if self._runner is not None:
             self._runner.update_consts(self.c)
         self.state = self.state.replace(
-            av=torch.zeros(8, dtype=self.state.a.dtype, device=self.device),
-            t=torch.tensor(D(self.t0), device=self.device))
+            av=self._rep(torch.zeros(8, dtype=self.state.a.dtype,
+                                     device=self.device)),
+            t=self._rep(torch.tensor(D(self.t0), device=self.device)))
         if not self.quiet:
             print(f"# t_max = {writers.f20(D(self.t_max))}")

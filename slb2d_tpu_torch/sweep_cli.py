@@ -1,8 +1,12 @@
 """Command-line parameter sweeps: `slb2d-torch-sweep` / `python -m
 slb2d_tpu_torch.sweep_cli`.
 
-The port of ``slb2d_tpu/sweep_cli.py`` on one device: a whole grid runs
-as one batch (BASELINE config #5, absorption maps) on the stacked sweep
+The port of ``slb2d_tpu/sweep_cli.py``: a whole grid runs as one batch
+(BASELINE config #5, absorption maps), or, where more than one device is
+visible, as blocks of points over a "sweep" mesh of all of them
+(parallel/mesh.local_devices: the cards from device= on, or the CPU;
+across processes every process's), on
+the stacked sweep
 kernel (csrc/sweep_stack.cu, one launch per chunk; omega axes ride its
 per-omega mode) or on the batched torch engine (parallel/sweep.py), as
 parallel/sweep.choose_engine routes them.
@@ -34,8 +38,10 @@ grid (its frames go to the next grid%02d).  `exit` or EOF quits.
 Chrome trace under DIR (slb2d-torch's profile-dir=).
 
 The run uses CUDA device `device=` (default 0) for every impl; only
-device=cpu runs it on the CPU.  Not ported yet (NotImplementedError):
-`shards>1` (ROADMAP.md queue A item 9).
+device=cpu runs it on the CPU.  Across processes (torch.distributed,
+parallel/mesh.init_distributed) process 0 alone writes the table and the
+frames.  Not ported yet (NotImplementedError): `shards>1`, the combined
+sweep x space layout (ROADMAP.md queue A item 9).
 """
 
 from __future__ import annotations
@@ -100,6 +106,9 @@ def _write_point_frames(cfg, sweep, res, frames_dir, grid_no):
     from .ops.frames import FrameReconstructor
     from .parallel.sweep import SWEEPABLE
 
+    from .parallel.mesh import process_index
+    if process_index() != 0:
+        return                    # final_ab is every process's; p0 writes
     a, b = sweep.final_ab
     d = os.path.join(frames_dir, f"grid{grid_no:02d}")
     os.makedirs(d, exist_ok=True)
@@ -123,17 +132,27 @@ def _write_point_frames(cfg, sweep, res, frames_dir, grid_no):
 def _run_one_grid(cfg, sweeps, out, device, frames_dir=None, grid_no=0):
     """Build, run, and write one sweep grid; returns the point count."""
     from .cli import profiled
+    from .parallel.mesh import make_mesh
     from .parallel.sweep import ParameterSweep
 
     grids = np.meshgrid(*sweeps.values(), indexing="ij")
     flat = {k: g.ravel() for k, g in zip(sweeps.keys(), grids)}
     B = len(next(iter(flat.values())))
 
+    # every visible device on the "sweep" axis (the JAX CLI's pure sweep
+    # mesh); its blocks may be ragged, where the JAX CLI wants B % n == 0
+    mesh = make_mesh(None, ("sweep",), cfg=cfg)
+    n_dev = mesh.size
+    if n_dev == 1:
+        mesh = None
     sweep = ParameterSweep(cfg, flat, device=device,
-                           capture_state=frames_dir is not None)
+                           capture_state=frames_dir is not None, mesh=mesh)
     if not cfg.quiet:
+        where = (f"{sweep.device}" if mesh is None else
+                 f"{n_dev} of {n_dev} device(s), blocks of "
+                 f"{-(-B // n_dev)} points")
         print(f"# sweeping {list(sweeps.keys())} over {B} points "
-              f"({sweep.n_steps} steps each) on {sweep.device} "
+              f"({sweep.n_steps} steps each) on {where} "
               f"[{sweep.engine} engine]", file=sys.stderr)
     # checkpoint= saves the batch state every steps-per-chunk steps (and
     # at the end); resume= continues an interrupted sweep of the same grid
@@ -259,7 +278,12 @@ def main(argv=None):
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
 
-    out = cfgmod.open_out(cfg)
+    from .parallel.mesh import process_index
+    if process_index() == 0:
+        out = cfgmod.open_out(cfg)
+    else:
+        import os
+        out = open(os.devnull, "w")
     try:
         try:
             _run_one_grid(cfg, sweeps, out, device, frames_dir, 0)

@@ -772,3 +772,42 @@ def test_mutations_and_resume_reach_every_form(card, tmp_path, pair,
                             f"{pair} display {display}")
     assert out[0][1] == out[1][1]
     assert len(out[0][1]) == (101 if display == 9 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("dtype,grid", [("f64", (8, 64)), ("f32", (8, 64)),
+                                        ("f32", (18, 300))])
+def test_sharded_stream_matches_plain(card, dtype, grid, S):
+    """B2's sharded form on S slots of cuda:0 against its plain version,
+    K+3 steps then 5 from parity 1 with display-77 records (state and
+    edges bit for bit, av and records at chip_smoke.TOL; S + 1 launches a
+    round)."""
+    import chip_smoke
+    _, runner, _ = chip_smoke.check_shard_vs_plain(
+        dict(n_harmonics=grid[0], g_grid=grid[1]), dtype, S)
+    assert runner.form == "sharded" and runner.layout.S == S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["ragged", "omega_ragged"])
+def test_sweep_mesh_on_two_slots_matches_one(card, shape):
+    """A "sweep" mesh of two slots of cuda:0 (B3 a block) against the
+    same sweep on the card alone: the table and the frames bit for bit."""
+    import numpy as np
+    import chip_smoke
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.parallel import ParameterSweep, make_mesh
+    kw, params = chip_smoke.sweep_grid(shape)
+    cfg = SimConfig(display=4, dtype="f32", impl="cuda", quiet=True, **kw)
+    one = ParameterSweep(cfg, params, device=card, capture_state=True)
+    ref = one.run()
+    two = ParameterSweep(cfg, params, capture_state=True,
+                         mesh=make_mesh((2,), ("sweep",),
+                                        devices=[card] * 2))
+    assert two.engine == "cuda"
+    res = two.run()
+    for k in ref:
+        np.testing.assert_array_equal(res[k], ref[k], err_msg=k)
+    for got, want in zip(two.final_ab, one.final_ab):
+        np.testing.assert_array_equal(got, want)

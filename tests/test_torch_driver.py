@@ -183,13 +183,21 @@ def test_impl_cuda_without_cuda_raises(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(shards=2), "shards>1"),
+    (dict(shards=2), "needs 2 devices, have 1"),
+    (dict(shards=4, device="cpu"), "needs 4 devices, have 1"),
 ])
 def test_unported_features_raise(kw, what):
+    """shards>1, the last feature the driver did not run, is ported: a
+    run now raises only where the mesh cannot be built (fewer devices
+    than shards=, as the JAX driver raises), never NotImplementedError;
+    with a mesh of CPU slots it runs (tests/test_torch_spatial.py)."""
+    from slb2d_tpu_torch.parallel.mesh import make_mesh
     cfg = SimConfig(**{**COMMON, **TINY, **kw}, impl="torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        Simulation(cfg, device=CPU)
-    assert what in str(e.value)
+    with pytest.raises(ValueError, match=what):
+        Simulation(cfg, device=CPU if "device" not in kw else None)
+    sim = Simulation(cfg, mesh=make_mesh((cfg.shards,), ("space",),
+                                         devices=[CPU] * cfg.shards))
+    assert sim.layout.S == cfg.shards
 
 
 def test_cli_torch_on_cpu_and_device_ordinal(tmp_path, monkeypatch, capsys):

@@ -34,7 +34,12 @@ def test_port_imports_no_jax():
               "slb2d_tpu_torch.bench",
               "slb2d_tpu_torch.perf.vpu_roofline",
               "slb2d_tpu_torch.perf.roll_cost_experiment",
-              "slb2d_tpu_torch.perf.transposed_experiment"):
+              "slb2d_tpu_torch.perf.transposed_experiment",
+              "slb2d_tpu_torch.parallel.mesh",
+              "slb2d_tpu_torch.parallel.collectives",
+              "slb2d_tpu_torch.parallel.spatial",
+              "slb2d_tpu_torch.parallel.stream_shard",
+              "slb2d_tpu_torch.multihost_sweep"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
