@@ -216,7 +216,23 @@ Phases, one output line each (plus a few measurement lines):
               (B3 a slot) against 1, bit for bit, in turns; the sharded
               form per step at S = 1, 2, 4 in turns with the tiling and
               spill forms, and its exchange and replay per round (~42 s,
-              ~20 of them the two processes).
+              ~20 of them the two processes);
+ 27. combined: the combined sweep x space layout.  (a)
+              slb2d_tpu_torch.dryrun's dryrun_multichip(4) on four slots of
+              cuda:0 (a (2, 2) mesh: its six checks, launching B2's sharded
+              form and both modes of B3, their launches counted); (b) the
+              main path, the 64-point E_dc sweep through ParameterSweep on
+              a (2, 2) mesh of cuda:0 slots (two blocks of 32 points, each
+              point's grid over two slots, the batched engine: no kernel
+              runs it, in either package), cut to 1,000 of its 6,384
+              steps, against the one-device batched engine (state bit for
+              bit) and B3 (2e-4 / 2e-5), walls in turns, and split by a
+              checkpoint at step 400 resumed on one device (bit for bit);
+              (c) 2 points at N=100 M=20000 with shards=2 on a (1, 2)
+              mesh, 100 steps, bit for bit with one device, and a small
+              grid's frames bit for bit; (d) sharded runs at N=100 M=20000
+              (B2 sharded and the plain scan): every CUDA tensor they hold
+              at most a slot's extended slice wide.
 The last lines are the operation counts and bounds of the main paths, a
 JSON record of the kernels (ms, plain_ms and bound_ms per step, per turn
 for P1, per pass for P2; B1's with its form, band, blocks, threads,
@@ -229,7 +245,8 @@ and ms_streaming, the streaming form's time in the same run; B4's with
 the same and its spills, its times in one chunk of 64 and the runner's
 walls; B2's tiling form's at the wide grid and its spill form's
 at N=100 M=20000 with phase 15's measurements and phase 25's
-parameter-server session; B2's sharded form's with phase 26's;
+parameter-server session; B2's sharded form's with phase 26's; B2's
+sharded form's and B3's with phase 27's dryrun launches;
 bound_ms is the larger of the main path's
 operations at F32_OPS_PEAK, the data sheet's, and its bytes, each input
 read once and each output written once, at 3.35 TB/s, over its steps;
@@ -243,6 +260,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3437,7 +3455,8 @@ def _shard_setup(shape, dtype, S, **kw):
     model, c, xs = _setup(shape, dtype, torch.device(DEVICE))
     lay = SpaceLayout(make_mesh((S,), ("space",), devices=[DEVICE] * S),
                       model.MP)
-    return model, c, xs, lay, ShardedStreamRunner(c, model, lay, **kw)
+    return model, c, xs, lay, ShardedStreamRunner(lay.scatter_consts(c),
+                                                  model, lay, **kw)
 
 
 def check_shard_vs_plain(shape, dtype, S):
@@ -3784,6 +3803,333 @@ def shards_phase(card, tmp):
                 ms_turns=t, round_costs_us=costs, plain_ms=plain_ms,
                 two_process_wall_s=two_wall, sweep_walls_s=walls,
                 model=model)
+
+
+# phase 27: the combined sweep x space layout.  The main path: the
+# 64-point E_dc sweep (BASELINE #2) on a (2, 2) mesh of slots of the card,
+# cut to COMBINED_STEPS of its 6,384 steps (the batched engine's Python
+# step loop runs each block in turn, ~3-6 ms a step a block)
+COMBINED_STEPS = 1000
+COMBINED_SPLIT = 400
+COMBINED_PROFILE = 50
+# one wide block: 2 points at B2's own shape, shards=2 on a (1, 2) mesh
+WIDE_BLOCK = dict(n_harmonics=100, g_grid=20000, t_start=0.05)
+WIDE_BLOCK_STEPS = 100
+# the small shared-omega grid whose frames are compared: 52 steps
+COMBINED_FRAMES = dict(n_harmonics=8, g_grid=24, omega=150.0, t_start=0.01)
+
+
+def held_tensors(root):
+    """(path, tensor) of every tensor reachable from root's attributes,
+    dataclass fields, dicts, lists, tuples and Slots (objects of the
+    slb2d_tpu_torch package only)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch.parallel.spatial import Slots
+    seen, out = set(), []
+
+    def walk(x, path):
+        if id(x) in seen or isinstance(x, (str, bytes, int, float,
+                                           np.ndarray, type(None))):
+            return
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            out.append((path, x))
+        elif isinstance(x, Slots):
+            for i, v in enumerate(x.items):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+        elif dataclasses.is_dataclass(x) or hasattr(x, "__dict__"):
+            if type(x).__module__.startswith("slb2d_tpu_torch"):
+                for k, v in vars(x).items():
+                    walk(v, f"{path}.{k}")
+
+    walk(root, "")
+    return out
+
+
+def device_busy(fn, steps):
+    """fn() under torch.profiler: its wall, the device's busy share (the
+    kernels' and copies' own device time over the wall), and per step the
+    kernels and copies and their device us."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_us(evt):
+        # the attribute was renamed across torch releases
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, name):
+                return float(getattr(evt, name))
+        return 0.0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.count, self_us(e)) for e in prof.key_averages()
+            if self_us(e) > 0]
+    busy = sum(us for _, us in rows) * 1e-6
+    return dict(wall_s=wall, busy_share=busy / wall,
+                kernels_per_step=sum(n for n, _ in rows) / steps,
+                busy_us_per_step=busy * 1e6 / steps)
+
+
+class _Stop(Exception):
+    pass
+
+
+@contextlib.contextmanager
+def stop_after_first_save():
+    """ParameterSweep.run stops (raises _Stop) after its first mid-run
+    checkpoint."""
+    from slb2d_tpu_torch.parallel.sweep import ParameterSweep
+    orig = ParameterSweep._save_checkpoint
+
+    def save_once(self, path, states, cap, done):
+        orig(self, path, states, cap, done)
+        if done < self.n_steps:
+            raise _Stop
+
+    ParameterSweep._save_checkpoint = save_once
+    try:
+        yield
+    finally:
+        ParameterSweep._save_checkpoint = orig
+
+
+def _ck_state(path):
+    import numpy as np
+    z = np.load(path)
+    return {k: z[k] for k in z.files if k.startswith(("state_", "cap_a",
+                                                        "cap_b"))}
+
+
+def _same_ck(x, y, what):
+    import numpy as np
+    for k in ("state_a", "state_b", "state_a_hs", "state_b_hs",
+              "state_hs_edge_a", "state_hs_edge_b", "state_t",
+              "state_step"):
+        check(np.array_equal(x[k], y[k]), f"{what}: {k} not bit for bit")
+
+
+def _table_err(res, ref, what, rtol=2e-4, atol=2e-5):
+    import torch
+    return max(allclose(torch.as_tensor(res[k], dtype=torch.float64),
+                        torch.as_tensor(ref[k], dtype=torch.float64),
+                        rtol, atol, f"{what} {k}") for k in ref)
+
+
+def combined_phase(card, tmp):
+    """Phase 27: the combined sweep x space layout.  (a) dryrun_multichip(4)
+    on four slots of the card, with B2 sharded's and both B3 modes'
+    launches; (b) the 64-point sweep on a (2, 2) mesh against one device
+    and B3, in turns, and split by a checkpoint resumed on one device; (c)
+    one wide block (N=100 M=20000, (1, 2)) and a small grid's frames; (d)
+    the CUDA tensors of sharded runs at N=100 M=20000.  Returns a dict for
+    the kernels line."""
+    import numpy as np
+    import torch
+    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch.config import SimConfig, parse_cmd
+    from slb2d_tpu_torch.dryrun import dryrun_multichip
+    from slb2d_tpu_torch.ops import sweep_stack_cuda as sscu
+    from slb2d_tpu_torch.parallel import ParameterSweep, make_mesh
+    from slb2d_tpu_torch.parallel import stream_shard
+    from slb2d_tpu_torch.parallel.spatial import M_FIELDS
+    from slb2d_tpu_torch.runtime.loop import Simulation
+    t_phase = time.perf_counter()
+
+    def grid(sweep, space):
+        return make_mesh((sweep, space), ("sweep", "space"),
+                         devices=[DEVICE] * (sweep * space))
+
+    # (a) the dryrun's six checks on four slots
+    zero_counts()
+    dry = dryrun_multichip(4, device=DEVICE)
+    counts = dict(b2_sharded_tiles=stream_shard.tile_launch_count,
+                  b2_sharded_replays=stream_shard.replay_launch_count,
+                  b3_shared=sscu.launch_count,
+                  b3_omega=sscu.omega_launch_count)
+    check(counts == dry["launches"] and all(counts.values()),
+          f"dryrun launches {counts}, the dryrun counted "
+          f"{dry['launches']}")
+    print(f"combined dryrun: dryrun_multichip(4) on 4 slots of {DEVICE}, "
+          f"mesh {dry['mesh']}: launches {counts}; max abs err "
+          f"{dry['max_abs_err']}; wall {dry['wall_s']:.3f} s [{card}]",
+          flush=True)
+
+    # (b) the main path: the 64-point sweep on a (2, 2) mesh
+    kw, params = sweep_grid("full")
+    cfg = SimConfig(display=4, dtype="f32", impl="torch", quiet=True, **kw)
+    full_steps = ParameterSweep(cfg, params, device=DEVICE).n_steps
+
+    def make(which, n=COMBINED_STEPS):
+        if which == "combined":
+            sw = ParameterSweep(cfg, params, mesh=grid(2, 2),
+                                space_axis="space")
+        elif which == "one":
+            sw = ParameterSweep(cfg, params, device=DEVICE)
+        else:
+            sw = ParameterSweep(cfg.replace(impl="cuda"), params,
+                                device=DEVICE)
+        sw.n_steps = n
+        return sw
+
+    # the checked runs, with every count set to 0 just before each and
+    # read just after, and a final checkpoint (the whole state)
+    res, launches, cks = {}, {}, {}
+    for which in ("combined", "one", "b3"):
+        sw = make(which)
+        ck = os.path.join(tmp, f"{which}.npz")
+        zero_counts()
+        res[which] = sw.run(checkpoint=ck)
+        launches[which] = bench.launch_counts()
+        cks[which] = _ck_state(ck)
+        if which == "combined":
+            check(sw.engine == "torch" and len(sw.blocks) == 2 and all(
+                sub.layout.S == 2 for _, sub in sw.blocks),
+                f"combined sweep: engine {sw.engine}, blocks {sw.blocks}")
+    check(not any(launches["combined"].values())
+          and not any(launches["one"].values()),
+          f"the batched engine launched kernels: {launches['combined']}, "
+          f"{launches['one']}")
+    check(launches["b3"]["B3"] == 1, f"B3 launches {launches['b3']}")
+    _same_ck(cks["combined"], cks["one"], "combined vs one device")
+    err_one = _table_err(res["combined"], res["one"], "combined vs one")
+    err_b3 = _table_err(res["combined"], res["b3"], "combined vs B3")
+    # the walls in turns, without checkpoints (compressing the state takes
+    # ~0.5 s at this shape)
+    walls = {}
+    for which in ("combined", "one", "b3", "b3", "one", "combined"):
+        sw = make(which)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw.run()
+        torch.cuda.synchronize()
+        walls.setdefault(which, []).append(time.perf_counter() - t0)
+    us = {k: [w * 1e6 / COMBINED_STEPS for w in v] for k, v in walls.items()}
+    # the device's busy share and kernels a step over a short window of
+    # each batched run, under torch.profiler (its overhead lengthens the
+    # wall)
+    prof = {which: device_busy(make(which, COMBINED_PROFILE).run,
+                               COMBINED_PROFILE)
+            for which in ("combined", "one")}
+
+    # split at step COMBINED_SPLIT by a checkpoint, resumed on one device
+    ck = os.path.join(tmp, "split.npz")
+    with stop_after_first_save():
+        try:
+            make("combined").run(checkpoint=ck,
+                                 checkpoint_every=COMBINED_SPLIT)
+            check(False, "the split run did not stop at its checkpoint")
+        except _Stop:
+            pass
+    check(int(np.load(ck)["done"]) == COMBINED_SPLIT, "split checkpoint")
+    make("one").run(checkpoint=ck, resume=ck)
+    _same_ck(_ck_state(ck), cks["one"], "split on (2, 2), resumed on one")
+    print(f"combined main: the 64-point E_dc sweep (N=40 M=500 f32) cut to "
+          f"{COMBINED_STEPS} of its {full_steps} steps, on a (2, 2) mesh "
+          f"of {DEVICE} (2 blocks of 32 points, each grid over 2 slots, the "
+          f"batched engine, no kernel launched): state bit for bit with "
+          f"one device, table max abs err {err_one:.3e}, vs B3 "
+          f"{err_b3:.3e}; split at step {COMBINED_SPLIT} and resumed on one "
+          f"device: bit for bit; wall s in turns combined "
+          f"{'/'.join(f'{w:.3f}' for w in walls['combined'])}, one device "
+          f"{'/'.join(f'{w:.3f}' for w in walls['one'])}, B3 "
+          f"{'/'.join(f'{w:.4f}' for w in walls['b3'])}; us a step "
+          + ", ".join(f"{k} " + "/".join(f"{v:.1f}" for v in vs)
+                      for k, vs in us.items()) + f"; under the profiler over "
+          f"{COMBINED_PROFILE} steps: " + ", ".join(
+              f"{k} device busy {p['busy_share']:.4f} of "
+              f"{p['wall_s']:.3f} s, {p['kernels_per_step']:.1f} kernels "
+              f"and copies a step, {p['busy_us_per_step']:.1f} us of them"
+              for k, p in prof.items()) + f" [{card}]", flush=True)
+
+    # (c) one wide block, and a small grid's frames
+    wcfg = SimConfig(display=4, dtype="f32", impl="torch", quiet=True,
+                     shards=2, **{**PHYS, **WIDE_BLOCK})
+    wparams = {"E_dc": np.array([0.5, 1.5])}
+    wide = {}
+    for which in ("combined", "one"):
+        if which == "combined":
+            sw = ParameterSweep(wcfg, wparams, mesh=grid(1, 2),
+                                space_axis="space")
+        else:
+            sw = ParameterSweep(wcfg.replace(shards=1), wparams,
+                                device=DEVICE)
+        sw.n_steps = WIDE_BLOCK_STEPS
+        ck = os.path.join(tmp, f"wide_{which}.npz")
+        res[f"wide_{which}"] = sw.run(checkpoint=ck)
+        cks[f"wide_{which}"] = _ck_state(ck)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw.run()                                # timed: no checkpoint
+        torch.cuda.synchronize()
+        wide[which] = time.perf_counter() - t0
+    _same_ck(cks["wide_combined"], cks["wide_one"], "wide block")
+    wide_err = _table_err(res["wide_combined"], res["wide_one"],
+                          "wide block")
+    fcfg = SimConfig(display=4, dtype="f32", impl="torch", quiet=True,
+                     **{**PHYS, **COMBINED_FRAMES})
+    fparams = {"E_dc": np.linspace(0.25, 2.0, 4)}
+    fr = [ParameterSweep(fcfg, fparams, mesh=grid(2, 2), space_axis="space",
+                         capture_state=True),
+          ParameterSweep(fcfg, fparams, device=DEVICE, capture_state=True)]
+    for sw in fr:
+        sw.run()
+    for x, y in zip(fr[0].final_ab, fr[1].final_ab):
+        check(np.array_equal(x, y), "combined frames not bit for bit")
+    print(f"combined wide: 2 points at N=100 M=20000 f32, shards=2 on a "
+          f"(1, 2) mesh, {WIDE_BLOCK_STEPS} steps: state bit for bit with "
+          f"one device, table max abs err {wide_err:.3e}, wall "
+          f"{wide['combined']:.3f} s (one device {wide['one']:.3f} s); the "
+          f"{fr[0].n_steps}-step frames grid (N=8 M=24, 4 points) on (2, 2): "
+          f"captures bit for bit [{card}]", flush=True)
+
+    # (d) no whole-grid constant on a slot: sharded runs at N=100 M=20000
+    held = {}
+    for impl in ("stream", "torch"):
+        sim = Simulation(parse_cmd(cli_argv(B2_OWN, impl=impl) + [
+            "shards=2", "steps-per-chunk=8"]), mesh=make_mesh(
+                (2,), ("space",), devices=[DEVICE] * 2))
+        sim.warmup()                     # the runner and its buffers built
+        MP, L = sim.model.MP, sim.layout.L
+        H = sim._runner.geom.H if sim._runner is not None else 0
+        cuda = [(re.sub(r"\[\d+\]", "", p), t.shape[-1])
+                for p, t in held_tensors(sim)
+                if t.device == torch.device(DEVICE) and t.dim()]
+        for f in M_FIELDS:
+            check(all(t.shape[-1] == L for t in getattr(sim.c, f).items),
+                  f"shards=2 impl={impl}: consts {f} not L wide")
+        widest = max(w for _, w in cuda)
+        check(widest <= L + 2 * H < MP, f"shards=2 impl={impl}: a CUDA "
+              f"tensor {widest} wide (MP {MP}, L {L}, H {H})")
+        held[impl] = dict(tensors=len(cuda), MP=MP, L=L, H=H,
+                          widest=widest,
+                          wider_than_L=sorted({p for p, w in cuda if w > L}))
+        del sim
+    print(f"combined consts: shards=2 at N=100 M=20000 (MP "
+          f"{held['stream']['MP']}, L {held['stream']['L']}): no CUDA tensor "
+          f"of the run or its runner is wider than a slot's extended slice "
+          f"(L + 2H), the consts' m-indexed fields L wide; "
+          + "; ".join(f"impl={k}: {v['tensors']} tensors, widest "
+                      f"{v['widest']}, wider than L: {v['wider_than_L']}"
+                      for k, v in held.items()) + f" [{card}]", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"combined: phase 27 {phase_s:.1f} s [{card}]", flush=True)
+    return dict(dryrun=dry, launches=counts, walls_s=walls, us_per_step=us,
+                profiled=prof, steps=COMBINED_STEPS, full_steps=full_steps,
+                err_vs_one=err_one, err_vs_b3=err_b3, wide_s=wide,
+                wide_err=wide_err, held=held, phase_s=phase_s)
 
 
 def main():
@@ -4134,6 +4480,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         shards = shards_phase(card, tmp)
 
+    # 27. the combined sweep x space layout: the dryrun, the 64-point
+    # sweep on a (2, 2) mesh, one wide block, the sharded runs' tensors
+    with tempfile.TemporaryDirectory() as tmp:
+        combined = combined_phase(card, tmp)
+    dry = combined["launches"]
+
     # the bounds of each main path's run (B1: the tall grid, where impl=cuda
     # takes it; B2: the wide grid's impl=stream run, the same work as B1
     # there (its halo cells are overhead); sweep: the 64-point E_dc sweep;
@@ -4270,14 +4622,14 @@ def main():
         route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
         launches=sweep_launches, max_abs_err=sweep_err["full", "f32"][0],
         ms=sk_ms, plain_ms=sp_ms, ms_streaming=ss_ms,
-        **b3_form["B3 shared"]), entry(
+        dryrun_launches=dry["b3_shared"], **b3_form["B3 shared"]), entry(
         "B3 per-omega", name="slb_sweep_chunk_omega (sweep_cluster<T, "
                              "true>; streaming form sweep_chunk<T, true>)",
         route="cuda", source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
         launches=omega_launches, max_abs_err=omega_err["paper", "f32"][0],
         capture_max_abs_err=omega_err["paper", "f32"][1],
         ms=pk_ms, plain_ms=pp_ms, ms_streaming=ps_ms,
-        **b3_form["B3 per-omega"]), entry(
+        dryrun_launches=dry["b3_omega"], **b3_form["B3 per-omega"]), entry(
         "B2", name="slb_stream_chunk (stream_tile, stream_replay; B2's "
                    "tiling form)",
         route="cuda", source=STREAM_SOURCE, replaces=STREAM_REPLACES,
@@ -4307,7 +4659,9 @@ def main():
                         shards["round_costs_us"].items()},
         main_path=shards["main"],
         two_process_wall_s=shards["two_process_wall_s"],
-        sweep_two_slots_wall_s=shards["sweep_walls_s"]), entry(
+        sweep_two_slots_wall_s=shards["sweep_walls_s"],
+        dryrun_launches=dry["b2_sharded_tiles"] + dry["b2_sharded_replays"]),
+        entry(
         "B4", name="slb_lanes_cluster (lanes_cluster, one launch per "
                    "call); streaming form slb_lanes_chunk "
                    "(lanes_half_step<true>, lanes_half_step<false>)",

@@ -188,11 +188,13 @@ def apply_half_step(c: StencilConsts, a_src, b_src, a_nb, b_nb,
     return a_new, b_new
 
 
-def tiptoe_half_step(c: StencilConsts, a, cos_wdt):
+def tiptoe_half_step(c: StencilConsts, a, cos_wdt, shift=_shift):
     """The bootstrap tiptoe (reference src/boltzmann_c_solver.c:141-145):
-    one main-grid half-step reading the initial arrays for both roles."""
+    one main-grid half-step reading the initial arrays for both roles
+    (shift: as apply_half_step's)."""
     b = torch.zeros_like(a)
-    return apply_half_step(c, a, b, a, b, 1.0, cos_wdt, main=True)
+    return apply_half_step(c, a, b, a, b, 1.0, cos_wdt, main=True,
+                           shift=shift)
 
 
 def bootstrap_cos_wdt(model):
@@ -200,6 +202,18 @@ def bootstrap_cos_wdt(model):
     rounding (src/boltzmann_c_solver.c:141's cos argument path)."""
     f = model.np_dtype
     return f(np.cos(np.float64(f(model.omega) * f(model.dt))))
+
+
+def zero_carries(lead, NHP: int, dtype) -> dict:
+    """The State fields other than the four arrays at their start, zeros
+    on the host: hs_edge_a, hs_edge_b (*lead, NHP), av (*lead, 8), t and
+    step (*lead); lead is () for one run, (B,) for a batch."""
+    lead = tuple(lead)
+    return dict(hs_edge_a=torch.zeros(lead + (NHP,), dtype=dtype),
+                hs_edge_b=torch.zeros(lead + (NHP,), dtype=dtype),
+                av=torch.zeros(lead + (8,), dtype=dtype),
+                t=torch.zeros(lead, dtype=dtype),
+                step=torch.zeros(lead, dtype=torch.int32))
 
 
 def bootstrap_state(c: StencilConsts, model) -> State:
@@ -336,15 +350,16 @@ def emission_record(c: StencilConsts, pre: State, post: State,
 CAP_KEYS = ("v_dr", "v_y", "m_x", "norm")
 
 
-def capture_sums(state: State, w_d4, w_d4_phi, w_norm):
+def capture_sums(state: State, w_d4, w_d4_phi, w_norm, sum_m=_sum_m):
     """The display-4 loop-exit sums of every point's current arrays
     (src/boltzmann_c_solver.c:236-244), a (..., 4) tensor in CAP_KEYS
-    order: b[1]·w_d4, a[0]·w_d4_phi, a[1]·w_d4, a[0]·w_norm."""
+    order: b[1]·w_d4, a[0]·w_d4_phi, a[1]·w_d4, a[0]·w_norm (sum_m: as
+    full_step's)."""
     return torch.stack([
-        torch.sum(state.b[..., 1, :] * w_d4, dim=-1),
-        torch.sum(state.a[..., 0, :] * w_d4_phi, dim=-1),
-        torch.sum(state.a[..., 1, :] * w_d4, dim=-1),
-        torch.sum(state.a[..., 0, :] * w_norm, dim=-1)], dim=-1)
+        sum_m(state.b[..., 1, :] * w_d4),
+        sum_m(state.a[..., 0, :] * w_d4_phi),
+        sum_m(state.a[..., 1, :] * w_d4),
+        sum_m(state.a[..., 0, :] * w_norm)], dim=-1)
 
 
 def fast_step(c: StencilConsts, state: State, av_enabled: bool,

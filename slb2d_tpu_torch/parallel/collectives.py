@@ -71,14 +71,15 @@ def exchange(transfers, slot_ranks):
         dst.copy_(buf)
 
 
-def gather_slots(local, n_per_rank):
+def gather_slots(local, n_per_rank, group=None):
     """The per-slot tensors of every process, in slot order, on the device
     of `local`'s first tensor.  local: this process's slots' tensors (one
-    shape and dtype for all); n_per_rank: slots of each rank, in rank
-    order (processes hold contiguous runs of slots)."""
+    shape and dtype for all); n_per_rank: slots of each process that holds
+    some, in rank order (processes hold contiguous runs of slots); group:
+    the process group of those processes (None: every process)."""
     home = local[0].device
     mine = torch.stack([t.to(home) for t in local])
-    if process_count() == 1:
+    if len(n_per_rank) == 1:
         return list(mine.unbind(0))
     import torch.distributed as dist
     most = max(n_per_rank)
@@ -87,7 +88,7 @@ def gather_slots(local, n_per_rank):
     pad[:mine.shape[0]] = mine
     wire = _wire(pad)
     outs = [_wire_empty(wire) for _ in n_per_rank]
-    dist.all_gather(outs, wire)
+    dist.all_gather(outs, wire, group=group)
     return [t.to(home) for out, n in zip(outs, n_per_rank)
             for t in out[:n].unbind(0)]
 

@@ -56,10 +56,25 @@ class Mesh:
         others = [n for n, k in self.shape.items() if n != axis and k != 1]
         if others:
             raise ValueError(f"mesh {self.shape}: axes {others} besides "
-                             f"{axis!r} are not ported yet (the combined "
-                             f"sweep x space layout, ROADMAP.md queue A "
-                             f"item 9)")
+                             f"{axis!r} have more than one slot (a "
+                             f"combined layout takes Mesh.grid)")
         return list(self.slots.reshape(-1))
+
+    def grid(self, axis: str, space_axis: str) -> list:
+        """For each index along `axis`, its row of slots along
+        `space_axis` (the other axes of size 1): the combined sweep x space
+        layout's blocks, each a row of slots that cut one point's grid."""
+        names = self.axis_names
+        others = [n for n, k in self.shape.items()
+                  if n not in (axis, space_axis) and k != 1]
+        if axis == space_axis or others:
+            raise ValueError(f"mesh {self.shape}: no grid of {axis!r} by "
+                             f"{space_axis!r}")
+        order = [names.index(axis), names.index(space_axis)] + [
+            i for i, n in enumerate(names) if n not in (axis, space_axis)]
+        rows = np.transpose(self.slots, order).reshape(
+            self.shape[axis], self.shape[space_axis])
+        return [list(row) for row in rows]
 
     def __repr__(self):
         slots = [(s.rank, str(s.device)) for s in self.slots.reshape(-1)]

@@ -148,12 +148,17 @@ Slots.__invert__ = lambda self: _map(operator.invert, (self,))
 
 
 class SpaceLayout:
-    """An (NHP, MP) grid over the `axis` slots of a mesh: slot i holds
-    columns [i*L, (i+1)*L), L = MP / S.  Only MP % S == 0 is required (the
-    JAX package also wants L a multiple of 128 for its kernel)."""
+    """An (NHP, MP) grid over the `axis` slots of a mesh, or over a row of
+    slots (one block of the combined sweep x space layout, Mesh.grid):
+    slot i holds columns [i*L, (i+1)*L), L = MP / S.  Only MP % S == 0 is
+    required (the JAX package also wants L a multiple of 128 for its
+    kernel).  The processes that hold the slots run every operation across
+    them together, through `group` where they are neither one process nor
+    all of them."""
 
-    def __init__(self, mesh: Mesh, MP: int, axis: str = "space"):
-        self.slots = mesh.axis_slots(axis)
+    def __init__(self, mesh, MP: int, axis: str = "space", group=None):
+        self.slots = (mesh.axis_slots(axis) if isinstance(mesh, Mesh)
+                      else list(mesh))
         self.S = len(self.slots)
         if MP % self.S:
             raise ValueError(
@@ -164,12 +169,18 @@ class SpaceLayout:
         self.ranks = [s.rank for s in self.slots]
         rank = process_index()
         self.local = [i for i, r in enumerate(self.ranks) if r == rank]
-        if self.local != list(range(self.local[0], self.local[-1] + 1)):
-            raise ValueError("a process's slots must be contiguous")
+        if not self.local or self.local != list(
+                range(self.local[0], self.local[-1] + 1)):
+            raise ValueError(f"process {rank} must hold a contiguous run "
+                             f"of the layout's slots (ranks {self.ranks})")
         self.devices = [self.slots[i].device for i in self.local]
         self.home = self.devices[0]
-        self.n_per_rank = [self.ranks.count(r)
-                           for r in range(process_count())]
+        procs = sorted(set(self.ranks))
+        if group is None and 1 < len(procs) < process_count():
+            raise ValueError(f"slots of processes {procs} of "
+                             f"{process_count()} need their process group")
+        self.group = group
+        self.n_per_rank = [self.ranks.count(r) for r in procs]
         self._neighbours = (None, None)   # see neighbour_cols
 
     # -- layout ---------------------------------------------------------------
@@ -191,11 +202,16 @@ class SpaceLayout:
         x = torch.as_tensor(x)
         return Slots(x.to(d, copy=True) for d in self.devices)
 
+    def gather_slots(self, local) -> list:
+        """Every slot's tensor, in slot order, on the home device, from
+        this process's slots' `local` tensors (across processes a
+        collective of the layout's processes)."""
+        return gather_slots(local, self.n_per_rank, self.group)
+
     def gather(self, x: Slots) -> torch.Tensor:
         """The whole (..., MP) array on the home device of every process
         (every process must call it: across processes it gathers)."""
-        parts = gather_slots(x.items, self.n_per_rank)
-        return torch.cat(parts, dim=-1)
+        return torch.cat(self.gather_slots(x.items), dim=-1)
 
     def scatter_state(self, st: stencil.State) -> stencil.State:
         return stencil.State(**{
@@ -210,10 +226,26 @@ class SpaceLayout:
                 else getattr(st, f).items[0]) for f in stencil.FIELDS})
 
     def scatter_consts(self, c: stencil.StencilConsts):
+        """c (best built on the host: no slot's device then holds the whole
+        grid's m-indexed fields) with each slot's slice of those fields and
+        its own copy of the others."""
         return dataclasses.replace(c, **{
             f: (self.scatter if f in M_FIELDS else self.replicate)(
                 getattr(c, f))
             for f in (fl.name for fl in dataclasses.fields(c))})
+
+    def bootstrap_state(self, c, model) -> stencil.State:
+        """stencil.bootstrap_state on the slots, c the sharded consts: each
+        slot's slice of the initial arrays and of the tiptoe half-step,
+        the same bits as on one device, and no whole array on any
+        device."""
+        a = self.scatter(model.initial_a())
+        a_hs, b_hs = stencil.tiptoe_half_step(
+            c, a, float(stencil.bootstrap_cos_wdt(model)), shift=self.shift)
+        return stencil.State(
+            a=a, b=torch.zeros_like(a), a_hs=a_hs, b_hs=b_hs,
+            **{f: self.replicate(v) for f, v in stencil.zero_carries(
+                (), model.NHP, a.dtype).items()})
 
     # -- the operations across slots ------------------------------------------
 
@@ -290,8 +322,7 @@ class SpaceLayout:
     def sum_m(self, v: Slots) -> Slots:
         """The sum over m of the whole grid on every slot: each slot's sum
         over its columns, added in slot order."""
-        parts = gather_slots([torch.sum(x, dim=-1) for x in v.items],
-                             self.n_per_rank)
+        parts = self.gather_slots([torch.sum(x, dim=-1) for x in v.items])
         tot = parts[0]
         for p in parts[1:]:
             tot = tot + p

@@ -19,6 +19,8 @@ the display-77 records differ only by the order of the sums.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -30,8 +32,7 @@ from ..ops.stepper_stream_cuda import (DEFAULT_K, HALO_PER_STEP, Geometry,
                                        add_in_order, default_geometry,
                                        obs_table, plain_launch, raw_sums,
                                        replay_sums, tile_consts)
-from .collectives import gather_slots
-from .spatial import M_STATE, Slots
+from .spatial import M_FIELDS, M_STATE, Slots
 
 # kernel launches of the sharded form made by every runner of this
 # process: its tile launches (one per shard per round) and its replays
@@ -132,8 +133,7 @@ def run_chunk_plain_stream_sharded(c: stencil.StencilConsts, state, xs,
             new_quad.append(torch.stack(centres))
             new_edges.append(torch.stack([ea[owner_tile], eb[owner_tile]]))
         quad, edges = Slots(new_quad), Slots(new_edges)
-        tot = add_in_order(torch.cat(gather_slots(parts, layout.n_per_rank),
-                                     dim=1))
+        tot = add_in_order(torch.cat(layout.gather_slots(parts), dim=1))
         av, carry = replay_sums(c, av, carry, tot, xs, s0, emit, records)
     layout.send(edges, owner, range(S))
     out = stencil.State(
@@ -155,18 +155,21 @@ class ShardedStreamRunner:
     take its owner's edges.  Per round: one tile launch per shard, then
     one replay launch on the home device over every shard's tile sums.
 
-    On a card each slot keeps two extended buffer sets that rounds
-    ping-pong between, and windowed constants: a0, a0_ghost and phi over
-    its extended slice (0 off the grid), w_av and w_av_phi 0 in the halo
-    copies, so that every column counts once.  The state's slices, edges
-    and av are copied in at a chunk's start and back at its end.  On the
-    CPU it runs run_chunk_plain_stream_sharded.  A geometry the form
+    cs: the run's sharded consts (SpaceLayout.scatter_consts); no
+    constant of the whole grid is kept on a device.  On a card each slot
+    keeps two extended buffer sets that rounds ping-pong between, and
+    windowed constants cut from the model's host arrays: a0, a0_ghost and
+    phi over its extended slice (0 off the grid), w_av and w_av_phi 0 in
+    the halo copies, so that every column counts once.  The state's
+    slices, edges and av are copied in at a chunk's start and back at its
+    end.  On the CPU it runs run_chunk_plain_stream_sharded on the whole
+    grid's consts, built on the host for each chunk.  A geometry the form
     cannot run raises (validate_shard_geometry)."""
 
     engine = "stream"
     form = "sharded"
 
-    def __init__(self, c: stencil.StencilConsts, model, layout, K=None,
+    def __init__(self, cs: stencil.StencilConsts, model, layout, K=None,
                  W=None):
         validate_shard_geometry(model.NHP, model.MP, layout.S, K)
         self.model, self.layout = model, layout
@@ -181,15 +184,26 @@ class ShardedStreamRunner:
         self.last_obs = None
         self._bufs = None
         self._keep = None        # the last chunk's tables, kept alive
-        self.update_consts(c)
+        self.update_consts(cs)
 
-    def update_consts(self, c_new):
+    def update_consts(self, cs_new):
+        """The run's new sharded consts (their scalars: the parameter
+        server's mutations; the m-indexed fields stay the startup ones)."""
         D = self.model.np_dtype
-        self.c = c_new
+        self.cs = cs_new
         self.params = np.zeros(16, D)
         for i, name in enumerate(SCALAR_FIELDS):
-            self.params[i] = D(float(getattr(c_new, name)))
+            self.params[i] = D(float(getattr(cs_new, name).items[0]))
         self.dt = self.params[SCALAR_FIELDS.index("dt")]
+
+    def _host_consts(self):
+        """The whole grid's consts on the host, for the plain version: the
+        model's m-indexed arrays, every other field the run's."""
+        return dataclasses.replace(
+            stencil.consts_from_model(self.model, "cpu"),
+            **{f.name: getattr(self.cs, f.name).items[0].cpu()
+               for f in dataclasses.fields(self.cs)
+               if f.name not in M_FIELDS})
 
     def run_xs(self, state, xs_dict, parity0, emit_idx=()):
         n = len(xs_dict["t"])
@@ -197,8 +211,8 @@ class ShardedStreamRunner:
         dev = self.layout.home
         if dev.type == "cpu":
             out, self.last_obs = run_chunk_plain_stream_sharded(
-                self.c, state, xs, parity0, emit_idx, self.geom,
-                self.layout)
+                self._host_consts(), state, xs, parity0, emit_idx,
+                self.geom, self.layout)
         elif dev.type == "cuda":
             out = self._launch(state, xs, n, parity0, emit_idx)
         else:
@@ -222,7 +236,6 @@ class ShardedStreamRunner:
             L, H = lay.L, g.H
             WE = L + 2 * H
             T_all = lay.S * g.n_tiles
-            c = self.c
             z = torch.zeros((), dtype=self.dtype)
             partials = {d: torch.zeros((g.K, T_all, 4), dtype=self.dtype,
                                        device=d) for d in set(lay.devices)}
@@ -233,8 +246,8 @@ class ShardedStreamRunner:
                 own = (cols >= i * L) & (cols < (i + 1) * L)
                 cc = cols.clamp(0, m.MP - 1)
 
-                def win(x, keep):
-                    x = x.cpu()
+                def win(name, keep):
+                    x = torch.as_tensor(np.asarray(getattr(m, name)))
                     return torch.where(keep, x[..., cc], z).to(
                         dev).contiguous()
                 slots.append(dict(
@@ -246,9 +259,9 @@ class ShardedStreamRunner:
                         g.n_tiles * 4 * m.NHP * g.WT, dtype=self.dtype,
                         device=dev)),
                     partials=partials[dev],
-                    a0=win(c.a0, valid), a0_ghost=win(c.a0_ghost, valid),
-                    phi=win(c.phi, valid), w_av=win(c.w_av, own),
-                    w_av_phi=win(c.w_av_phi, own)))
+                    a0=win("a0", valid), a0_ghost=win("a0_ghost", valid),
+                    phi=win("phi", valid), w_av=win("w_av", own),
+                    w_av_phi=win("w_av_phi", own)))
             self._bufs = (slots, torch.zeros(4, dtype=self.dtype,
                                              device=lay.home))
         return self._bufs
@@ -285,8 +298,7 @@ class ShardedStreamRunner:
         obs = torch.zeros((max(1, emit.size), OBS_LANES), dtype=self.dtype,
                           device=home)
         av = state.av.items[0].clone()
-        carry.copy_(_slot_sums(lay, state, lay.scatter(self.c.w_av),
-                               lay.scatter(self.c.w_av_phi)))
+        carry.copy_(_slot_sums(lay, state, self.cs.w_av, self.cs.w_av_phi))
         for k, sl in enumerate(slots):
             for j, f in enumerate(M_STATE):
                 sl["ext"][0, j, :, H:H + L].copy_(getattr(state, f).items[k])
@@ -326,8 +338,8 @@ class ShardedStreamRunner:
                 blocks = [sl["partials"][:ns, i * g.n_tiles:
                                          (i + 1) * g.n_tiles]
                           for i, sl in zip(lay.local, slots)]
-                home_parts[:ns] = torch.cat(
-                    gather_slots(blocks, lay.n_per_rank), dim=1)
+                home_parts[:ns] = torch.cat(lay.gather_slots(blocks),
+                                            dim=1)
             with torch.cuda.device(home):
                 rc = replay_fn(home_parts.data_ptr(),
                                tables[home].data_ptr() + s0 * item,

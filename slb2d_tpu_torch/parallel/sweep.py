@@ -43,8 +43,17 @@ slots fewer points, or none, where the JAX package replicates it.  Across
 processes every process gets the whole table (its blocks allgathered),
 and process 0 alone writes checkpoints and the instability report.
 
-Not ported (ROADMAP.md queue A item 9, its next step): ``shards>1`` in a
-sweep, the combined sweep x space layout.
+The combined sweep x space layout (``space_axis=``, the sweep CLI's
+``shards>1``; slb2d_tpu/parallel/sweep.py:123-167, :448-490): each index
+of the mesh's "sweep" axis takes a block of points as above and runs it
+on its row of "space" slots (Mesh.grid), each slot holding its (b, NHP,
+MP/S) slice of the block's state and of the m-indexed constants
+(parallel/spatial.SpaceLayout), on the batched torch engine: the
+counterpart of the JAX package's vmapped scan under shard_map, where no
+kernel runs either.  The state comes out bit for bit as on one device;
+the averages and captures differ by the order of the sums over m (slot
+order, the same on one process or several).  Ragged blocks are allowed
+(the JAX package wants B % S == 0).
 """
 
 from __future__ import annotations
@@ -76,14 +85,24 @@ def _rank() -> int:
     return process_index()
 
 
-def choose_engine(cfg: SimConfig, device) -> str:
+def choose_engine(cfg: SimConfig, device, combined=False) -> str:
     """'cuda' (the stacked sweep kernel) or 'torch' (the batched engine).
     The kernel takes any point size: a point too large for a cluster's
     shared memory runs on its streaming form, so there is no VMEM
     fallback; impl=cuda (and impl=stream, which forces the stacked kernel
-    as in the JAX package) on a non-CUDA device raises."""
+    as in the JAX package) on a non-CUDA device raises.  The combined
+    sweep x space layout (combined) runs on the batched engine only:
+    impl=cuda and impl=stream raise there (the JAX package runs its
+    vmapped engine under any impl)."""
     device = torch.device(device)
     if cfg.impl == "torch":
+        return "torch"
+    if combined:
+        if cfg.impl in ("cuda", "stream"):
+            raise ValueError(
+                f"impl={cfg.impl}: no kernel runs the combined sweep x "
+                f"space layout (a sweep with shards>1 or space_axis=); "
+                f"use impl=torch|auto")
         return "torch"
     if cfg.impl in ("cuda", "stream"):
         if device.type != "cuda":
@@ -95,11 +114,12 @@ def choose_engine(cfg: SimConfig, device) -> str:
     return "cuda"
 
 
-def _sweep_step(c, st, cap, weights):
+def _sweep_step(c, st, cap, weights, **hooks):
     """One step of every point plus the loop-exit capture: the JAX
     package's _make_point_step with the point axis written out.  With
     "a", "b" in cap (capture_state) each point's arrays are frozen at its
-    own loop exit too."""
+    own loop exit too.  hooks: full_step's shift and sum_m (the combined
+    layout's halo shift and slot-order sum)."""
     t = st.t[:, None, None]
     trig = stencil.device_trig(c, t)
     trig = trig[:4] + tuple(x.reshape(-1) for x in trig[4:])
@@ -107,23 +127,23 @@ def _sweep_step(c, st, cap, weights):
     # (src/boltzmann_c_solver.c:188): a dc-only point leaves all period
     # averages at zero
     do_av = ((c.E_omega > 0) & (t >= c.t_start) & (t < c.t_end)).reshape(-1)
-    new = stencil.full_step(c, st, trig, do_av)
+    new = stencil.full_step(c, st, trig, do_av, **hooks)
     # the last step whose loop t is still < t_max overwrites the capture
     # (display-4 inline sums, src/boltzmann_c_solver.c:236-244)
     live = st.t < c.t_end.reshape(-1)
-    inst = _capture(new, weights)
+    inst = _capture(new, weights, sum_m=hooks.get("sum_m", stencil._sum_m))
     if "a" in cap:
         inst.update(a=new.a, b=new.b)
-    cap = {k: torch.where(live.reshape((-1,) + (1,) * (v.dim() - 1)),
+    cap = {k: torch.where(live.reshape((-1,) + (1,) * (len(v.shape) - 1)),
                           inst[k], v) for k, v in cap.items()}
     return new, cap
 
 
-def _capture(st, weights, capture_state=False):
+def _capture(st, weights, capture_state=False, sum_m=stencil._sum_m):
     """The display-4 loop-exit capture of every point's current arrays,
     with the arrays themselves when capture_state."""
     sums = capture_sums(st, weights["w_d4"], weights["w_d4_phi"],
-                        weights["w_norm"])
+                        weights["w_norm"], sum_m)
     cap = dict(zip(CAP_KEYS, sums.unbind(-1)))
     if capture_state:
         cap["a"] = st.a.clone()       # the kernel updates st in place
@@ -131,17 +151,35 @@ def _capture(st, weights, capture_state=False):
     return cap
 
 
-def _run_sweep(consts, states, cap, weights, n_steps):
+def _run_sweep(consts, states, cap, weights, n_steps, **hooks):
     """Advance the whole batch n_steps on the batched torch engine and roll
     each point's loop-exit capture."""
     for _ in range(n_steps):
-        states, cap = _sweep_step(consts, states, cap, weights)
+        states, cap = _sweep_step(consts, states, cap, weights, **hooks)
     return states, cap
+
+
+def _row_groups(rows) -> dict:
+    """{row index: process group} for the rows of a combined mesh whose
+    slots span more than one process and fewer than all: every process
+    creates every such group, in row order, as torch.distributed wants."""
+    from .mesh import process_count
+    n = process_count()
+    groups = {}
+    if n == 1:
+        return groups
+    import torch.distributed as dist
+    for i, row in enumerate(rows):
+        procs = sorted({s.rank for s in row})
+        if 1 < len(procs) < n:
+            groups[i] = dist.new_group(procs)
+    return groups
 
 
 class ParameterSweep:
     def __init__(self, cfg: SimConfig, params: dict, device=None,
-                 capture_state=False, mesh=None, axis="sweep"):
+                 capture_state=False, mesh=None, axis="sweep",
+                 space_axis=None, layout=None):
         """params: {name: 1-D array}; all arrays broadcast together into a
         flat batch (numpy meshgrid + ravel upstream for grids).  device:
         the one device of the sweep (default: cuda:<cfg.device> for every
@@ -149,14 +187,21 @@ class ParameterSweep:
         each point's (a, b) at its own loop exit, for per-point frames
         (sweep frames-dir=).  mesh, axis: spread the points over the mesh's
         `axis` slots, a block of ceil(B / S) each (device is then the
-        first local slot's)."""
-        if cfg.shards > 1:
-            raise NotImplementedError(
-                "slb2d_tpu_torch does not run sweeps with shards>1 yet: the "
-                "combined sweep x space layout (ROADMAP.md queue A item 9)")
+        first local slot's).  space_axis: the combined layout, each block
+        on its row of the mesh's `space_axis` slots (cfg.shards, where
+        above 1, must be their count).  layout: one block of the combined
+        layout, its points' grids cut over the SpaceLayout's slots (the
+        blocks _split makes)."""
         for k in params:
             if k not in SWEEPABLE:
                 raise ValueError(f"cannot sweep over {k!r}")
+        if cfg.shards > 1 and layout is None and (
+                mesh is None or space_axis is None
+                or mesh.shape.get(space_axis) != cfg.shards):
+            raise ValueError(
+                f"shards={cfg.shards}: a sweep cuts each point's grid over "
+                f"the {cfg.shards} slots of a mesh's space axis (mesh=, "
+                f"space_axis=; the sweep CLI builds them)")
         self.cfg = cfg
         arrs = np.broadcast_arrays(*[np.asarray(v, np.float64)
                                      for v in params.values()])
@@ -167,10 +212,15 @@ class ParameterSweep:
         self.final_ab = None
         self.mesh = mesh
         self.blocks = None
+        self.layout = layout
         if mesh is not None:
-            self.slots = mesh.axis_slots(axis)
-            self.device = torch.device(
-                next(s.device for s in self.slots if s.rank == _rank()))
+            self.rows = (mesh.grid(axis, space_axis) if space_axis
+                         else [[s] for s in mesh.axis_slots(axis)])
+            self.device = torch.device(next(
+                s.device for row in self.rows for s in row
+                if s.rank == _rank()))
+        elif layout is not None:
+            self.device = layout.home
         else:
             self.device = torch_device(cfg, device)
 
@@ -190,14 +240,18 @@ class ParameterSweep:
             count_steps(0.0, float(t_end[i]), float(m0.dt), D)
             for i in range(self.B))
         if mesh is not None:
-            self._split(capture_state)
+            self._split(capture_state, space_axis)
             return
-        self.engine = choose_engine(cfg, self.device)
+        self.engine = choose_engine(cfg, self.device,
+                                    combined=layout is not None)
+        # built where the points' grids live: on the one device, or on the
+        # host and cut over the slots (no slot's device holds a whole grid)
+        home = self.device if layout is None else torch.device("cpu")
 
         def stack(field):
             return torch.as_tensor(
                 np.stack([np.asarray(getattr(m, field), D)
-                          for m in self.models]), device=self.device)
+                          for m in self.models]), device=home)
 
         # batched consts: a leading point axis only on fields that vary
         batched = {f: stack(f).reshape(self.B, 1, 1) for f in _POINT_FIELDS}
@@ -205,29 +259,38 @@ class ParameterSweep:
             batched["a0"] = stack("a0")
             batched["a0_ghost"] = stack("a0_ghost")
         batched["t_end"] = torch.as_tensor(
-            t_end, device=self.device).reshape(self.B, 1, 1)
+            t_end, device=home).reshape(self.B, 1, 1)
         self.consts = dataclasses.replace(
-            stencil.consts_from_model(m0, self.device), **batched)
+            stencil.consts_from_model(m0, home), **batched)
+        if layout is not None:
+            self.consts = layout.scatter_consts(self.consts)
         self._stack_runner = None
 
-    def _split(self, capture_state):
-        """The mesh's blocks: per slot its points [lo, hi), ceil(B / S) a
-        slot in slot order; for this process's non-empty blocks a sweep of
-        their points on the slot's device, run for the whole sweep's step
-        count."""
-        S = len(self.slots)
+    def _split(self, capture_state, space_axis):
+        """The mesh's blocks: per index of its sweep axis the points [lo,
+        hi), ceil(B / S) in order; for this process's non-empty blocks a
+        sweep of their points on the index's slot, or with a space axis on
+        its row of slots, run for the whole sweep's step count."""
+        S = len(self.rows)
         per = math.ceil(self.B / S)
         self.bounds = [(min(i * per, self.B), min((i + 1) * per, self.B))
                        for i in range(S)]
+        groups = _row_groups(self.rows) if space_axis else {}
         self.blocks = []
-        for i, slot in enumerate(self.slots):
+        for i, row in enumerate(self.rows):
             lo, hi = self.bounds[i]
-            if slot.rank != _rank() or lo == hi:
+            if all(s.rank != _rank() for s in row) or lo == hi:
                 continue
-            sub = ParameterSweep(self.cfg, {k: v[lo:hi] for k, v in
-                                            self.params.items()},
-                                 device=slot.device,
-                                 capture_state=capture_state)
+            sub_params = {k: v[lo:hi] for k, v in self.params.items()}
+            if space_axis:
+                from .spatial import SpaceLayout
+                lay = SpaceLayout(row, self.base.MP, group=groups.get(i))
+                sub = ParameterSweep(self.cfg, sub_params,
+                                     capture_state=capture_state, layout=lay)
+            else:
+                sub = ParameterSweep(self.cfg, sub_params,
+                                     device=row[0].device,
+                                     capture_state=capture_state)
             sub.n_steps = self.n_steps
             self.blocks.append((i, sub))
         engines = sorted({sub.engine for _, sub in self.blocks})
@@ -235,40 +298,61 @@ class ParameterSweep:
 
     # -- device program -------------------------------------------------------
 
+    def _put(self, x, m_indexed=False):
+        """A host value on the sweep's device, or on a combined block's
+        slots: each slot's slice where m_indexed, else a copy each."""
+        if self.layout is None:
+            return torch.as_tensor(x, device=self.device)
+        return (self.layout.scatter if m_indexed
+                else self.layout.replicate)(x)
+
+    def _hooks(self):
+        """full_step's shift and sum_m on a combined block, else none."""
+        if self.layout is None:
+            return {}
+        return dict(shift=self.layout.shift, sum_m=self.layout.sum_m)
+
     def _initial_states(self):
         """Batched bootstrap: a <- a0, b <- 0, one tiptoe half-step over
         the batch (the numerics of stencil.bootstrap_state, reference
         src/boltzmann_c_solver.c:136-145, point by point)."""
         D = self.base.np_dtype
-        dev = self.device
-        a = torch.as_tensor(np.stack([m.initial_a() for m in self.models]),
-                            device=dev)
-        cos_wdt = torch.as_tensor(np.array(
-            [stencil.bootstrap_cos_wdt(m) for m in self.models], D),
-            device=dev).reshape(self.B, 1, 1)
-        a_hs, b_hs = stencil.tiptoe_half_step(self.consts, a, cos_wdt)
-        B, NHP = self.B, self.base.NHP
+        a = self._put(np.stack([m.initial_a() for m in self.models]), True)
+        cos_wdt = self._put(np.array(
+            [stencil.bootstrap_cos_wdt(m) for m in self.models],
+            D).reshape(self.B, 1, 1))
+        a_hs, b_hs = stencil.tiptoe_half_step(
+            self.consts, a, cos_wdt, shift=(stencil._shift if self.layout
+                                             is None else self.layout.shift))
         return stencil.State(
             a=a, b=torch.zeros_like(a), a_hs=a_hs, b_hs=b_hs,
-            hs_edge_a=torch.zeros((B, NHP), dtype=a.dtype, device=dev),
-            hs_edge_b=torch.zeros((B, NHP), dtype=a.dtype, device=dev),
-            av=torch.zeros((B, 8), dtype=a.dtype, device=dev),
-            t=torch.zeros((B,), dtype=a.dtype, device=dev),
-            step=torch.zeros((B,), dtype=torch.int32, device=dev))
+            **{f: self._put(v) for f, v in stencil.zero_carries(
+                (self.B,), self.base.NHP, a.dtype).items()})
 
     def _weights(self):
-        return {k: torch.as_tensor(getattr(self.base, k), device=self.device)
+        return {k: self._put(getattr(self.base, k), True)
                 for k in ("w_d4", "w_d4_phi", "w_norm")}
 
     def _zero_cap(self):
-        dt, dev = self.consts.a0.dtype, self.device
-        cap = {k: torch.zeros((self.B,), dtype=dt, device=dev)
+        dt = self.consts.a0.dtype
+        cap = {k: self._put(torch.zeros((self.B,), dtype=dt))
                for k in CAP_KEYS}
         if self.capture_state:
             shape = (self.B, self.base.NHP, self.base.MP)
-            cap["a"] = torch.zeros(shape, dtype=dt, device=dev)
-            cap["b"] = torch.zeros(shape, dtype=dt, device=dev)
+            cap["a"] = self._put(torch.zeros(shape, dtype=dt), True)
+            cap["b"] = self._put(torch.zeros(shape, dtype=dt), True)
         return cap
+
+    def _place(self, states, cap):
+        """A host batch's (states, cap) (numpy arrays by field and key) on
+        the sweep's device, or cut over a combined block's slots."""
+        from .spatial import M_STATE
+        st = stencil.State(**{f: self._put(np.array(states[f]),
+                                           f in M_STATE)
+                              for f in stencil.FIELDS})
+        cp = {k: self._put(np.array(v), k in ("a", "b"))
+              for k, v in cap.items()}
+        return st, cp
 
     def run(self, checkpoint=None, resume=None, checkpoint_every=0):
         """Run all points to their t_max; returns per-point display-4
@@ -278,7 +362,8 @@ class ParameterSweep:
 
         checkpoint: .npz path saved at the end and (if checkpoint_every >
         0) every checkpoint_every steps, in the JAX package's sweep
-        checkpoint layout (either package loads the other's).  resume:
+        checkpoint layout (either package loads the other's, and any
+        layout, one device or a mesh, resumes any other's).  resume:
         continue an interrupted sweep from such a file (the grid must
         match).  On a mesh every block advances chunk by chunk, each
         block's launches enqueued before any block's results are read."""
@@ -295,10 +380,8 @@ class ParameterSweep:
             if saved is None:
                 st, cp = sw._initial_states(), sw._zero_cap()
             else:
-                st = stencil.state_from_numpy(
-                    {k: v[lo:hi] for k, v in saved[0].items()}, sw.device)
-                cp = {k: torch.as_tensor(v[lo:hi], device=sw.device)
-                      for k, v in saved[1].items()}
+                st, cp = sw._place({k: v[lo:hi] for k, v in saved[0].items()},
+                                   {k: v[lo:hi] for k, v in saved[1].items()})
             live.append([st, cp, sw._advancer(done)])
 
         chunk = (checkpoint_every if checkpoint and checkpoint_every > 0
@@ -342,23 +425,43 @@ class ParameterSweep:
                     return st, _capture(st, weights, self.capture_state)
             return advance
 
+        hooks = self._hooks()
+
         def advance(st, cp, k):
-            return _run_sweep(self.consts, st, cp, weights, k)
+            return _run_sweep(self.consts, st, cp, weights, k, **hooks)
         return advance
+
+    def _host(self, st, cp, full=True):
+        """This sweep's (states, cap) as host arrays by field and key; a
+        combined block's slices gathered whole (a collective of its
+        processes).  full=False: of the states only av."""
+        from .spatial import M_STATE
+        lay = self.layout
+
+        def host(x, m_indexed):
+            if lay is not None:
+                x = lay.gather(x) if m_indexed else x.items[0]
+            return x.cpu().numpy()
+        fields = stencil.FIELDS if full else ("av",)
+        d = {f"state_{f}": host(getattr(st, f), f in M_STATE)
+             for f in fields}
+        d.update({f"cap_{k}": host(v, k in ("a", "b"))
+                  for k, v in cp.items()})
+        return d
 
     def _whole(self, live, full=True):
         """(states, cap) of the whole batch from the live (states, cap,
         advance) of this process's blocks: a sweep's own, or on a mesh
-        every block's on the host, in slot order (allgathered across
-        processes).  full=False: of the states only av (the table's)."""
+        every block's on the host, in order (allgathered across processes;
+        a block whose row spans processes comes from the first of
+        them).  full=False: of the states only av (the table's)."""
         if self.blocks is None:
             return live[0][0], live[0][1]
-        fields = stencil.FIELDS if full else ("av",)
         mine = []
-        for (st, cp, _), (i, _sub) in zip(live, self.blocks):
-            d = {f"state_{f}": getattr(st, f).cpu().numpy() for f in fields}
-            d.update({f"cap_{k}": v.cpu().numpy() for k, v in cp.items()})
-            mine.append((i, d))
+        for (st, cp, _), (i, sub) in zip(live, self.blocks):
+            d = sub._host(st, cp, full)
+            if min(s.rank for s in self.rows[i]) == _rank():
+                mine.append((i, d))
         from .collectives import all_gather_object
         mine = sorted(sum(all_gather_object(mine), []), key=lambda x: x[0])
         host = {k: torch.as_tensor(np.concatenate([d[k] for _, d in mine]))

@@ -128,8 +128,10 @@ class Simulation:
         self.t_exit = 0.0
         self._steps_since_progress = 0
         if cfg.resume:
-            self.state, extra = load_state(cfg.resume, self.model,
-                                           device=self.device)
+            # a sharded run loads on the host and scatters (below)
+            self.state, extra = load_state(
+                cfg.resume, self.model,
+                device=self.device if self.layout is None else "cpu")
             self.t0 = float(extra.get("t0", float(self.state.t)))
             self.frame_time = float(extra.get("frame_time", 0.0))
             self.frame_number = int(extra.get("frame_number", 1))
@@ -143,12 +145,15 @@ class Simulation:
                     torch.as_tensor(sv, device=self.device)
                     if self._device_frames() else sv)
             self.steps_done = int(self.state.step)
+            if self.layout is not None:
+                self.state = self.layout.scatter_state(self.state)
         else:
-            self.state = stencil.bootstrap_state(self.c, self.model)
+            self.state = (
+                stencil.bootstrap_state(self.c, self.model)
+                if self.layout is None
+                else self.layout.bootstrap_state(self.c, self.model))
             self.t0 = 0.0
             self.steps_done = 0
-        if self.layout is not None:
-            self.state = self.layout.scatter_state(self.state)
         self.t_start = float(cfg.t_start)
         self.t_max = self._compute_t_max()
 
@@ -161,7 +166,7 @@ class Simulation:
         self.device = (cfgmod.torch_device(self.cfg, device)
                        if self.layout is None else self.layout.home)
         self.engine = self._select_engine()
-        self._set_consts(stencil.consts_from_model(self.model, self.device))
+        self._set_consts(self.model)
 
     def _space_layout(self, device, mesh):
         """The SpaceLayout of a sharded run (shards>1 or a mesh), else
@@ -180,11 +185,16 @@ class Simulation:
                              f"holds {mesh.shape.get('space')} slots")
         return SpaceLayout(mesh, self.model.MP)
 
-    def _set_consts(self, c):
-        """The run's consts, and on the sharded plain scan each slot's."""
-        self.c = c
-        self.cs = (self.layout.scatter_consts(c) if self.layout is not None
-                   and self.engine == "torch" else None)
+    def _set_consts(self, model, t_start=None):
+        """The run's consts: on one device, or on a sharded run each
+        slot's slice of the m-indexed fields (built on the host and
+        scattered: no slot's device holds the whole grid's) and its copy
+        of the rest."""
+        if self.layout is None:
+            self.c = stencil.consts_from_model(model, self.device, t_start)
+        else:
+            self.c = self.layout.scatter_consts(
+                stencil.consts_from_model(model, "cpu", t_start))
 
     def _gather(self, x):
         """A state array (a, b, a_hs, b_hs, or rows of them) whole: on a
@@ -413,8 +423,8 @@ class Simulation:
         hooks = ({} if self.layout is None else
                  dict(shift=self.layout.shift, sum_m=self.layout.sum_m))
         state, ys = stencil.run_chunk(
-            self.cs if self.layout is not None else self.c, state,
-            chunk.xs, collect_obs=bool(emit), exact_trig=exact,
+            self.c, state, chunk.xs, collect_obs=bool(emit),
+            exact_trig=exact,
             av_enabled=self.cfg.display not in (7, 77, 8), **hooks)
         return state, (self._first(ys)[list(emit)].cpu().numpy() if emit
                        else ())
@@ -666,8 +676,7 @@ class Simulation:
         self.t0 = float(D(t + model.dt))
         # the averaging window moved: the live t_start in the stencil
         # consts (fast-trig mode gates on it) and in the runner's scalars
-        self._set_consts(stencil.consts_from_model(model, self.device,
-                                                   t_start=self.t_start))
+        self._set_consts(model, t_start=self.t_start)
         if self._runner is not None:
             self._runner.update_consts(self.c)
         self.state = self.state.replace(

@@ -5,11 +5,15 @@ The port of ``slb2d_tpu/sweep_cli.py``: a whole grid runs as one batch
 (BASELINE config #5, absorption maps), or, where more than one device is
 visible, as blocks of points over a "sweep" mesh of all of them
 (parallel/mesh.local_devices: the cards from device= on, or the CPU;
-across processes every process's), on
-the stacked sweep
-kernel (csrc/sweep_stack.cu, one launch per chunk; omega axes ride its
+across processes every process's), on the stacked sweep kernel
+(csrc/sweep_stack.cu, one launch per chunk; omega axes ride its
 per-omega mode) or on the batched torch engine (parallel/sweep.py), as
-parallel/sweep.choose_engine routes them.
+parallel/sweep.choose_engine routes them.  With `shards=S` > 1 the mesh
+is (n / S, S) over ("sweep", "space"), n the devices of every process
+(n % S != 0 is an error, as in the JAX CLI): each block's phi_y grids are
+cut over S of them, on the batched engine (the combined sweep x space
+layout).  The JAX CLI shrinks the sweep axis until it divides the point
+count; the port keeps n / S and lets the last blocks be smaller.
 
 Usage: the regular solver `key=value` arguments (display is ignored; sweeps
 are display-4 semantics) plus any number of
@@ -40,8 +44,7 @@ Chrome trace under DIR (slb2d-torch's profile-dir=).
 The run uses CUDA device `device=` (default 0) for every impl; only
 device=cpu runs it on the CPU.  Across processes (torch.distributed,
 parallel/mesh.init_distributed) process 0 alone writes the table and the
-frames.  Not ported yet (NotImplementedError): `shards>1`, the combined
-sweep x space layout (ROADMAP.md queue A item 9).
+frames.
 """
 
 from __future__ import annotations
@@ -140,17 +143,30 @@ def _run_one_grid(cfg, sweeps, out, device, frames_dir=None, grid_no=0):
     B = len(next(iter(flat.values())))
 
     # every visible device on the "sweep" axis (the JAX CLI's pure sweep
-    # mesh); its blocks may be ragged, where the JAX CLI wants B % n == 0
+    # mesh), or with shards= on a (sweep, space) mesh; its blocks may be
+    # ragged, where the JAX CLI wants B % n == 0
     mesh = make_mesh(None, ("sweep",), cfg=cfg)
     n_dev = mesh.size
-    if n_dev == 1:
+    space_axis = None
+    if cfg.shards > 1:
+        if n_dev % cfg.shards:
+            raise ValueError(f"shards={cfg.shards} does not divide the "
+                             f"{n_dev} available devices.")
+        mesh = make_mesh((n_dev // cfg.shards, cfg.shards),
+                         ("sweep", "space"), cfg=cfg)
+        space_axis = "space"
+    elif n_dev == 1:
         mesh = None
     sweep = ParameterSweep(cfg, flat, device=device,
-                           capture_state=frames_dir is not None, mesh=mesh)
+                           capture_state=frames_dir is not None, mesh=mesh,
+                           space_axis=space_axis)
     if not cfg.quiet:
+        n_blocks = n_dev // cfg.shards
         where = (f"{sweep.device}" if mesh is None else
                  f"{n_dev} of {n_dev} device(s), blocks of "
-                 f"{-(-B // n_dev)} points")
+                 f"{-(-B // n_blocks)} points")
+        if space_axis:
+            where += f", phi_y grid over {cfg.shards} shards"
         print(f"# sweeping {list(sweeps.keys())} over {B} points "
               f"({sweep.n_steps} steps each) on {where} "
               f"[{sweep.engine} engine]", file=sys.stderr)

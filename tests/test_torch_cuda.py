@@ -811,3 +811,40 @@ def test_sweep_mesh_on_two_slots_matches_one(card, shape):
         np.testing.assert_array_equal(res[k], ref[k], err_msg=k)
     for got, want in zip(two.final_ab, one.final_ab):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dryrun_on_four_slots_of_the_card(card):
+    """dryrun_multichip(4) on four slots of cuda:0: its six checks pass
+    and B2's sharded form and both modes of B3 launch."""
+    from slb2d_tpu_torch.dryrun import dryrun_multichip
+    out = dryrun_multichip(4, device=card)
+    assert out["mesh"] == (2, 2)
+    assert out["launches"] == {"b2_sharded_tiles": 6,
+                               "b2_sharded_replays": 3, "b3_shared": 2,
+                               "b3_omega": 2}
+
+
+@pytest.mark.cuda
+def test_combined_sweep_on_slots_of_the_card(card):
+    """The combined layout on a (2, 2) mesh of cuda:0 (a ragged grid with
+    frames) against the batched engine on the card alone: the captured
+    state bit for bit, the table at the sums' order."""
+    import numpy as np
+    import chip_smoke
+    from slb2d_tpu_torch.config import SimConfig
+    from slb2d_tpu_torch.parallel import ParameterSweep, make_mesh
+    kw, params = chip_smoke.sweep_grid("ragged")
+    cfg = SimConfig(display=4, dtype="f32", impl="torch", quiet=True, **kw)
+    one = ParameterSweep(cfg, params, device=card, capture_state=True)
+    ref = one.run()
+    comb = ParameterSweep(cfg, params, capture_state=True,
+                          mesh=make_mesh((2, 2), ("sweep", "space"),
+                                         devices=[card] * 4),
+                          space_axis="space")
+    res = comb.run()
+    for k in ref:
+        np.testing.assert_allclose(res[k], ref[k], rtol=1e-5, atol=2e-6,
+                                   err_msg=k)
+    for got, want in zip(comb.final_ab, one.final_ab):
+        np.testing.assert_array_equal(got, want)

@@ -63,9 +63,13 @@ def test_local_devices_and_axis_slots():
         tmesh.make_mesh((2,), ("sweep",), cfg=cfg)
     m = tmesh.make_mesh(None, ("sweep",), devices=[CPU] * 3)
     assert m.shape == {"sweep": 3} and len(m.axis_slots("sweep")) == 3
-    with pytest.raises(ValueError, match="not ported yet"):
-        tmesh.make_mesh((2, 2), ("sweep", "space"),
-                        devices=[CPU] * 4).axis_slots("space")
+    m = tmesh.make_mesh((2, 2), ("sweep", "space"), devices=[CPU] * 4)
+    with pytest.raises(ValueError, match="Mesh.grid"):
+        m.axis_slots("space")
+    flat = [id(s) for s in m.slots.reshape(-1)]
+    for axes, rows in ((("sweep", "space"), [flat[:2], flat[2:]]),
+                       (("space", "sweep"), [flat[0::2], flat[1::2]])):
+        assert [[id(s) for s in r] for r in m.grid(*axes)] == rows
     assert tmesh.process_index() == 0 and tmesh.process_count() == 1
 
 

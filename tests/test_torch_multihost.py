@@ -12,7 +12,10 @@ timeout (a hang fails the test instead of stalling the suite).
       unsharded run;
   (c) the sharded form of B2's plain version across processes
       (impl=stream), f32, with a REPL mutation, bit for bit with the
-      one-process run on the same slots.
+      one-process run on the same slots;
+  (d) the combined sweep x space layout on a (1, 2) mesh of one slot a
+      process, the halo and the sums across the process boundary: both
+      processes hold the whole table, the one-process run's bit for bit.
 """
 
 import io
@@ -43,6 +46,8 @@ SWEEP = dict(display=4, E_dc=1.0, E_omega=2.0, omega=30.0, mu=1.0,
              B=0.1, t_start=0.05, g_grid=24, dt=1e-3, quiet=True,
              impl="torch")
 E_DCS = list(np.linspace(0.25, 2.0, 8))
+# the combined layout's run: 52 steps
+COMBINED = dict(SWEEP, omega=150.0, t_start=0.01)
 TIMEOUT = 120
 
 WORKER = r'''
@@ -55,7 +60,8 @@ assert init_distributed("127.0.0.1:" + port, 2, rank, backend="gloo")
 from slb2d_tpu_torch.config import SimConfig
 from slb2d_tpu_torch.parallel import ParameterSweep
 from slb2d_tpu_torch.runtime.loop import Simulation
-from tests.test_torch_multihost import COMMON, E_DCS, REPL, RUNS, SWEEP
+from tests.test_torch_multihost import (COMBINED, COMMON, E_DCS, REPL,
+                                        RUNS, SWEEP)
 CPU = torch.device("cpu")
 os.chdir(outdir)
 mesh = make_mesh((8,), ("space",), devices=[CPU] * 4)
@@ -69,6 +75,11 @@ res = ParameterSweep(SimConfig(**SWEEP), {"E_dc": np.array(E_DCS)},
                      mesh=make_mesh((8,), ("sweep",),
                                     devices=[CPU] * 4)).run()
 with open(f"sweep.{rank}.json", "w") as fh:
+    json.dump({k: np.asarray(v).tolist() for k, v in res.items()}, fh)
+res = ParameterSweep(SimConfig(**COMBINED), {"E_dc": np.array(E_DCS)},
+                     mesh=make_mesh((1, 2), ("sweep", "space"),
+                                    devices=[CPU]), space_axis="space").run()
+with open(f"combined.{rank}.json", "w") as fh:
     json.dump({k: np.asarray(v).tolist() for k, v in res.items()}, fh)
 print("worker", rank, "done", flush=True)
 '''
@@ -150,6 +161,27 @@ def test_two_process_sweep_matches_one_process(two_process_runs):
     ref = ParameterSweep(SimConfig(**SWEEP), {"E_dc": np.array(E_DCS)},
                          mesh=make_mesh((8,), ("sweep",),
                                         devices=[CPU] * 8)).run()
+    for k, v in ref.items():
+        np.testing.assert_array_equal(np.asarray(tables[0][k]),
+                                      np.asarray(v), err_msg=k)
+
+
+def test_two_process_combined_sweep_matches_one_process(two_process_runs):
+    """The (1, 2) combined layout across the two processes: the table of
+    the one-process run on two slots, bit for bit, on both processes."""
+    tables = [json.load(open(two_process_runs / f"combined.{i}.json"))
+              for i in range(2)]
+    assert tables[0] == tables[1]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = ParameterSweep(SimConfig(**COMBINED),
+                             {"E_dc": np.array(E_DCS)},
+                             mesh=make_mesh((1, 2), ("sweep", "space"),
+                                            devices=[CPU] * 2),
+                             space_axis="space").run()
+    finally:
+        torch.set_num_threads(n)
     for k, v in ref.items():
         np.testing.assert_array_equal(np.asarray(tables[0][k]),
                                       np.asarray(v), err_msg=k)

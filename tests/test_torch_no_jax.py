@@ -39,7 +39,8 @@ def test_port_imports_no_jax():
               "slb2d_tpu_torch.parallel.collectives",
               "slb2d_tpu_torch.parallel.spatial",
               "slb2d_tpu_torch.parallel.stream_shard",
-              "slb2d_tpu_torch.multihost_sweep"):
+              "slb2d_tpu_torch.multihost_sweep",
+              "slb2d_tpu_torch.dryrun"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

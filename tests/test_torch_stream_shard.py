@@ -116,8 +116,8 @@ def test_plain_matches_jax_sharded_stream_runner():
                     {k: v[:67] for k, v in jx.items()}, 0)
     out = jr.run_xs(out, {k: v[67:] for k, v in jx.items()}, 1)
     lay = layout(2, tm.MP)
-    runner = shd.ShardedStreamRunner(ts.consts_from_model(tm, CPU), tm, lay,
-                                     K=8)
+    runner = shd.ShardedStreamRunner(
+        lay.scatter_consts(ts.consts_from_model(tm, CPU)), tm, lay, K=8)
     assert runner.geom.K == 8 and runner.geom.H == 16
     got = sharded_runs(runner, lay, st, xs, 67)
     for f in ("a", "b", "a_hs", "b_hs", "av"):

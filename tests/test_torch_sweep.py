@@ -308,13 +308,18 @@ def test_impl_cuda_never_falls_back():
         port_sweep("f32", engine="cuda", params=omega)).per_omega
 
 
-def test_unported_sweep_options_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TSweep(TConfig(**CFG, impl="torch", shards=2), PARAMS, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tcli.main(cli_argv("f64", "stderr") + ["shards=2", "device=cpu"])
+def test_unported_sweep_options_raise(capsys):
+    """What a sweep refuses: a dt axis; shards=2 without a mesh whose
+    space axis holds 2 slots; and in the CLI a shard count that does not
+    divide the devices (one CPU here), with JAX's message."""
     with pytest.raises(ValueError, match="cannot sweep"):
         TSweep(TConfig(**CFG, impl="torch"), {"dt": [1e-3]}, device=CPU)
+    with pytest.raises(ValueError, match="space_axis"):
+        TSweep(TConfig(**CFG, impl="torch", shards=2), PARAMS, device=CPU)
+    assert tcli.main(cli_argv("f64", "stderr")
+                     + ["shards=2", "device=cpu"]) == 1
+    assert ("shards=2 does not divide the 1 available devices."
+            in capsys.readouterr().err)
 
 
 def test_sweeps_run_on_the_card_unless_asked_for_the_cpu(tmp_path,
