@@ -1179,8 +1179,7 @@ def _run_cli_keeping_results(argv):
     its results, (per-omega, shared, step kernel launches, B3 launches on
     the cluster form, on the streaming form))."""
     import torch
-    from slb2d_tpu_torch import sweep_cli
-    from slb2d_tpu_torch.ops import stepper_cuda, sweep_stack_cuda as ssc
+    from slb2d_tpu_torch import sweep_cli, tracing
     from slb2d_tpu_torch.parallel import sweep as swmod
     seen = []
     finalize = swmod.ParameterSweep._finalize
@@ -1195,15 +1194,13 @@ def _run_cli_keeping_results(argv):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "sweep.txt")
             torch.cuda.synchronize()
-            stepper_cuda.launch_count = 0
-            ssc.launch_count = ssc.omega_launch_count = 0
-            ssc.cluster_launch_count = ssc.streaming_launch_count = 0
+            tracing.reset()
             t0 = time.perf_counter()
             rc = sweep_cli.main(argv + [f"o={path}"])
             wall = time.perf_counter() - t0  # ends in the result fetch
-            counts = (ssc.omega_launch_count, ssc.launch_count,
-                      stepper_cuda.launch_count, ssc.cluster_launch_count,
-                      ssc.streaming_launch_count)
+            counts = (tracing.counted("launches.B3.omega"),
+                      tracing.counted("launches.B3.shared"),
+                      tracing.counted("launches.B1"), *_b3_forms())
             with open(path) as fh:
                 text = fh.read()
     finally:
@@ -1324,8 +1321,7 @@ def frames_phase(card):
     frames against the batched engine's at 2e-4 rel / 2e-5 of the frame's
     largest value."""
     import numpy as np
-    from slb2d_tpu_torch import sweep_cli
-    from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
+    from slb2d_tpu_torch import sweep_cli, tracing
     small = ["E_dc=1", "E_omega=2", "omega=10", "mu=1", "alpha=0.9495",
              "n-harmonics=8", "PhiYmin=-10", "PhiYmax=10", "B=0.1",
              "t-max=0.3", "dt=1e-3", "g-grid=24", "quiet=1"]
@@ -1337,13 +1333,12 @@ def frames_phase(card):
             ("fb", "torch", omega, 4, (0, 0, 0, 0)))
     with tempfile.TemporaryDirectory() as tmp:
         for name, impl, grid, n, want in runs:
-            ssc.launch_count = ssc.omega_launch_count = 0
-            ssc.cluster_launch_count = ssc.streaming_launch_count = 0
+            tracing.reset()
             rc = sweep_cli.main(small + [f"impl={impl}", *grid,
                                          f"o={tmp}/{name}.txt",
                                          f"frames-dir={tmp}/{name}"])
-            got = (ssc.launch_count, ssc.omega_launch_count,
-                   ssc.cluster_launch_count, ssc.streaming_launch_count)
+            got = (tracing.counted("launches.B3.shared"),
+                   tracing.counted("launches.B3.omega"), *_b3_forms())
             check(rc == 0 and got == want,
                   f"frames run {name} (impl={impl}): rc {rc}, (shared, "
                   f"per-omega, cluster, streaming) kernel launches {got}, "
@@ -1891,9 +1886,8 @@ def run_cli(argv, force_b1=False, form=None):
     shared, B3 per-omega, launches of B1's resident and per-half-step
     forms and of B2's spill and tiling forms)."""
     import torch
-    from slb2d_tpu_torch import cli
-    from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda as
-                                     sst, sweep_stack_cuda as ssc)
+    from slb2d_tpu_torch import cli, tracing
+    from slb2d_tpu_torch.ops import stepper_cuda, stepper_stream_cuda as sst
     rule, plan = sst.stream_beats_b1, stepper_cuda.resident_plan
     if force_b1:
         sst.stream_beats_b1 = lambda *a: False
@@ -1903,20 +1897,16 @@ def run_cli(argv, force_b1=False, form=None):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "out.txt")
             torch.cuda.synchronize()
-            stepper_cuda.launch_count = sst.launch_count = 0
-            sst.spill_launch_count = sst.tiling_launch_count = 0
-            stepper_cuda.resident_launch_count = 0
-            stepper_cuda.per_half_step_launch_count = 0
-            ssc.launch_count = ssc.omega_launch_count = 0
+            tracing.reset()
             t0 = time.perf_counter()
             rc = cli.main(argv + [f"o={path}"])
             wall = time.perf_counter() - t0  # ends in a fetch, which
                                              # synchronises
-            counts = (stepper_cuda.launch_count, sst.launch_count,
-                      ssc.launch_count, ssc.omega_launch_count)
-            forms = (stepper_cuda.resident_launch_count,
-                     stepper_cuda.per_half_step_launch_count,
-                     sst.spill_launch_count, sst.tiling_launch_count)
+            counts = tuple(tracing.counted(f"launches.{k}") for k in
+                           ("B1", "B2", "B3.shared", "B3.omega"))
+            forms = tuple(tracing.counted(f"launches.{k}") for k in
+                          ("B1.resident", "B1.per-half-step", "B2.spill",
+                           "B2.tiling"))
             check(rc == 0, f"cli.main returned {rc}")
             with open(path) as fh:
                 text = fh.read()
@@ -2477,7 +2467,7 @@ def lanes_main_phase(card):
     function in this process against B3 on the same sweep.  Returns (B4
     launches of the bench run, its wall, steps, the sweep)."""
     import numpy as np
-    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch import bench, tracing
     from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
     line = _bench_line(["sweep", "lanes"])
     check(line["device"] == card and "B4" in line["metric"],
@@ -2502,7 +2492,8 @@ def lanes_main_phase(card):
     got = bench.launch_counts()
     check(got == {**want, "B4": 2 * per_call},
           f"bench_sweep lanes launches {got}")
-    forms = (slc.cluster_launch_count, slc.streaming_launch_count)
+    forms = (tracing.counted("launches.B4.cluster"),
+             tracing.counted("launches.B4.streaming"))
     check(forms == (2 * per_call, 0),
           f"bench_sweep lanes (cluster, streaming) launches {forms}, "
           f"expected {(2 * per_call, 0)}")
@@ -2537,27 +2528,15 @@ def lanes_main_phase(card):
 
 
 def zero_counts():
-    """Set every kernel's launch count to 0 (bench.launch_counts reads
-    them)."""
-    from slb2d_tpu_torch.ops import (stepper_cuda, stepper_stream_cuda,
-                                     sweep_lanes_cuda, sweep_stack_cuda)
-    from slb2d_tpu_torch.parallel import stream_shard
+    """Set every kernel's launch count to 0: the program's counters
+    (slb2d_tpu_torch.tracing, which bench.launch_counts reads) and the
+    probes' own counts."""
+    from slb2d_tpu_torch import tracing
     from slb2d_tpu_torch.perf import (roll_cost_experiment,
                                       transposed_experiment, vpu_roofline)
-    for mod in (stepper_cuda, stepper_stream_cuda, sweep_lanes_cuda,
-                sweep_stack_cuda, vpu_roofline, transposed_experiment):
-        mod.launch_count = 0
-    stepper_cuda.resident_launch_count = 0
-    stepper_cuda.per_half_step_launch_count = 0
-    stepper_stream_cuda.spill_launch_count = 0
-    stepper_stream_cuda.tiling_launch_count = 0
-    stream_shard.tile_launch_count = 0
-    stream_shard.replay_launch_count = 0
-    sweep_stack_cuda.omega_launch_count = 0
-    sweep_lanes_cuda.cluster_launch_count = 0
-    sweep_lanes_cuda.streaming_launch_count = 0
-    sweep_stack_cuda.cluster_launch_count = 0
-    sweep_stack_cuda.streaming_launch_count = 0
+    tracing.reset()
+    vpu_roofline.launch_count = 0
+    transposed_experiment.launch_count = 0
     roll_cost_experiment.register_launch_count = 0
     roll_cost_experiment.pass_launch_count = 0
     transposed_experiment.resident_launch_count = 0
@@ -3088,19 +3067,34 @@ def displays_golden_phase(card, tmp):
     return wall
 
 
+def _b3_forms():
+    """B3's launches on its cluster form and on its streaming form, either
+    mode (the counters launches.B3.<shared|omega>.<form>)."""
+    from slb2d_tpu_torch import tracing
+    return tuple(sum(tracing.counted(f"launches.B3.{mode}.{form}")
+                     for mode in ("shared", "omega"))
+                 for form in ("cluster", "streaming"))
+
+
+def _chunks():
+    """The chunks Simulation runs handed to their engines since the
+    counters were last zeroed (the counter engine.chunks)."""
+    from slb2d_tpu_torch import tracing
+    return tracing.counted("engine.chunks")
+
+
 def _counted(fn):
     """(fn(), launches): every kernel count set to 0 just before fn and
     read just after (bench.launch_counts, plus B2 by form)."""
     import torch
-    from slb2d_tpu_torch import bench
-    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    from slb2d_tpu_torch import bench, tracing
     torch.cuda.synchronize()
     zero_counts()
     out = fn()
     torch.cuda.synchronize()
     got = bench.launch_counts()
-    got["B2 spill"] = sst.spill_launch_count
-    got["B2 tiling"] = sst.tiling_launch_count
+    got["B2 spill"] = tracing.counted("launches.B2.spill")
+    got["B2 tiling"] = tracing.counted("launches.B2.tiling")
     return out, got
 
 
@@ -3198,12 +3192,12 @@ def displays_main_phase(card, tmp):
         t0 = time.perf_counter()
         sim, got = _counted(lambda: run_sim(
             dict(display=8, t_start=10.0, **BASELINE1, **PHYS), "cuda"))
+        chunks = _chunks()
         wall = time.perf_counter() - t0
     check(sim.engine_tag() == "cuda-b1 resident"
-          and _only(got, {"B1": sim.chunks_done,
-                          "B1 resident": sim.chunks_done}),
+          and _only(got, {"B1": chunks, "B1 resident": chunks}),
           f"BASELINE#1 display 8 on {sim.engine_tag()}: launches {got}, "
-          f"{sim.chunks_done} chunks")
+          f"{chunks} chunks")
     text, vals = _frame_rows(os.path.join(d8, "frame.data"))
     model = sim.model
     ref = sim._get_recon().reconstruct(sim.state.a.cpu().numpy(),
@@ -3224,10 +3218,10 @@ def displays_main_phase(card, tmp):
     _state_equal(sim.state, replay, "BASELINE#1 display 8 run vs its "
                  "replay against the plain version")
     plain_s = time.perf_counter() - t0
-    res["d8"] = dict(launches=got["B1"], chunks=sim.chunks_done,
+    res["d8"] = dict(launches=got["B1"], chunks=chunks,
                      steps=sim.steps_done, wall_s=wall)
     print(f"displays main: BASELINE#1 display 8 f32 impl=cuda "
-          f"[{sim.engine_tag()}]: {sim.steps_done} steps, {sim.chunks_done}"
+          f"[{sim.engine_tag()}]: {sim.steps_done} steps, {chunks}"
           f" chunk(s), B1 launches {got['B1']} (resident "
           f"{got['B1 resident']}), frame.data {ref.shape[0]}x{ref.shape[1]}"
           f" rows vs host f64 frame max abs err {err:.3e}, norm "
@@ -3280,10 +3274,10 @@ def displays_main_phase(card, tmp):
     with in_dir(whole):
         t0 = time.perf_counter()
         sim9, got = _counted(lambda: run_sim(d9, "cuda"))
+        chunks9 = _chunks()
         wall9 = time.perf_counter() - t0
     check(sim9.engine_tag() == "cuda-b1 resident"
-          and _only(got, {"B1": sim9.chunks_done,
-                          "B1 resident": sim9.chunks_done}),
+          and _only(got, {"B1": chunks9, "B1 resident": chunks9}),
           f"display 9 on {sim9.engine_tag()}: launches {got}")
     names = sorted(f for f in os.listdir(whole) if f.startswith("strobe"))
     check(len(names) == 101, f"display 9 wrote {len(names)} strobes")
@@ -3308,12 +3302,12 @@ def displays_main_phase(card, tmp):
                 open(os.path.join(split, name), "rb") as b:
             check(a.read() == b.read(), f"display 9 split: {name} differs")
     _state_equal(resumed.state, sim9.state, "display 9 split vs whole")
-    res["d9"] = dict(launches=got["B1"], chunks=sim9.chunks_done,
+    res["d9"] = dict(launches=got["B1"], chunks=chunks9,
                      steps=sim9.steps_done, wall_s=wall9,
                      resumed_launches=got_r["B1"])
     print(f"displays main: display 9 at BASELINE#1 (N=20 M=200 t-max=10, "
           f"101 periods) impl=cuda [{sim9.engine_tag()}]: "
-          f"{sim9.steps_done} steps, {sim9.chunks_done} chunks, B1 launches "
+          f"{sim9.steps_done} steps, {chunks9} chunks, B1 launches "
           f"{got['B1']}, 101 strobes, wall {wall9:.3f} s; split at period "
           f"40 by checkpoint and resume ({n_first} strobes first, the rest "
           f"resumed from step {first.steps_done}, parity "
@@ -3340,6 +3334,7 @@ def displays_main_phase(card, tmp):
                 t0 = time.perf_counter()
                 sim, got = _counted(lambda: run_sim(b4, "cuda",
                                                     repl=REPL_MAIN))
+                chunks = _chunks()
                 wall = time.perf_counter() - t0
                 with open("out.txt") as fh:
                     text = fh.read()
@@ -3351,27 +3346,27 @@ def displays_main_phase(card, tmp):
               and tag == ("cuda-b1 resident" if form is None
                           else "cuda-b1 per-half-step")
               and _only(got, want) and got["B1"] > 0
-              and (form is not None or got["B1"] == sim.chunks_done),
+              and (form is not None or got["B1"] == chunks),
               f"BASELINE#4 REPL on {tag}: {len(built)} runner builds, "
-              f"launches {got}, {sim.chunks_done} chunks")
+              f"launches {got}, {chunks} chunks")
         rows = _rows(text)
         check(rows.shape == (4, 13) and bool(np.all(np.isfinite(rows)))
               and bool(np.all(np.abs(rows[:, 6] - 1) < 1e-3)),
               f"BASELINE#4 REPL on {tag}: lines {rows}")
-        sessions[tag] = (sim, got, wall, text)
-    (res_sim, res_got, res_wall, res_text), (per_sim, _, per_wall,
-                                             per_text) = sessions.values()
+        sessions[tag] = (sim, got, wall, text, chunks)
+    ((res_sim, res_got, res_wall, res_text, res_chunks),
+     (per_sim, _, per_wall, per_text, _)) = sessions.values()
     av_err = _state_equal(res_sim.state, per_sim.state,
                           "BASELINE#4 REPL resident vs per-half-step")
     check([l for l in res_text.splitlines() if l.startswith("#")]
           == [l for l in per_text.splitlines() if l.startswith("#")],
           "BASELINE#4 REPL: headers differ between the forms")
-    res["repl"] = dict(launches=res_got["B1"], chunks=res_sim.chunks_done,
+    res["repl"] = dict(launches=res_got["B1"], chunks=res_chunks,
                        steps=res_sim.steps_done, wall_s=res_wall,
                        per_half_step_wall_s=per_wall)
     print(f"displays main: BASELINE#4 REPL, 3 mutations (E_dc, B, omega), "
           f"4 lines, {res_sim.steps_done} steps: B1 resident one runner, "
-          f"{res_got['B1']} launches for {res_sim.chunks_done} chunks, wall "
+          f"{res_got['B1']} launches for {res_chunks} chunks, wall "
           f"{res_wall:.3f} s; forced per-half-step one runner, wall "
           f"{per_wall:.3f} s; state bit for bit, av max abs err "
           f"{av_err:.3e}, headers equal [{card}]", flush=True)
@@ -3384,6 +3379,7 @@ def displays_main_phase(card, tmp):
             t0 = time.perf_counter()
             sim, got = _counted(lambda: run_sim(own, "stream",
                                                 repl="E_dc 1.5 0.2\nexit\n"))
+            chunks = _chunks()
             wall = time.perf_counter() - t0
             with open("out.txt") as fh:
                 text = fh.read()
@@ -3391,21 +3387,21 @@ def displays_main_phase(card, tmp):
         form_key = "B2 spill" if form is None else "B2 tiling"
         check(tag == ("stream spill" if form is None else "stream tiling")
               and got[form_key] == got["B2"] > 0
-              and (form is not None or got["B2"] == sim.chunks_done),
+              and (form is not None or got["B2"] == chunks),
               f"N=100 M=20000 REPL on {tag}: launches {got}")
-        b2[tag] = (sim, got, wall, text)
-    (sp_sim, sp_got, sp_wall, sp_text), (ti_sim, ti_got, ti_wall,
-                                         ti_text) = b2.values()
+        b2[tag] = (sim, got, wall, text, chunks)
+    ((sp_sim, sp_got, sp_wall, sp_text, sp_chunks),
+     (ti_sim, ti_got, ti_wall, ti_text, _)) = b2.values()
     b2_err = _state_equal(sp_sim.state, ti_sim.state,
                           "N=100 M=20000 REPL spill vs tiling")
     check(_rows(sp_text).shape == (2, 13), "N=100 M=20000 REPL: lines")
-    res["repl_b2"] = dict(launches=sp_got["B2"], chunks=sp_sim.chunks_done,
+    res["repl_b2"] = dict(launches=sp_got["B2"], chunks=sp_chunks,
                           steps=sp_sim.steps_done, wall_s=sp_wall,
                           tiling_launches=ti_got["B2"], tiling_wall_s=ti_wall)
     wall = time.perf_counter() - t_phase
     print(f"displays main: N=100 M=20000 REPL, one mutation, "
           f"{sp_sim.steps_done} steps: B2 spill {sp_got['B2']} launches for "
-          f"{sp_sim.chunks_done} chunks, wall {sp_wall:.3f} s; B2 tiling "
+          f"{sp_chunks} chunks, wall {sp_wall:.3f} s; B2 tiling "
           f"{ti_got['B2']} launches, wall {ti_wall:.3f} s; state bit for "
           f"bit, av max abs err {b2_err:.3e}; phase {wall:.1f} s [{card}]",
           flush=True)
@@ -3610,9 +3606,8 @@ def run_sharded_sim(argv, S, path):
     just after: (wall s, text, sharded tile and replay launches, every
     other kernel's launches, engine tag)."""
     import torch
-    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch import bench, tracing
     from slb2d_tpu_torch.config import parse_cmd
-    from slb2d_tpu_torch.parallel import stream_shard
     from slb2d_tpu_torch.parallel.mesh import make_mesh
     from slb2d_tpu_torch.runtime.loop import Simulation
     sim = Simulation(parse_cmd(argv + [f"o={path}"]),
@@ -3623,8 +3618,8 @@ def run_sharded_sim(argv, S, path):
     sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    shard = (stream_shard.tile_launch_count,
-             stream_shard.replay_launch_count)
+    shard = (tracing.counted("launches.B2.sharded_tiles"),
+             tracing.counted("launches.B2.sharded_replays"))
     others = {k: v for k, v in bench.launch_counts().items()
               if k != "B2" and v}
     with open(path) as fh:
@@ -3648,8 +3643,8 @@ def shards_phase(card, tmp):
     import torch
     from slb2d_tpu_torch.config import SimConfig, parse_cmd
     from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
+    from slb2d_tpu_torch import tracing
     from slb2d_tpu_torch.ops import stepper_stream_cuda as ssc
-    from slb2d_tpu_torch.ops import sweep_stack_cuda as sscu
     from slb2d_tpu_torch.parallel import ParameterSweep, make_mesh
     t_phase = time.perf_counter()
 
@@ -3766,7 +3761,8 @@ def shards_phase(card, tmp):
         t0 = time.perf_counter()
         res[S] = sw.run()
         walls[S].append(time.perf_counter() - t0)
-        launches[S] = (sscu.launch_count, sscu.cluster_launch_count)
+        launches[S] = (tracing.counted("launches.B3.shared"),
+                       _b3_forms()[0])
     for k in res[1]:
         check(np.array_equal(res[1][k], res[2][k]),
               f"64-point sweep on 2 slots: {k} not bit for bit")
@@ -3938,12 +3934,10 @@ def combined_phase(card, tmp):
     the kernels line."""
     import numpy as np
     import torch
-    from slb2d_tpu_torch import bench
+    from slb2d_tpu_torch import bench, tracing
     from slb2d_tpu_torch.config import SimConfig, parse_cmd
     from slb2d_tpu_torch.dryrun import dryrun_multichip
-    from slb2d_tpu_torch.ops import sweep_stack_cuda as sscu
     from slb2d_tpu_torch.parallel import ParameterSweep, make_mesh
-    from slb2d_tpu_torch.parallel import stream_shard
     from slb2d_tpu_torch.parallel.spatial import M_FIELDS
     from slb2d_tpu_torch.runtime.loop import Simulation
     t_phase = time.perf_counter()
@@ -3955,10 +3949,12 @@ def combined_phase(card, tmp):
     # (a) the dryrun's six checks on four slots
     zero_counts()
     dry = dryrun_multichip(4, device=DEVICE)
-    counts = dict(b2_sharded_tiles=stream_shard.tile_launch_count,
-                  b2_sharded_replays=stream_shard.replay_launch_count,
-                  b3_shared=sscu.launch_count,
-                  b3_omega=sscu.omega_launch_count)
+    counts = dict(b2_sharded_tiles=tracing.counted(
+                      "launches.B2.sharded_tiles"),
+                  b2_sharded_replays=tracing.counted(
+                      "launches.B2.sharded_replays"),
+                  b3_shared=tracing.counted("launches.B3.shared"),
+                  b3_omega=tracing.counted("launches.B3.omega"))
     check(counts == dry["launches"] and all(counts.values()),
           f"dryrun launches {counts}, the dryrun counted "
           f"{dry['launches']}")

@@ -169,7 +169,8 @@ def bench_movie(frame_batch=8, N=20, M=1000, t_start=0.3, omega=10.0,
     On a card the row formatter is built first (io/native.build).
     Returns a dict: wall, frames, steps, engine, formatter, chunks, the
     kernel launches of the timed run and the host seconds by part
-    (Simulation.timing)."""
+    (movie_timing of its spans)."""
+    from . import tracing
     from .config import SimConfig
     from .io import native
     from .runtime.loop import Simulation
@@ -187,12 +188,13 @@ def bench_movie(frame_batch=8, N=20, M=1000, t_start=0.3, omega=10.0,
             if sim.device.type == "cuda":
                 native.build()
             sim.warmup()
-            sim.timing = dict.fromkeys(sim.timing, 0.0)
             launches0 = getattr(sim._runner, "launches", 0)
+            chunks0 = tracing.counted("engine.chunks")
             _sync(sim.device)
             # the frames' `# norm=` echo (the reference's printf) stays off
             # the bench's one JSON line
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    tracing.recording():
                 t0 = time.perf_counter()
                 sim.run()             # ends in the IO thread's drain
                 wall = time.perf_counter() - t0
@@ -202,9 +204,37 @@ def bench_movie(frame_batch=8, N=20, M=1000, t_start=0.3, omega=10.0,
             os.chdir(cwd)
     return dict(wall=wall, frames=frames, steps=sim.steps_done,
                 engine=sim.engine_tag(), formatter=native.formatter(),
-                chunks=sim.chunks_done,
+                chunks=tracing.counted("engine.chunks") - chunks0,
                 launches=getattr(sim._runner, "launches", 0) - launches0,
-                timing=dict(sim.timing))
+                timing=movie_timing([s for s in tracing.spans()
+                                     if s.run == sim.run_id]))
+
+
+def movie_timing(spans):
+    """A run's host seconds by part, from its spans: chunks (engine.chunk,
+    io.write and the display-77 records' engine.fetch, those before the
+    schedule's end and outside an engine.chunk, which holds its own; the
+    round's last fetch is not a chunk's), frames
+    (frames.build less the io.wait inside it), wait (io.wait: the loop
+    blocked on a full IO queue), and in the IO thread fetch and format
+    (io.fetch, io.format: the frames' transfer and file writes)."""
+    def seconds(items):
+        return sum(s.end_ns - s.start_ns for s in items) * 1e-9
+
+    def named(*names):
+        return [s for s in spans if s.name in names]
+    sched_end = max((s.end_ns for s in named("schedule.chunk")), default=0)
+    builds = {s.id for s in named("frames.build")}
+    chunks = {s.id for s in named("engine.chunk")}
+    return dict(
+        chunks=seconds(named("engine.chunk", "io.write")
+                       + [s for s in named("engine.fetch")
+                          if s.end_ns <= sched_end
+                          and s.parent not in chunks]),
+        frames=seconds(named("frames.build"))
+        - seconds(s for s in named("io.wait") if s.parent in builds),
+        wait=seconds(named("io.wait")), fetch=seconds(named("io.fetch")),
+        format=seconds(named("io.format")))
 
 
 def sweep_params(B=SWEEP_POINTS, axis="E_dc", omega=1.0):
@@ -356,16 +386,18 @@ def run_mode(argv, device, **depth):
 
 
 def launch_counts():
-    """Every kernel's launch count in this process (B1's also per form)."""
-    from .ops import (stepper_cuda, stepper_stream_cuda, sweep_lanes_cuda,
-                      sweep_stack_cuda)
-    return {"B1": stepper_cuda.launch_count,
-            "B1 resident": stepper_cuda.resident_launch_count,
-            "B1 per-half-step": stepper_cuda.per_half_step_launch_count,
-            "B2": stepper_stream_cuda.launch_count,
-            "B3": sweep_stack_cuda.launch_count,
-            "B3 per-omega": sweep_stack_cuda.omega_launch_count,
-            "B4": sweep_lanes_cuda.launch_count}
+    """Every kernel's launch count in this process (B1's also per form),
+    from the counters launches.<kernel>.<form> (slb2d_tpu_torch.tracing):
+    B2 counts its sharded form's tiles and replays too, B3 its shared-omega
+    launches and B3 per-omega its per-omega ones."""
+    from .tracing import counted
+    return {"B1": counted("launches.B1"),
+            "B1 resident": counted("launches.B1.resident"),
+            "B1 per-half-step": counted("launches.B1.per-half-step"),
+            "B2": counted("launches.B2"),
+            "B3": counted("launches.B3.shared"),
+            "B3 per-omega": counted("launches.B3.omega"),
+            "B4": counted("launches.B4")}
 
 
 def device_line():

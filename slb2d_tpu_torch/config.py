@@ -20,6 +20,8 @@ import re
 import sys
 from typing import IO, Optional, Union
 
+from . import tracing
+
 VALID_DISPLAYS = (3, 4, 7, 8, 9, 77)
 
 # Parameters the interactive parameter server may mutate, one at a time
@@ -144,6 +146,7 @@ def _die(msg: str):
     raise ConfigError(1)
 
 
+@tracing.traced("config.parse")
 def parse_cmd(argv: list[str]) -> SimConfig:
     """Parse ``key=value`` arguments exactly like the reference parser.
 

@@ -126,12 +126,12 @@ def _table_close(res, ref, what, tol):
 
 def _launches():
     """The kernels' launch counts this dryrun reads (checks 4-6)."""
-    from .ops import sweep_stack_cuda
-    from .parallel import stream_shard
-    return dict(b2_sharded_tiles=stream_shard.tile_launch_count,
-                b2_sharded_replays=stream_shard.replay_launch_count,
-                b3_shared=sweep_stack_cuda.launch_count,
-                b3_omega=sweep_stack_cuda.omega_launch_count)
+    from . import tracing
+    return dict(b2_sharded_tiles=tracing.counted("launches.B2.sharded_tiles"),
+                b2_sharded_replays=tracing.counted(
+                    "launches.B2.sharded_replays"),
+                b3_shared=tracing.counted("launches.B3.shared"),
+                b3_omega=tracing.counted("launches.B3.omega"))
 
 
 def _expect_launches(before, want, what, on_card):

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import tracing
 from ..config import SimConfig
 from ..constants import PI
 from .bessel import bessel_In
@@ -42,6 +43,7 @@ class SuperlatticeModel:
     state arrays survive, matching reference src/boltzmann_c_solver.c:270-281).
     """
 
+    @tracing.traced("model.build")
     def __init__(self, cfg: SimConfig):
         self.cfg = cfg
         self.f64 = cfg.dtype == "f64"

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import stencil
 
 # xs table lanes (per step): cos_t, cos_t_dt, cos_hs, cos_hs_dt,
@@ -81,15 +82,6 @@ XCH_LANES = 8
 NOT_CO_RESIDENT = -2
 # an H100 SXM's SMs: the most bands a plan takes where no card is asked
 SM_COUNT = 132
-
-# kernel launches made by every Runner of this process (each Runner also
-# counts its own in Runner.launches), in all and per form: a driver builds
-# its Runner inside, so a caller that wants to show the main path ran on
-# the kernel resets these before the run and reads them after
-launch_count = 0
-resident_launch_count = 0
-per_half_step_launch_count = 0
-
 
 class ResidentPlan(NamedTuple):
     W: int            # columns of a band (the last band may have fewer)
@@ -214,9 +206,11 @@ class Runner:
     """(state, n_steps) -> state on the CUDA kernel (CPU tensors: the plain
     version).  Same surface as the JAX package's pallas Runner: run_xs,
     __call__, take_obs, update_consts; plus `launches`, the number of
-    kernel launches made so far.  Tracks step parity and loop t on the
-    host, so no device scalar is read per chunk.  Subclasses replace
-    _pick_form, _plain, _enqueue and _add_launches
+    kernel launches made so far, which every runner of the process also
+    adds to the counter launches.<kernel>.<form> (slb2d_tpu_torch.tracing:
+    launches.B1.resident, launches.B1.per-half-step).  Tracks step parity
+    and loop t on the host, so no device scalar is read per chunk.
+    Subclasses replace kernel, _pick_form, _plain and _enqueue
     (ops/stepper_stream_cuda.py).
 
     `form` is "resident" or "per-half-step": resident_plan's choice for the
@@ -225,6 +219,7 @@ class Runner:
     is the resident form's ResidentPlan (None on the other form)."""
 
     engine = "cuda-b1"
+    kernel = "B1"
 
     def __init__(self, c: stencil.StencilConsts, model, av_enabled=True,
                  exact_trig=False, form=None):
@@ -284,8 +279,10 @@ class Runner:
         # t continues exactly: the last row's loop t plus one dt,
         # the C driver's sequential accumulation
         t_next = self.model.np_dtype(xs[n - 1, 7] + self.host.dt)
-        return out.replace(t=torch.tensor(t_next, dtype=self.dtype,
-                                          device=dev))
+        # a copy from host memory that waits for the chunk's kernels to end
+        with tracing.span("engine.fetch"):
+            t = torch.tensor(t_next, dtype=self.dtype, device=dev)
+        return out.replace(t=t)
 
     def _plain(self, state, xs, parity0, emit_idx):
         return run_chunk_plain(self.c, state, xs, parity0, emit_idx)
@@ -354,7 +351,7 @@ class Runner:
             raise RuntimeError(f"{self.engine} kernel launch ({self.form} "
                                f"form) failed: cudaError_t {rc}")
         self.launches += k
-        self._add_launches(k)
+        tracing.count(f"launches.{self.kernel}.{self.form}", k)
         self._xs_dev = xs_dev
         self.last_obs = obs
         return state.replace(step=state.step + n)
@@ -391,15 +388,6 @@ class Runner:
                 torch.empty(2 * bands * PART_LANES, dtype=self.dtype,
                             device=dev))
         return self._scratch
-
-    def _add_launches(self, k):
-        global launch_count, resident_launch_count
-        global per_half_step_launch_count
-        launch_count += k
-        if self.form == "resident":
-            resident_launch_count += k
-        else:
-            per_half_step_launch_count += k
 
     def __call__(self, state, n_steps):
         D = self.model.np_dtype

@@ -83,14 +83,6 @@ SPILL_SUMS = 2 * MAX_SPILL * 2
 # per-half-step form's 81.1 us).
 SPILL_L2_BUDGET = {4: 30 * 1024 * 1024, 8: 34 * 1024 * 1024}
 
-# kernel launches made by every stream runner of this process (each runner
-# also counts its own in .launches), in all and per form; reset them
-# before a run and read them after to show the run went through the kernel
-launch_count = 0
-spill_launch_count = 0
-tiling_launch_count = 0
-
-
 class SpillPlan(NamedTuple):
     bands: int        # blocks of the launch, one per SM
     R: int            # resident columns of a band (shared memory)
@@ -416,6 +408,7 @@ class StreamRunner(Runner):
     Geometry (K and W override default_geometry's)."""
 
     engine = "stream"
+    kernel = "B2"
 
     def __init__(self, c, model, av_enabled=True, exact_trig=False,
                  K=None, W=None, form=None, spill=None):
@@ -503,14 +496,6 @@ class StreamRunner(Runner):
             partials.data_ptr(), carry.data_ptr(), m.N, m.M, m.NHP,
             m.MP, g.K, g.W, g.H, int(n), int(parity0), stream)
         return rc, LAUNCHES_PER_LAUNCH * -(-n // g.K)
-
-    def _add_launches(self, k):
-        global launch_count, spill_launch_count, tiling_launch_count
-        launch_count += k
-        if self.form == "spill":
-            spill_launch_count += k
-        else:
-            tiling_launch_count += k
 
 
 def make_stream_runner(c: stencil.StencilConsts, model, av_enabled=True,

@@ -41,6 +41,7 @@ import types
 import numpy as np
 import torch
 
+from .. import tracing
 from . import stencil
 from .stencil import CAP_KEYS
 
@@ -84,15 +85,6 @@ NO_ACTIVE_CLUSTER = -1
 # card; a CUDA runner asks its own.
 H100_ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
                         8: 15}
-
-# kernel launches made by every runner of this process (each runner also
-# counts its own in .launches), in all and by form: a caller that wants to
-# show a run went through the kernel resets these before the run and reads
-# them after
-launch_count = 0
-cluster_launch_count = 0      # lanes_cluster
-streaming_launch_count = 0    # lanes_half_step
-
 
 def _within_budget(smem):
     return smem + TRIG_SCRATCH * 4 <= SMEM_LIMIT
@@ -455,7 +447,6 @@ class LanesRunner:
 
     def _launch(self, pack, st, n, step0, t0):
         from . import _build
-        global launch_count, cluster_launch_count, streaming_launch_count
         CB, base = self.CB, self.base
         NHP, BMP = base.NHP, CB * base.MP
         c = pack.consts
@@ -501,14 +492,10 @@ class LanesRunner:
             raise RuntimeError(f"lane-packed sweep kernel launch ({self.form} "
                                f"form, cluster_size {self.cluster_size}) "
                                f"failed: cudaError_t {rc}")
-        if self.form == "cluster":
-            k = LAUNCHES_PER_CALL
-            cluster_launch_count += k
-        else:
-            k = LAUNCHES_PER_STEP * n
-            streaming_launch_count += k
+        k = (LAUNCHES_PER_CALL if self.form == "cluster"
+             else LAUNCHES_PER_STEP * n)
         self.launches += k
-        launch_count += k
+        tracing.count(f"launches.B4.{self.form}", k)
 
 
 def finish_chunk(pack: LanePack, st: LaneState):

@@ -41,6 +41,7 @@ import types
 import numpy as np
 import torch
 
+from .. import tracing
 from . import stencil, stepper_cuda
 from .stencil import CAP_KEYS, capture_sums
 
@@ -83,17 +84,6 @@ NO_ACTIVE_CLUSTER = -1
 # TRIG_RESYNC, as the JAX runner's 512: a run split into chunks
 # re-evaluates its chains at the same steps as one advance() call.
 CHUNK_STEPS = 16384
-
-# kernel launches made by every runner of this process, per kernel (each
-# runner also counts its own in .launches): a caller that wants to show
-# the main path ran on a kernel resets these before the run and reads
-# them after
-launch_count = 0            # slb_sweep_chunk (shared omega)
-omega_launch_count = 0      # slb_sweep_chunk_omega (omega swept)
-# the same launches counted by form, either mode
-cluster_launch_count = 0    # sweep_cluster
-streaming_launch_count = 0  # sweep_chunk
-
 
 def cluster_smem_bytes(NHP: int, MP: int, dtype, cluster_size: int):
     """The dynamic shared memory of one rank of a cluster of cluster_size
@@ -420,17 +410,10 @@ class SweepStackRunner:
             raise RuntimeError(f"cuda sweep kernel launch ({self.form} "
                                f"form, cluster_size {self.cluster_size}) "
                                f"failed: cudaError_t {rc}")
-        global launch_count, omega_launch_count
-        global cluster_launch_count, streaming_launch_count
+        # the process's counters: launches.B3.<shared|omega>.<form>
         self.launches += LAUNCHES_PER_CHUNK
-        if self.per_omega:
-            omega_launch_count += LAUNCHES_PER_CHUNK
-        else:
-            launch_count += LAUNCHES_PER_CHUNK
-        if self.form == "cluster":
-            cluster_launch_count += LAUNCHES_PER_CHUNK
-        else:
-            streaming_launch_count += LAUNCHES_PER_CHUNK
+        mode = "omega" if self.per_omega else "shared"
+        tracing.count(f"launches.B3.{mode}.{self.form}", LAUNCHES_PER_CHUNK)
         self._xs_dev = xs_dev
         states = states.replace(step=states.step + n)
         if self.per_omega:

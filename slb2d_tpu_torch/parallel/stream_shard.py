@@ -24,8 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import stencil
-from ..ops import stepper_stream_cuda as ssc
 from ..ops.stepper_cuda import (OBS_LANES, SCALAR_FIELDS, card_sms,
                                 pack_xs_dict)
 from ..ops.stepper_stream_cuda import (DEFAULT_K, HALO_PER_STEP, Geometry,
@@ -33,13 +33,6 @@ from ..ops.stepper_stream_cuda import (DEFAULT_K, HALO_PER_STEP, Geometry,
                                        obs_table, plain_launch, raw_sums,
                                        replay_sums, tile_consts)
 from .spatial import M_FIELDS, M_STATE, Slots
-
-# kernel launches of the sharded form made by every runner of this
-# process: its tile launches (one per shard per round) and its replays
-# (one per round); stepper_stream_cuda.launch_count counts both too
-tile_launch_count = 0
-replay_launch_count = 0
-
 
 def validate_shard_geometry(NHP: int, MP: int, S: int, K: int | None = None):
     """Raise where the sharded form cannot run S shards of an (NHP, MP)
@@ -219,8 +212,10 @@ class ShardedStreamRunner:
             raise ValueError(f"sharded stream runner: unsupported device "
                              f"{dev}")
         t_next = self.model.np_dtype(xs[n - 1, 7] + self.dt)
-        return out.replace(t=self.layout.replicate(
-            torch.tensor(t_next, dtype=self.dtype)))
+        # copies from host memory that wait for the chunk's kernels to end
+        with tracing.span("engine.fetch"):
+            t = self.layout.replicate(torch.tensor(t_next, dtype=self.dtype))
+        return out.replace(t=t)
 
     def take_obs(self, n_emit):
         return self.last_obs[:n_emit, :13].cpu().numpy()
@@ -267,12 +262,12 @@ class ShardedStreamRunner:
         return self._bufs
 
     def _count(self, tiles: int, replays: int):
-        """Add launches made to every count that reads them."""
-        global tile_launch_count, replay_launch_count
-        tile_launch_count += tiles
-        replay_launch_count += replays
+        """Add launches made to the runner's count and to the process's
+        counters launches.B2.sharded_tiles (one a shard a round) and
+        launches.B2.sharded_replays (one a round)."""
         self.launches += tiles + replays
-        ssc.launch_count += tiles + replays
+        tracing.count("launches.B2.sharded_tiles", tiles)
+        tracing.count("launches.B2.sharded_replays", replays)
 
     def _launch(self, state, xs, n, parity0, emit_idx):
         """Copy the state in, enqueue every round (halo exchange, one tile

@@ -67,6 +67,7 @@ import types
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import SimConfig, torch_device
 from ..constants import PI
 from ..models.superlattice import SuperlatticeModel
@@ -192,6 +193,13 @@ class ParameterSweep:
         above 1, must be their count).  layout: one block of the combined
         layout, its points' grids cut over the SpaceLayout's slots (the
         blocks _split makes)."""
+        self.run_id = tracing.run_id()
+        with tracing.span("sweep.init", run=self.run_id):
+            self._setup(cfg, params, device, capture_state, mesh, axis,
+                        space_axis, layout)
+
+    def _setup(self, cfg, params, device, capture_state, mesh, axis,
+               space_axis, layout):
         for k in params:
             if k not in SWEEPABLE:
                 raise ValueError(f"cannot sweep over {k!r}")
@@ -224,47 +232,58 @@ class ParameterSweep:
         else:
             self.device = torch_device(cfg, device)
 
-        # per-point models: scalar derivations are cheap; a0 differs only
-        # when mu/alpha vary
-        self.models = []
-        for i in range(self.B):
-            kw = {k: float(v[i]) for k, v in self.params.items()}
-            self.models.append(SuperlatticeModel(cfg.replace(**kw)))
-        m0 = self.models[0]
-        self.base = m0
-        D = m0.np_dtype
-        # per-point averaging window end: t_max = D(t_start + T_b)
-        t_end = np.asarray([D(D(cfg.t_start) + m.T) for m in self.models])
-        # shared step count: the longest point's loop trip count
-        self.n_steps = max(
-            count_steps(0.0, float(t_end[i]), float(m0.dt), D)
-            for i in range(self.B))
+        with tracing.span("sweep.points"):
+            t_end = self._points(cfg)
         if mesh is not None:
             self._split(capture_state, space_axis)
             return
         self.engine = choose_engine(cfg, self.device,
                                     combined=layout is not None)
-        # built where the points' grids live: on the one device, or on the
-        # host and cut over the slots (no slot's device holds a whole grid)
-        home = self.device if layout is None else torch.device("cpu")
+        with tracing.span("sweep.consts"):
+            self.consts = self._batched_consts(t_end)
+        self._stack_runner = None
+
+    def _points(self, cfg):
+        """The per-point models, the shared step count (the longest point's
+        loop trip count); returns each point's averaging window end, t_max
+        = D(t_start + T_b)."""
+        # scalar derivations are cheap; a0 differs only when mu/alpha vary
+        self.models = []
+        for i in range(self.B):
+            kw = {k: float(v[i]) for k, v in self.params.items()}
+            self.models.append(SuperlatticeModel(cfg.replace(**kw)))
+        m0 = self.base = self.models[0]
+        D = m0.np_dtype
+        t_end = np.asarray([D(D(cfg.t_start) + m.T) for m in self.models])
+        self.n_steps = max(
+            count_steps(0.0, float(t_end[i]), float(m0.dt), D)
+            for i in range(self.B))
+        return t_end
+
+    def _batched_consts(self, t_end):
+        """The points' StencilConsts: the first point's, with a leading
+        point axis on the fields that vary, built where the points' grids
+        live: on the one device, or on the host and cut over the slots (no
+        slot's device holds a whole grid)."""
+        D = self.base.np_dtype
+        home = self.device if self.layout is None else torch.device("cpu")
 
         def stack(field):
             return torch.as_tensor(
                 np.stack([np.asarray(getattr(m, field), D)
                           for m in self.models]), device=home)
 
-        # batched consts: a leading point axis only on fields that vary
         batched = {f: stack(f).reshape(self.B, 1, 1) for f in _POINT_FIELDS}
         if any(k in self.params for k in ("mu", "alpha")):
             batched["a0"] = stack("a0")
             batched["a0_ghost"] = stack("a0_ghost")
         batched["t_end"] = torch.as_tensor(
             t_end, device=home).reshape(self.B, 1, 1)
-        self.consts = dataclasses.replace(
-            stencil.consts_from_model(m0, home), **batched)
-        if layout is not None:
-            self.consts = layout.scatter_consts(self.consts)
-        self._stack_runner = None
+        consts = dataclasses.replace(
+            stencil.consts_from_model(self.base, home), **batched)
+        if self.layout is not None:
+            consts = self.layout.scatter_consts(consts)
+        return consts
 
     def _split(self, capture_state, space_axis):
         """The mesh's blocks: per index of its sweep axis the points [lo,
@@ -367,6 +386,10 @@ class ParameterSweep:
         continue an interrupted sweep from such a file (the grid must
         match).  On a mesh every block advances chunk by chunk, each
         block's launches enqueued before any block's results are read."""
+        with tracing.span("sweep.run", run=self.run_id):
+            return self._run(checkpoint, resume, checkpoint_every)
+
+    def _run(self, checkpoint, resume, checkpoint_every):
         checkpoint = checkpoint or None          # '' from the CLI == unset
         resume = resume or None
         self.final_ab = None
@@ -377,12 +400,15 @@ class ParameterSweep:
                  [(*self.bounds[i], sub) for i, sub in self.blocks])
         live = []
         for lo, hi, sw in parts:
-            if saved is None:
-                st, cp = sw._initial_states(), sw._zero_cap()
-            else:
-                st, cp = sw._place({k: v[lo:hi] for k, v in saved[0].items()},
-                                   {k: v[lo:hi] for k, v in saved[1].items()})
-            live.append([st, cp, sw._advancer(done)])
+            with tracing.span("sweep.states"):
+                if saved is None:
+                    st, cp = sw._initial_states(), sw._zero_cap()
+                else:
+                    st, cp = sw._place(
+                        {k: v[lo:hi] for k, v in saved[0].items()},
+                        {k: v[lo:hi] for k, v in saved[1].items()})
+                weights = sw._weights()
+            live.append([st, cp, sw._advancer(done, weights)])
 
         chunk = (checkpoint_every if checkpoint and checkpoint_every > 0
                  else self.n_steps - done)
@@ -398,39 +424,45 @@ class ParameterSweep:
         states, cap = self._whole(live, full=False)
         if self.capture_state:
             cap = dict(cap)
-            self.final_ab = (cap.pop("a").cpu().numpy(),
-                             cap.pop("b").cpu().numpy())
+            with tracing.span("engine.fetch"):
+                self.final_ab = (cap.pop("a").cpu().numpy(),
+                                 cap.pop("b").cpu().numpy())
         return self._finalize(states, cap)
 
-    def _advancer(self, done):
+    def _advancer(self, done, weights):
         """advance(states, cap, k) -> (states, cap) on this sweep's engine,
-        from step `done` on."""
-        weights = self._weights()
+        from step `done` on; weights: _weights()."""
         if self.engine == "cuda":
             from ..ops.sweep_stack_cuda import SweepStackRunner
             if self._stack_runner is None:
-                self._stack_runner = SweepStackRunner(self)
+                with tracing.span("engine.build"):
+                    self._stack_runner = SweepStackRunner(self)
             runner = self._stack_runner
             runner.seek(done)            # resume-aware t/step trackers
             if runner.per_omega:
                 # omega swept: the kernel rolls each point's loop-exit
                 # capture (and frames) at its own exit step
                 def advance(st, cp, k):
-                    return runner.advance(st, k, cap=cp)
+                    with tracing.span("engine.chunk"):
+                        return runner.advance(st, k, cap=cp)
             else:
                 # a shared omega: every point exits at the last step, so
                 # the capture is the post-step sums of the final state
                 def advance(st, cp, k):
-                    st = runner.advance(st, k)
-                    return st, _capture(st, weights, self.capture_state)
+                    with tracing.span("engine.chunk"):
+                        st = runner.advance(st, k)
+                    with tracing.span("sweep.capture"):
+                        return st, _capture(st, weights, self.capture_state)
             return advance
 
         hooks = self._hooks()
 
         def advance(st, cp, k):
-            return _run_sweep(self.consts, st, cp, weights, k, **hooks)
+            with tracing.span("engine.chunk"):
+                return _run_sweep(self.consts, st, cp, weights, k, **hooks)
         return advance
 
+    @tracing.traced("engine.fetch")
     def _host(self, st, cp, full=True):
         """This sweep's (states, cap) as host arrays by field and key; a
         combined block's slices gathered whole (a collective of its
@@ -545,11 +577,13 @@ class ParameterSweep:
         cap = {k: z[f"cap_{k}"] for k in sorted(expected_cap)}
         return arrays, cap, int(z["done"])
 
+    @tracing.traced("sweep.finalize")
     def _finalize(self, final: stencil.State, cap):
         D = self.base.np_dtype
-        av = final.av.cpu().numpy()        # (B, 8): av_data[0..5] + Kahan
+        with tracing.span("engine.fetch"):
+            av = final.av.cpu().numpy()    # (B, 8): av_data[0..5] + Kahan
                                            # compensations in slots 6/7
-        out = {k: v.cpu().numpy() for k, v in cap.items()}
+            out = {k: v.cpu().numpy() for k, v in cap.items()}
         # per-point instability report (the sweep analogue of the
         # single-run NaN guard, runtime/loop.py:_check_finite): a diverged
         # point must not pass silently as NaN rows, but one bad point

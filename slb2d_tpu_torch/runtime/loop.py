@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import config as cfgmod
+from .. import tracing
 from ..config import SimConfig  # noqa: F401  (public API)
 from ..constants import PI
 from ..models.superlattice import SuperlatticeModel
@@ -95,12 +96,28 @@ class Simulation:
         slots (default, with shards>1: make_mesh over this process's
         devices, parallel/mesh.local_devices; for the tests and the smoke
         run, a mesh may repeat a device)."""
+        self.run_id = tracing.run_id()
+        with tracing.span("sim.init", run=self.run_id):
+            self._setup(cfg, out, device, mesh)
+
+    def _setup(self, cfg, out, device, mesh):
         from ..parallel.mesh import process_count, process_index
         self.cfg = cfg
-        self._p0 = process_index() == 0
-        self._nprocs = process_count()
         self._runner = None
-        self._build_model(device, mesh)
+        self.model = SuperlatticeModel(cfg)
+        # the run's plan: its process, layout, device, engine and t_max
+        with tracing.span("sim.plan"):
+            self._p0 = process_index() == 0
+            self._nprocs = process_count()
+            self.layout = self._space_layout(device, mesh)
+            # default cuda:<cfg.device> for every impl; the CPU only when
+            # asked
+            self.device = (cfgmod.torch_device(cfg, device)
+                           if self.layout is None else self.layout.home)
+            self.engine = self._select_engine()
+            self.t_start = float(cfg.t_start)
+            self.t_max = self._compute_t_max()
+        self._set_consts(self.model)
         if out is not None:
             self.out = out
         elif self._p0:
@@ -114,59 +131,43 @@ class Simulation:
         self._frame_batch = []
         self._io_pool = None
         self._io_futures = []
-        # host seconds by part of the run: chunks (schedule, table copy,
-        # launches), frames (reconstruction and queueing), wait (the loop
-        # blocked on a full IO queue), and in the IO thread fetch and
-        # format (the frames' transfer and file writes)
-        self.timing = dict(chunks=0.0, frames=0.0, wait=0.0, fetch=0.0,
-                           format=0.0)
-        self.chunks_done = 0
         # cross-round float carries (the reference keeps these across the
         # parameter-server loop)
         self.frame_time = 0.0
         self.last_rem = 0.0
         self.t_exit = 0.0
         self._steps_since_progress = 0
-        if cfg.resume:
-            # a sharded run loads on the host and scatters (below)
-            self.state, extra = load_state(
-                cfg.resume, self.model,
-                device=self.device if self.layout is None else "cpu")
-            self.t0 = float(extra.get("t0", float(self.state.t)))
-            self.frame_time = float(extra.get("frame_time", 0.0))
-            self.frame_number = int(extra.get("frame_number", 1))
-            # display-9 strobe carries: without these a resumed strobe run
-            # would drop the accumulated periods and reset the t/T
-            # wraparound reminder (src/boltzmann_solver.c:260-275,447-484)
-            self.last_rem = float(extra.get("last_rem", 0.0))
-            if "strobe_values" in extra:
-                sv = np.asarray(extra["strobe_values"])
-                self.strobe_values = (
-                    torch.as_tensor(sv, device=self.device)
-                    if self._device_frames() else sv)
-            self.steps_done = int(self.state.step)
-            if self.layout is not None:
-                self.state = self.layout.scatter_state(self.state)
-        else:
-            self.state = (
-                stencil.bootstrap_state(self.c, self.model)
-                if self.layout is None
-                else self.layout.bootstrap_state(self.c, self.model))
-            self.t0 = 0.0
-            self.steps_done = 0
-        self.t_start = float(cfg.t_start)
-        self.t_max = self._compute_t_max()
+        with tracing.span("sim.bootstrap"):
+            if cfg.resume:
+                # a sharded run loads on the host and scatters (below)
+                self.state, extra = load_state(
+                    cfg.resume, self.model,
+                    device=self.device if self.layout is None else "cpu")
+                self.t0 = float(extra.get("t0", float(self.state.t)))
+                self.frame_time = float(extra.get("frame_time", 0.0))
+                self.frame_number = int(extra.get("frame_number", 1))
+                # display-9 strobe carries: without these a resumed strobe
+                # run would drop the accumulated periods and reset the t/T
+                # wraparound reminder
+                # (src/boltzmann_solver.c:260-275,447-484)
+                self.last_rem = float(extra.get("last_rem", 0.0))
+                if "strobe_values" in extra:
+                    sv = np.asarray(extra["strobe_values"])
+                    self.strobe_values = (
+                        torch.as_tensor(sv, device=self.device)
+                        if self._device_frames() else sv)
+                self.steps_done = int(self.state.step)
+                if self.layout is not None:
+                    self.state = self.layout.scatter_state(self.state)
+            else:
+                self.state = (
+                    stencil.bootstrap_state(self.c, self.model)
+                    if self.layout is None
+                    else self.layout.bootstrap_state(self.c, self.model))
+                self.t0 = 0.0
+                self.steps_done = 0
 
     # -- setup ---------------------------------------------------------------
-
-    def _build_model(self, device=None, mesh=None):
-        self.model = SuperlatticeModel(self.cfg)
-        self.layout = self._space_layout(device, mesh)
-        # default cuda:<cfg.device> for every impl; the CPU only when asked
-        self.device = (cfgmod.torch_device(self.cfg, device)
-                       if self.layout is None else self.layout.home)
-        self.engine = self._select_engine()
-        self._set_consts(self.model)
 
     def _space_layout(self, device, mesh):
         """The SpaceLayout of a sharded run (shards>1 or a mesh), else
@@ -185,6 +186,7 @@ class Simulation:
                              f"holds {mesh.shape.get('space')} slots")
         return SpaceLayout(mesh, self.model.MP)
 
+    @tracing.traced("sim.consts")
     def _set_consts(self, model, t_start=None):
         """The run's consts: on one device, or on a sharded run each
         slot's slice of the m-indexed fields (built on the host and
@@ -253,17 +255,19 @@ class Simulation:
 
     def _kernel_runner(self):
         if self._runner is None:
-            if self.layout is not None:
-                from ..parallel.stream_shard import ShardedStreamRunner
-                self._runner = ShardedStreamRunner(self.c, self.model,
-                                                   self.layout)
-            elif self.engine == "stream":
-                from ..ops.stepper_stream_cuda import make_stream_runner
-                self._runner = make_stream_runner(self.c, self.model)
-            else:
-                from ..ops.stepper_cuda import make_cuda_runner
-                self._runner = make_cuda_runner(self.c, self.model)
+            with tracing.span("engine.build"):
+                self._runner = self._make_runner()
         return self._runner
+
+    def _make_runner(self):
+        if self.layout is not None:
+            from ..parallel.stream_shard import ShardedStreamRunner
+            return ShardedStreamRunner(self.c, self.model, self.layout)
+        if self.engine == "stream":
+            from ..ops.stepper_stream_cuda import make_stream_runner
+            return make_stream_runner(self.c, self.model)
+        from ..ops.stepper_cuda import make_cuda_runner
+        return make_cuda_runner(self.c, self.model)
 
     def _compute_t_max(self):
         D = self.model.np_dtype
@@ -289,6 +293,10 @@ class Simulation:
     def run(self, repl_stream=None):
         """The whole run, the parameter-server rounds included; returns the
         final State."""
+        with tracing.span("sim.run", run=self.run_id):
+            return self._run(repl_stream)
+
+    def _run(self, repl_stream):
         cfg = self.cfg
         if cfg.read_from == "stdin" and repl_stream is None:
             repl_stream = sys.stdin
@@ -302,8 +310,9 @@ class Simulation:
 
             if cfg.display == 3:
                 a, b = self._host_ab()
-                writers.write_display3(self.out, self.model,
-                                       self._get_recon(), a, b)
+                with tracing.span("io.write"):
+                    writers.write_display3(self.out, self.model,
+                                           self._get_recon(), a, b)
                 break
             if cfg.display == 8:
                 # single-shot frame.data (GPU driver semantics,
@@ -312,16 +321,18 @@ class Simulation:
                 if not self.quiet:
                     print("\nWriting frame frame.data")
                 if self._p0:
-                    with open("frame.data", "w") as fh:
+                    with tracing.span("io.write"), \
+                            open("frame.data", "w") as fh:
                         writers.write_frame(fh, self.model, recon, None,
                                             None, self.t_exit, F=F,
                                             norm=norm)
                 break
             if cfg.display == 4:
                 av, a2, b2 = self._round_obs
-                writers.write_display4(self.out, self.model, cfg, a2, b2,
-                                       av, quiet=self.quiet,
-                                       t_start=self.t_start)
+                with tracing.span("io.write"):
+                    writers.write_display4(self.out, self.model, cfg, a2,
+                                           b2, av, quiet=self.quiet,
+                                           t_start=self.t_start)
 
             if repl_stream is None:
                 break
@@ -341,22 +352,26 @@ class Simulation:
                       f"[impl={self.engine_tag()}]")
         self._drain_io()
         if cfg.checkpoint:
-            # the whole state, gathered on every process (a collective
-            # across processes); process 0 alone writes the file, in the
-            # format of an unsharded run
-            state = (self.state if self.layout is None
-                     else self.layout.gather_state(self.state))
-            extra = {}
-            if self.strobe_values is not None:
-                extra["strobe_values"] = self._fetch_np(self.strobe_values)
-            if self._p0:
-                save_state(cfg.checkpoint, state, model=self.model,
-                           t0=self.t_exit, frame_time=self.frame_time,
-                           frame_number=self.frame_number,
-                           last_rem=self.last_rem, **extra)
+            self._checkpoint()
         if self.out not in (sys.stdout, sys.stderr):
             self.out.close()
         return self.state
+
+    @tracing.traced("sim.checkpoint")
+    def _checkpoint(self):
+        """The whole state, gathered on every process (a collective across
+        processes); process 0 alone writes the file, in the format of an
+        unsharded run."""
+        state = (self.state if self.layout is None
+                 else self.layout.gather_state(self.state))
+        extra = {}
+        if self.strobe_values is not None:
+            extra["strobe_values"] = self._fetch_np(self.strobe_values)
+        if self._p0:
+            save_state(self.cfg.checkpoint, state, model=self.model,
+                       t0=self.t_exit, frame_time=self.frame_time,
+                       frame_number=self.frame_number,
+                       last_rem=self.last_rem, **extra)
 
     @staticmethod
     def _fetch_np(x):
@@ -414,41 +429,43 @@ class Simulation:
         emit = chunk.emit_idx
         if self.engine != "torch":
             runner = self._kernel_runner()
-            state = runner.run_xs(state, chunk.xs, parity, emit_idx=emit)
-            return state, (runner.take_obs(len(emit)) if emit else ())
+            with tracing.span("engine.chunk"):
+                state = runner.run_xs(state, chunk.xs, parity, emit_idx=emit)
+            if not emit:
+                return state, ()
+            with tracing.span("engine.fetch"):
+                return state, runner.take_obs(len(emit))
         # exact-time=0 on the tensor path: trig from the carried t; display
         # 77 averages only at emission steps, which only the schedule's
         # tables know, so it keeps them (slb2d_tpu/runtime/loop.py:188-195)
         exact = self.cfg.exact_time or self.cfg.display == 77
         hooks = ({} if self.layout is None else
                  dict(shift=self.layout.shift, sum_m=self.layout.sum_m))
-        state, ys = stencil.run_chunk(
-            self.c, state, chunk.xs, collect_obs=bool(emit),
-            exact_trig=exact,
-            av_enabled=self.cfg.display not in (7, 77, 8), **hooks)
-        return state, (self._first(ys)[list(emit)].cpu().numpy() if emit
-                       else ())
+        with tracing.span("engine.chunk"):
+            state, ys = stencil.run_chunk(
+                self.c, state, chunk.xs, collect_obs=bool(emit),
+                exact_trig=exact,
+                av_enabled=self.cfg.display not in (7, 77, 8), **hooks)
+        if not emit:
+            return state, ()
+        with tracing.span("engine.fetch"):
+            return state, self._first(ys)[list(emit)].cpu().numpy()
 
     def _run_round(self):
         carry: dict = {}
-        clock = time.perf_counter
-        for chunk in schedule.iter_chunks(
-                carry_out=carry, **self._schedule_kwargs()):
-            t0 = clock()
+        for chunk in tracing.spanned("schedule.chunk", schedule.iter_chunks(
+                carry_out=carry, **self._schedule_kwargs())):
             self.state, records = self._run_chunk(
                 self.state, chunk, self.steps_done % 2)
-            for rec in records:
-                writers.write_display77_from_record(
-                    self.out, self.model, rec, quiet=self.quiet)
+            if len(records):
+                with tracing.span("io.write"):
+                    for rec in records:
+                        writers.write_display77_from_record(
+                            self.out, self.model, rec, quiet=self.quiet)
             self.steps_done += chunk.n_steps
-            self.chunks_done += 1
-            t1 = clock()
-            wait0 = self.timing["wait"]
+            tracing.count("engine.chunks")
             self._handle_event(chunk)
             self._progress(chunk)
-            self.timing["chunks"] += t1 - t0
-            self.timing["frames"] += (clock() - t1
-                                      - (self.timing["wait"] - wait0))
         self._flush_frame_batch()
         self.frame_time = carry.get("frame_time", self.frame_time)
         self.last_rem = carry.get("last_rem", self.last_rem)
@@ -456,6 +473,7 @@ class Simulation:
         self._round_obs = self._fetch_round_obs()
         self._check_finite(*self._round_obs[:2])
 
+    @tracing.traced("engine.fetch")
     def _fetch_round_obs(self):
         """ONE packed device->host transfer per round end: av plus (for
         display 4) harmonic rows 0/1 of a and b — everything the round-end
@@ -473,10 +491,15 @@ class Simulation:
                 packed[8 + 2 * MP:].reshape(2, MP))
 
     def _handle_event(self, chunk):
+        if chunk.event in ("e7", "e9"):
+            with tracing.span("frames.build"):
+                self._frame_event(chunk)
+
+    def _frame_event(self, chunk):
         if chunk.event == "e7":
             F, norm_sum, finish = self._frame_parts()
             self._enqueue_frame("frame", F, norm_sum, finish, chunk.t_last)
-        elif chunk.event == "e9":
+        else:
             # strobe accumulation stays on the device on a card
             # (on the host otherwise); each period's snapshot rides the
             # same batched transfer as movie frames (reference: per-period
@@ -532,10 +555,9 @@ class Simulation:
             self._io_futures = []
         futures = self._io_futures
         if len(futures) >= IO_PENDING_MAX:
-            t0 = time.perf_counter()
-            while len(futures) >= IO_PENDING_MAX:
-                futures.pop(0).result()
-            self.timing["wait"] += time.perf_counter() - t0
+            with tracing.span("io.wait"):
+                while len(futures) >= IO_PENDING_MAX:
+                    futures.pop(0).result()
         futures.append(self._io_pool.submit(fn))
 
     def _drain_io(self):
@@ -576,26 +598,26 @@ class Simulation:
         Fs = (torch.stack([rec[1] for rec in batch]) if on_device
               else np.stack([np.asarray(rec[1]) for rec in batch]))
         ns = torch.stack([rec[2] for rec in batch]) if on_device else None
-        timing = self.timing
+        run = self.run_id
 
         def write(batch=batch, Fs=Fs, ns=ns):
             if not self._p0:
                 return                        # process 0's files
-            t0 = time.perf_counter()
-            Fh = self._fetch_np(Fs)           # ONE transfer for k frames
-            nh = (self._fetch_np(ns) if ns is not None
-                  else [None] * len(batch))
-            t1 = time.perf_counter()
-            for i, (fname, _, _, finish, t, kind) in enumerate(batch):
-                with open(fname, "w") as fh:
-                    if kind == "strobe":
-                        writers.write_strobe(fh, model, recon, Fh[i],
-                                             None, t, norm=finish(nh[i]))
-                    else:
-                        writers.write_frame(fh, model, recon, None, None,
-                                            t, F=Fh[i], norm=finish(nh[i]))
-            timing["fetch"] += t1 - t0
-            timing["format"] += time.perf_counter() - t1
+            with tracing.span("io.fetch", run=run):
+                Fh = self._fetch_np(Fs)       # ONE transfer for k frames
+                nh = (self._fetch_np(ns) if ns is not None
+                      else [None] * len(batch))
+            with tracing.span("io.format", run=run):
+                for i, (fname, _, _, finish, t, kind) in enumerate(batch):
+                    with open(fname, "w") as fh:
+                        if kind == "strobe":
+                            writers.write_strobe(fh, model, recon, Fh[i],
+                                                 None, t,
+                                                 norm=finish(nh[i]))
+                        else:
+                            writers.write_frame(fh, model, recon, None,
+                                                None, t, F=Fh[i],
+                                                norm=finish(nh[i]))
         self._io_submit(write)
 
     def _frame_parts(self):
@@ -620,15 +642,18 @@ class Simulation:
         norm = observables.eval_norm(model, a)
         return F, None, (lambda s, _n=norm: _n)
 
+    @tracing.traced("engine.fetch")
     def _host_ab(self):
         return (self._fetch_np(self._gather(self.state.a)),
                 self._fetch_np(self._gather(self.state.b)))
 
     def _frame_and_norm(self):
         """(recon, F, norm) of the current frame, fetched to the host."""
-        F, ns, finish = self._frame_parts()
-        norm = finish(self._fetch_np(ns) if ns is not None else None)
-        return self._get_recon(), self._fetch_np(F), norm
+        with tracing.span("frames.build"):
+            F, ns, finish = self._frame_parts()
+        with tracing.span("engine.fetch"):
+            norm = finish(self._fetch_np(ns) if ns is not None else None)
+            return self._get_recon(), self._fetch_np(F), norm
 
     def _check_finite(self, av, a_rows):
         a0row = a_rows[0, :8]
@@ -649,6 +674,7 @@ class Simulation:
         return broadcast_object(cfgmod.scan_for_new_parameters(stream)
                                 if self._p0 else None)
 
+    @tracing.traced("sim.mutation")
     def _apply_mutation(self, name, value, timeout):
         """One live parameter change: t_start moves to t+timeout, t_max =
         t_start + OLD T, then T re-derives; averaging restarts; the

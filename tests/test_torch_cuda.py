@@ -102,6 +102,7 @@ def test_refused_resident_launch_leaves_the_state_untouched(card, W, why):
     runner raises, and the state, av and every launch count stay as they
     were."""
     import chip_smoke
+    from slb2d_tpu_torch import tracing
     from slb2d_tpu_torch.ops import stencil, stepper_cuda
     shape = chip_smoke.TALL if W == 512 else chip_smoke.WIDE
     model, c, _ = chip_smoke._setup(shape, "f32", card)
@@ -111,16 +112,13 @@ def test_refused_resident_launch_leaves_the_state_untouched(card, W, why):
             model.NHP, W, model.np_dtype), stepper_cuda.resident_threads(W))
     state = stencil.bootstrap_state(c, model)
     before = state.clone()
-    counts = (stepper_cuda.launch_count, stepper_cuda.resident_launch_count,
-              stepper_cuda.per_half_step_launch_count)
+    counts = tracing.counters()
     with pytest.raises(RuntimeError, match=why):
         runner(state, 8)
     torch.cuda.synchronize()
     for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b", "av"):
         assert torch.equal(getattr(state, f), getattr(before, f)), f
-    assert runner.launches == 0 and counts == (
-        stepper_cuda.launch_count, stepper_cuda.resident_launch_count,
-        stepper_cuda.per_half_step_launch_count)
+    assert runner.launches == 0 and tracing.counters() == counts
 
 
 @pytest.mark.cuda
@@ -264,6 +262,7 @@ def test_refused_cluster_launch_raises_before_any_state_changes(card,
     anyway; the state, the capture and every launch count stay as they
     were."""
     import chip_smoke
+    from slb2d_tpu_torch import tracing
     from slb2d_tpu_torch.ops import sweep_stack_cuda as ssc
     sweep, runner = chip_smoke._sweep_setup(shape, "f32")
     assert runner.form == "cluster" and runner.cluster_size == 2
@@ -274,8 +273,7 @@ def test_refused_cluster_launch_raises_before_any_state_changes(card,
     before = state.clone()
     cap = chip_smoke._zero_cap(sweep, frames=True) if runner.per_omega \
         else None
-    counts = (ssc.launch_count, ssc.omega_launch_count,
-              ssc.cluster_launch_count, ssc.streaming_launch_count)
+    counts = tracing.counters()
     with pytest.raises(RuntimeError, match="cudaError_t"):
         if cap is None:
             runner.advance(state, 8)
@@ -285,9 +283,7 @@ def test_refused_cluster_launch_raises_before_any_state_changes(card,
     for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b", "av"):
         assert torch.equal(getattr(state, f), getattr(before, f)), f
     assert all(bool((v == 0).all()) for v in (cap or {}).values())
-    assert runner.launches == 0 and counts == (
-        ssc.launch_count, ssc.omega_launch_count, ssc.cluster_launch_count,
-        ssc.streaming_launch_count)
+    assert runner.launches == 0 and tracing.counters() == counts
 
 
 @pytest.mark.cuda
@@ -386,6 +382,7 @@ def test_refused_spill_launch_leaves_the_state_untouched(card):
     runner raises, and the state, av and every launch count stay as they
     were."""
     import chip_smoke
+    from slb2d_tpu_torch import tracing
     from slb2d_tpu_torch.ops import stencil, stepper_stream_cuda as sst
     model, c, _ = chip_smoke._setup(chip_smoke.B2_OWN, "f32", card)
     plan = sst.spill_plan(model.NHP, model.MP, model.np_dtype, sms=400,
@@ -394,15 +391,13 @@ def test_refused_spill_launch_leaves_the_state_untouched(card):
     runner = sst.make_stream_runner(c, model, form="spill", spill=plan)
     state = stencil.bootstrap_state(c, model)
     before = state.clone()
-    counts = (sst.launch_count, sst.spill_launch_count,
-              sst.tiling_launch_count)
+    counts = tracing.counters()
     with pytest.raises(RuntimeError, match="do not all fit"):
         runner(state, 8)
     torch.cuda.synchronize()
     for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b", "av"):
         assert torch.equal(getattr(state, f), getattr(before, f)), f
-    assert runner.launches == 0 and counts == (
-        sst.launch_count, sst.spill_launch_count, sst.tiling_launch_count)
+    assert runner.launches == 0 and tracing.counters() == counts
 
 
 @pytest.mark.cuda
@@ -466,6 +461,7 @@ def test_forced_lanes_cluster_past_residency_raises_before_any_launch(card):
     kernel before launching; the state and every launch count stay as
     they were."""
     import chip_smoke
+    from slb2d_tpu_torch import tracing
     from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
     sweep, runner = chip_smoke._lanes_runner("wide8")
     assert runner.form == "streaming" and runner.cluster_size == 0
@@ -475,16 +471,13 @@ def test_forced_lanes_cluster_past_residency_raises_before_any_launch(card):
     runner.form, runner.cluster_size = "cluster", 8
     st = runner.start(0)
     before = st.clone()
-    counts = (slc.launch_count, slc.cluster_launch_count,
-              slc.streaming_launch_count)
+    counts = tracing.counters()
     with pytest.raises(RuntimeError, match="cudaError_t"):
         runner.advance(0, st, 8)
     torch.cuda.synchronize()
     for f in ("a", "b", "a_hs", "b_hs", "av", "cap"):
         assert torch.equal(getattr(st, f), getattr(before, f)), f
-    assert runner.launches == 0 and counts == (
-        slc.launch_count, slc.cluster_launch_count,
-        slc.streaming_launch_count)
+    assert runner.launches == 0 and tracing.counters() == counts
 
 
 @pytest.mark.cuda

@@ -367,9 +367,10 @@ def test_warmup_leaves_the_frames_unchanged(tmp_path, port, display):
 def test_io_queue_is_bounded(tmp_path, monkeypatch, port, display):
     """With the IO thread slower than the frames (each file write held up
     by 5 ms), at most loop.IO_PENDING_MAX batches wait for it, the loop
-    records the time it waited, and the files equal the shared
-    frame-batch=1 run's byte for byte."""
+    records the time it waited (its io.wait spans), and the files equal
+    the shared frame-batch=1 run's byte for byte."""
     import time
+    from slb2d_tpu_torch import tracing
     from slb2d_tpu_torch.io import writers
     from slb2d_tpu_torch.runtime import loop
     name = "write_frame" if display == 7 else "write_strobe"
@@ -393,12 +394,14 @@ def test_io_queue_is_bounded(tmp_path, monkeypatch, port, display):
     sim = Simulation(SimConfig(display=display, dtype="f32", impl="stream",
                                frame_batch=1, out_file="out.txt",
                                **{**COMMON, **SHAPES[display]}), device=CPU)
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), tracing.recording():
         sim.run()
+    waited = sum(s.end_ns - s.start_ns for s in tracing.spans()
+                 if s.name == "io.wait" and s.run == sim.run_id)
     prefix = "frame" if display == 7 else "strobe"
     names = _files(".", prefix)
     assert len(pending) == len(names) > 80
-    assert max(pending) == loop.IO_PENDING_MAX and sim.timing["wait"] > 0
+    assert max(pending) == loop.IO_PENDING_MAX and waited > 0
     assert names == _files(ref, prefix)
     for name in names:
         with open(name, "rb") as a, open(os.path.join(ref, name), "rb") as b:

@@ -42,6 +42,7 @@ from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.ops.sweep_pallas import run_sweep_pallas
 from slb2d_tpu.parallel.sweep import ParameterSweep as JSweep
 
+from slb2d_tpu_torch import tracing
 from slb2d_tpu_torch.config import SimConfig as TConfig
 from slb2d_tpu_torch.ops import _build
 from slb2d_tpu_torch.ops import sweep_lanes_cuda as slc
@@ -269,10 +270,10 @@ def test_runner_refuses_what_the_kernel_does_not_take(monkeypatch,
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
-    count = slc.launch_count
+    counts = tracing.counters()
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         runner._launch(runner.packs[0], st, 4, 0, 0.0)
-    assert runner.launches == 0 and slc.launch_count == count
+    assert runner.launches == 0 and tracing.counters() == counts
     with pytest.raises(ValueError, match="unsupported device"):
         runner.advance(0, st.__class__(**{k: v.to("meta")
                                           for k, v in vars(st).items()}),
