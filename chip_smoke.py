@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (slb2d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, one output line each (plus a few measurement lines):
   1. device:  requires CUDA; prints the card's name and power limit;
@@ -19,8 +19,12 @@ Phases, one output line each (plus a few measurement lines):
               bit for bit; what the resident form takes on the card
               (band, registers, spills, shared bytes, blocks at once);
               its fixed cost per step (N=7 M=4000, in turns with the
-              per-half-step form); B1's cell code in SASS (half_step
-              whole, the resident kernel's cell loops);
+              per-half-step form); with --parent DIR (a checkout of
+              the commit compared with), the resident form's µs a step
+              in turns with DIR's at N=7, N=100 and N=400 M=4000, and
+              B2's spill form's at N=100 M=20000 within 2% of DIR's;
+              B1's cell code in SASS (half_step whole, the resident
+              kernel's cell loops);
   4. golden:  impl=cuda display 4 against the reference C solver's
               recorded output (tests/golden/d4_base1_*.txt);
   5. main:    the CLI (slb2d_tpu_torch.cli.main) at BASELINE #4, display 4,
@@ -265,6 +269,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1496,6 +1501,80 @@ def barrier_phase(card):
           f"{', '.join(f'{v:.3f}' for v in t['per-half-step'])} [{card}]",
           flush=True)
     return t["resident"], t["per-half-step"]
+
+
+def load_parent(root):
+    """The slb2d_tpu_torch package of another checkout at `root` (the
+    commit this one is compared with), imported as slb2d_parent beside
+    this one; its kernels build into root/build/ on first use."""
+    import importlib
+    import importlib.util
+    if "slb2d_parent" not in sys.modules:
+        pkg = os.path.join(os.path.abspath(root), "slb2d_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "slb2d_parent", os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["slb2d_parent"] = mod
+        spec.loader.exec_module(mod)
+    return types.SimpleNamespace(
+        b1=importlib.import_module("slb2d_parent.ops.stepper_cuda"),
+        b2=importlib.import_module("slb2d_parent.ops.stepper_stream_cuda"))
+
+
+# the parent's and this checkout's B1 resident form, in turns: the fixed
+# cost's shape, BASELINE #4 and the tall grid
+PARENT_SHAPES = (("N=7 M=4000", BARRIER), ("N=100 M=4000", BASELINE4),
+                 ("N=400 M=4000", TALL))
+
+
+def parent_phase(card, root, n=2000, reps=3):
+    """B1's resident form in this checkout against the same form in the
+    checkout at `root` (load_parent), µs a step at PARENT_SHAPES in f32,
+    n steps in one chunk, CUDA events, in turns (this, parent, parent,
+    this), each run's state and edges bit for bit with the other's after
+    its first timed call; then B2's spill form at N=100 M=20000, whose
+    step this checkout did not change, in turns likewise, its mean within
+    2% of the parent's.  Returns {shape: {"this": [µs], "parent": [µs]}}
+    with the spill form under "B2 spill N=100 M=20000"."""
+    import torch
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
+    par = load_parent(root)
+    out = {}
+    cases = [(name, shape, "cuda-b1", {"this": stepper_cuda.make_cuda_runner,
+                                        "parent": par.b1.make_cuda_runner},
+              dict(form="resident")) for name, shape in PARENT_SHAPES]
+    cases.append(("B2 spill N=100 M=20000", B2_OWN, "stream",
+                  {"this": sst.make_stream_runner,
+                   "parent": par.b2.make_stream_runner}, dict(form="spill")))
+    for name, shape, engine, makers, kw in cases:
+        model, c, xs = _setup(shape, "f32", torch.device(DEVICE))
+        win = {k: v[:n] for k, v in xs.items()}
+        runners = {k: make(c, model, **kw) for k, make in makers.items()}
+        state0 = stencil.bootstrap_state(c, model)
+        states = {k: state0.clone() for k in runners}
+        t = {k: [] for k in runners}
+        for k in ("this", "parent", "parent", "this"):
+            t[k].append(1e3 * time_per_step(
+                lambda: runners[k].run_xs(states[k], win, 0), n, reps=reps,
+                warm=not t[k]))
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            check(torch.equal(getattr(states["this"], f),
+                              getattr(states["parent"], f)),
+                  f"{engine} {name}: {f} differs from the parent's")
+        out[name] = t
+    spill = out["B2 spill N=100 M=20000"]
+    ratio = sum(spill["this"]) / sum(spill["parent"])
+    check(abs(ratio - 1) <= 0.02, f"B2 spill N=100 M=20000: {ratio:.4f} "
+          f"of the parent's time a step")
+    print("parent: us per step (CUDA events, in turns; this checkout / the "
+          f"parent at {root}), f32: " + "; ".join(
+              f"{k} this {'/'.join(f'{v:.3f}' for v in t['this'])}, parent "
+              f"{'/'.join(f'{v:.3f}' for v in t['parent'])}"
+              for k, t in out.items()) + f"; spill ratio {ratio:.4f}; "
+          f"states bit for bit [{card}]", flush=True)
+    return out
 
 
 def _sass_ops(instrs):
@@ -4128,7 +4207,15 @@ def combined_phase(card, tmp):
                 wide_err=wide_err, held=held, phase_s=phase_s)
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of slb2d_tpu_torch "
+                                 "on one NVIDIA GPU.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the commit this one is compared "
+                         "with: B1's resident form and B2's spill form in "
+                         "turns with its (phase 3)")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError as e:
@@ -4198,6 +4285,12 @@ def main():
           flush=True)
     b1_forms = b1_forms_phase(card)
     barrier_res, barrier_per = barrier_phase(card)
+    if args.parent:
+        parent = parent_phase(card, args.parent)
+    else:
+        parent = None
+        print("parent: no --parent checkout, B1 against its parent not "
+              "measured", flush=True)
     b1_sass_counts = b1_sass(lib.path)
     k_ms, chunk_ms = kernel_ms(BASELINE4, "f32")
     print(f"kernel time BASELINE#4 f32: {k_ms:.5f} ms/step (resident form, "
@@ -4608,6 +4701,7 @@ def main():
         blocks_at_once=b1_info["blocks_at_once"],
         barrier_us=mean(barrier_res),
         barrier_us_per_half_step_form=mean(barrier_per),
+        parent_us_turns=parent,
         ms_per_half_step=b1_per_ms,
         ms_turns={k: v for k, v in routing["N=400 M=4000"].items()},
         sass=b1_sass_counts,

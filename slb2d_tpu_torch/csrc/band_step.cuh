@@ -1,9 +1,14 @@
-// The band loop of the resident step kernels, shared by B1's resident form
-// (stepper.cu: resident_chunk) and B2's spill form (stepper_stream.cu:
-// spill_chunk): one cooperative launch per chunk, one block per SM, each
-// block holding a band of columns of a, b, a_hs and b_hs for the whole
-// chunk, one grid barrier per step.  band_chunk below is that kernel's
-// body; its SPILL switch adds the spill form's second part of a band.
+// The band loops of the resident step kernels: B1's resident form
+// (stepper.cu: resident_chunk; resident_band_chunk below) and B2's spill
+// form (stepper_stream.cu: spill_chunk; spill_band_chunk below).  Both are
+// one cooperative launch per chunk, one block per SM, each block holding a
+// band of columns of a, b, a_hs and b_hs for the whole chunk; they share
+// the cell code, the halo exchange's layout and the sums, and keep their
+// own step order: the spill form runs the two half-steps in order with one
+// grid barrier a step (cooperative groups), B1's resident form splits the
+// step around a barrier of its own, arriving once its edge columns are out
+// and waiting only where it next needs its halo (resident_band_chunk's
+// notes).
 //
 // Resident part (both forms): the band's first W columns in dynamic
 // shared memory, a, b with HALO_MAIN columns on each side (row stride
@@ -17,8 +22,8 @@
 // reads its neighbours' into its a_hs, b_hs halo.  See stepper.cu's notes
 // for the sums, the av chain and the records.
 //
-// Spill part (SPILL): where the card's shared memory cannot hold the
-// state, block k's band is [c0, c0 + Wk) with Wk = floor or ceil of
+// Spill part (the spill form): where the card's shared memory cannot hold
+// the state, block k's band is [c0, c0 + Wk) with Wk = floor or ceil of
 // MP / bands, its first W columns resident as above and the other
 // Sk = Wk - W >= 2 in a slab of device memory with the same layout (a, b
 // rows of Smax + 2 values, a_hs, b_hs rows of Smax + 4, Smax the widest
@@ -75,6 +80,12 @@ constexpr int PART_LANES = 4;
 // the values a band publishes per row and step: its first two and last
 // two columns of a_hs and b_hs
 constexpr int XCH_LANES = 8;
+// the steps of partials B1's resident form keeps (its head adds a step's
+// partials after the next step's arrival: resident_band_chunk), and the
+// words of its barrier before the bands' tallies (the counter, the blocks
+// that have left)
+constexpr int PART_SLOTS = 3;
+constexpr int SYNC_WORDS = 2;
 // returned when the card cannot run every band's block at once
 constexpr int NOT_CO_RESIDENT = -2;
 // The spill part's budget: the widest spill a band may have, and the
@@ -127,8 +138,8 @@ __device__ __forceinline__ T band_ld(const T* p, int i) {
 // terms are constants, n±1 never wrap and nf (= n) comes from the caller;
 // else every term as half_step_cell computes it, the row wrap included.
 // The same operands in the same order as half_step_cell, so the same bits.
-// GL: the part is the slab.
-template <typename T, bool INTERIOR, bool GL = false>
+// GL: the part is the slab.  RCP: cell_update's.
+template <typename T, bool INTERIOR, bool GL = false, bool RCP = false>
 __device__ __forceinline__ void band_cell(
     const T* __restrict__ dA, const T* __restrict__ dB,
     const T* __restrict__ nA, const T* __restrict__ nB, int od, int on,
@@ -156,8 +167,9 @@ __device__ __forceinline__ void band_cell(
                   band_ld<T, GL>(nA, on + dn - 1);
   a_src = band_ld<T, GL>(dA, od);
   b_src = band_ld<T, GL>(dB, od);
-  slb::cell_update(a_src, b_src, dmb_p, dmb_m, dma_p, dma_m, a0v, nf * cp_t,
-                   nf * cp_t1, nu_a, nu_b, n_ge2, w_n, colf, p, a_new, b_new);
+  slb::cell_update<T, RCP>(a_src, b_src, dmb_p, dmb_m, dma_p, dma_m, a0v,
+                           nf * cp_t, nf * cp_t1, nu_a, nu_b, n_ge2, w_n,
+                           colf, p, a_new, b_new);
 }
 
 // The thread's cell in row n: band_cell, then (MAIN) the ghost fill --
@@ -166,8 +178,12 @@ __device__ __forceinline__ void band_cell(
 // at column M+1 and the publication of the band's edge columns.  dst is
 // updated in place: a cell reads dst only at its own (n, m), every
 // neighbour from the other pair, which no thread writes in this phase.
-// GL: the part is the slab.
-template <typename T, bool MAIN, bool INTERIOR, bool GL = false>
+// GL: the part is the slab.  B1 (B1's resident form): the loads the cell
+// ends with (the ghost value, the carried edge) are issued before the
+// cell, so that their latency runs under its arithmetic, and the cell
+// takes cell_update's RCP.
+template <typename T, bool MAIN, bool INTERIOR, bool GL = false,
+          bool B1 = false>
 __device__ __forceinline__ void own_cell(
     T* __restrict__ dA, T* __restrict__ dB, const T* __restrict__ nA,
     const T* __restrict__ nB, int od, int on, int Sn, int n, T nf, int gi,
@@ -175,16 +191,30 @@ __device__ __forceinline__ void own_cell(
     T* __restrict__ edge_a, T* __restrict__ edge_b, T* __restrict__ pub,
     T cp_t, T cp_t1, T colf, T gf, const Params<T>& p, const Geometry& g,
     const Lane<T>& L) {
+  const bool ghost = MAIN && (L.ghost_col || (!INTERIOR && n >= g.N));
+  T gv = T(0), ea = T(0), eb = T(0);
+  if constexpr (B1) {
+    if (ghost) gv = __ldg(a0_ghost + gi);
+    if (!MAIN && L.edge_col) {
+      ea = edge_a[n];
+      eb = edge_b[n];
+    }
+  }
   T a_src, b_src, a_new, b_new;
-  band_cell<T, INTERIOR, GL>(dA, dB, nA, nB, od, on, Sn, n, g.NHP, g.N, nf,
-                             cp_t, cp_t1, colf, __ldg(a0 + gi), p, a_src,
-                             b_src, a_new, b_new);
+  band_cell<T, INTERIOR, GL, B1>(dA, dB, nA, nB, od, on, Sn, n, g.NHP, g.N,
+                                 nf, cp_t, cp_t1, colf, __ldg(a0 + gi), p,
+                                 a_src, b_src, a_new, b_new);
   if (MAIN) {
-    const bool ghost = L.ghost_col || (!INTERIOR && n >= g.N);
-    a_new = a_new + gf * (ghost ? __ldg(a0_ghost + gi) : T(0));
+    if constexpr (!B1)
+      if (ghost) gv = __ldg(a0_ghost + gi);
+    a_new = a_new + gf * (ghost ? gv : T(0));
   } else if (L.edge_col) {
-    a_new = edge_a[n];
-    b_new = edge_b[n];
+    if constexpr (!B1) {
+      ea = edge_a[n];
+      eb = edge_b[n];
+    }
+    a_new = ea;
+    b_new = eb;
     edge_a[n] = a_src;
     edge_b[n] = b_src;
   }
@@ -233,8 +263,8 @@ __device__ __forceinline__ void spill_cell(
 // nb pair.  Rows 0 and 1 and rows >= N take the general cell, the rest
 // the interior one; a thread's rows ascend, so these are three runs.
 // SPILL: the thread's cells of the slab too (sp), each by the general
-// cell, after the resident rows.
-template <typename T, bool MAIN, bool SPILL = false>
+// cell, after the resident rows.  B1: own_cell's.
+template <typename T, bool MAIN, bool SPILL = false, bool B1 = false>
 __device__ __forceinline__ void band_half_step(
     T* dA, T* dB, const T* nA, const T* nB, int Sd, int hd, int Sn, int hn,
     const T* __restrict__ a0, const T* __restrict__ a0_ghost, T* edge_a,
@@ -254,9 +284,9 @@ __device__ __forceinline__ void band_half_step(
     int n = L.r0;
     int od = n * Sd + L.j + hd, on = n * Sn + L.j + hn, gi = n * g.MP + L.m;
     if (n < 2) {
-      own_cell<T, MAIN, false>(dA, dB, nA, nB, od, on, Sn, n, T(0), gi, a0,
-                               a0_ghost, edge_a, edge_b, pub, cp_t, cp_t1,
-                               colf, gf, p, g, L);
+      own_cell<T, MAIN, false, false, B1>(
+          dA, dB, nA, nB, od, on, Sn, n, T(0), gi, a0, a0_ghost, edge_a,
+          edge_b, pub, cp_t, cp_t1, colf, gf, p, g, L);
       n += RW;
       od += dd;
       on += dnb;
@@ -264,13 +294,13 @@ __device__ __forceinline__ void band_half_step(
     }
     T nf = T(n);
     for (; n < g.N; n += RW, od += dd, on += dnb, gi += dg, nf += T(RW))
-      own_cell<T, MAIN, true>(dA, dB, nA, nB, od, on, Sn, n, nf, gi, a0,
-                              a0_ghost, edge_a, edge_b, pub, cp_t, cp_t1,
-                              colf, gf, p, g, L);
+      own_cell<T, MAIN, true, false, B1>(
+          dA, dB, nA, nB, od, on, Sn, n, nf, gi, a0, a0_ghost, edge_a,
+          edge_b, pub, cp_t, cp_t1, colf, gf, p, g, L);
     for (; n < g.NHP; n += RW, od += dd, on += dnb, gi += dg)
-      own_cell<T, MAIN, false>(dA, dB, nA, nB, od, on, Sn, n, T(0), gi, a0,
-                               a0_ghost, edge_a, edge_b, pub, cp_t, cp_t1,
-                               colf, gf, p, g, L);
+      own_cell<T, MAIN, false, false, B1>(
+          dA, dB, nA, nB, od, on, Sn, n, T(0), gi, a0, a0_ghost, edge_a,
+          edge_b, pub, cp_t, cp_t1, colf, gf, p, g, L);
   }
   if constexpr (SPILL)
     while (sn < g.NHP)
@@ -496,75 +526,17 @@ __device__ __forceinline__ void finish_step(T (&r)[8], T (&carry)[PART_LANES],
     for (int q = 0; q < PART_LANES; ++q) carry[q] = tot[q];
 }
 
-// The kernel body: block k of gridDim.x bands holds band k for the whole
-// chunk.  Shared memory: a, b with HALO_MAIN columns each side (row stride
-// SA), a_hs, b_hs with HALO_HALF (SH), then XS_STAGE + 1 rows of the xs
-// table (SPILL: then the slab's row products, SPILL_SUMS values).  xch
-// holds 2 step parities x bands x XCH_LANES x NHP values, part 2 step
-// parities x bands x PART_LANES.  The state arrays carry no __restrict__:
-// they are read at the start and written at the end.  Without SPILL, band
-// k is [k·W, min((k+1)·W, MP)); with it, [c0, c0 + Wk) as the file's notes
-// say, W resident columns, and slab the bands' slabs.
-//
-// A step: phase A, the main half-step on the band and its a, b halo
-// columns (meanwhile the head warp, block 0's last, adds the previous
-// step's partials: finish_step); the row sums; a block barrier; phase B,
-// the half-grid half-step on the band, publishing its edge columns of
-// a_hs, b_hs to xch[i % 2]; ONE grid barrier; the a_hs, b_hs halo from
-// the neighbours; a block barrier.  Both buffers are double-buffered by
-// step parity: a band writes parity (i + 1) % 2 in step i + 1 only after
-// the grid barrier of step i, which every reader of that parity's step
-// i - 1 values crossed after reading them (the head reads step i - 1's
-// partials before its block reaches the grid barrier of step i).  The
-// head warp is the last: its row group has as few rows as any, so the
-// adding does not hold up the main half-step.
-template <typename T, bool SPILL>
-__device__ __forceinline__ void band_chunk(
-    T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
-    const T* __restrict__ a0, const T* __restrict__ a0_ghost,
-    const T* __restrict__ phi, const T* __restrict__ w_av,
-    const T* __restrict__ w_av_phi, const T* __restrict__ xs, T* obs, T* xch,
-    T* part, const Params<T>& p, const Geometry& g, int W, int n_steps,
-    int parity0, T* slab) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T sums[2][SUM_WARPS][2];
-  __shared__ T pend[4];    // the head's pending step (finish_step)
-  __shared__ int pflags;
-  cg::grid_group grid = cg::this_grid();
-  const int NHP = g.NHP, MP = g.MP;
-  const int band = blockIdx.x, nb = gridDim.x;
-  int c0, Wb, Sk = 0, Smax = 0;
-  if constexpr (SPILL) {
-    const int q = MP / nb, rr = MP - q * nb;
-    c0 = band * q + min(band, rr);
-    Wb = W;
-    Sk = q + (band < rr ? 1 : 0) - W;
-    Smax = q + (rr > 0 ? 1 : 0) - W;
-  } else {
-    c0 = band * W;
-    Wb = min(W, MP - c0);
-  }
-  const int SA = W + 2 * HALO_MAIN, SH = W + 2 * HALO_HALF;
-  T* const sA = reinterpret_cast<T*>(smem_raw);
-  T* const sB = sA + NHP * SA;
-  T* const sAh = sB + NHP * SA;
-  T* const sBh = sAh + NHP * SH;
-  T* const sX = sBh + NHP * SH;
+// The thread's lane of a band's resident part (columns [c0, c0 + Wb), W / 32
+// = cw warps across it): column j = (warp % cw)·32 + lane, rows r0 = warp /
+// cw, r0 + RW, ...; publish: the band's first two columns publish from
+// their lanes (the spill form; B1's resident form publishes from
+// edge_cells).
+template <typename T>
+__device__ __forceinline__ Lane<T> band_lane(int c0, int Wb, int cw,
+                                             bool publish,
+                                             const T* __restrict__ phi,
+                                             const Geometry& g) {
   const int warp = threadIdx.x >> 5;
-  const int cw = W / BAND_ALIGN;
-  // the slab (SPILL): a, b rows of GA values, a_hs, b_hs rows of GH; the
-  // products of its rows 0 and 1 (ss)
-  const int GA = Smax + 2 * HALO_MAIN, GH = Smax + 2 * HALO_HALF;
-  T *gA = nullptr, *gB = nullptr, *gAh = nullptr, *gBh = nullptr;
-  T* ss = nullptr;
-  if constexpr (SPILL) {
-    gA = slab + (size_t)band * NHP * (2 * GA + 2 * GH);
-    gB = gA + NHP * GA;
-    gAh = gB + NHP * GA;
-    gBh = gAh + NHP * GH;
-    ss = sX + (XS_STAGE + 1) * XS_LANES;
-  }
-
   Lane<T> L;
   L.RW = (blockDim.x >> 5) / cw;
   L.j = (warp % cw) * BAND_ALIGN + (threadIdx.x & 31);
@@ -576,34 +548,18 @@ __device__ __forceinline__ void band_chunk(
   L.ph = L.live ? phi[L.m] : T(0);
   L.colf_main = (L.live && L.m >= 1 && L.m <= g.M + 1) ? T(1) : T(0);
   L.colf_half = (L.live && L.m >= 1 && L.m <= g.M) ? T(1) : T(0);
-  L.pub = -1;
-  if constexpr (SPILL) {   // the band's last two columns are the slab's
-    if (L.live && L.j < 2) L.pub = L.j * 2 * NHP;
-  } else if (L.live && (L.j < 2 || L.j >= Wb - 2)) {
-    const int side = L.j < 2 ? 0 : 1;
-    const int which = side ? L.j - (Wb - 2) : L.j;
-    L.pub = (side * 2 + which) * 2 * NHP;
-  }
-  Lane<T> Ls;   // the thread's slab column (SPILL)
-  if constexpr (SPILL) {
-    Ls.RW = blockDim.x / Sk;
-    Ls.j = threadIdx.x % Sk;
-    Ls.r0 = threadIdx.x / Sk;
-    Ls.live = (int)threadIdx.x < Ls.RW * Sk;
-    Ls.m = c0 + W + Ls.j;
-    Ls.ghost_col = Ls.m == 0 || Ls.m >= g.M + 2;
-    Ls.edge_col = Ls.live && Ls.m == g.M + 1;
-    Ls.ph = phi[Ls.m];
-    Ls.colf_main = (Ls.m >= 1 && Ls.m <= g.M + 1) ? T(1) : T(0);
-    Ls.colf_half = (Ls.m >= 1 && Ls.m <= g.M) ? T(1) : T(0);
-    Ls.pub = Ls.live && Ls.j >= Sk - 2 ? (2 + Ls.j - (Sk - 2)) * 2 * NHP
-                                       : -1;
-  }
-  const int left = band == 0 ? nb - 1 : band - 1;
-  const int right = band + 1 == nb ? 0 : band + 1;
-  const size_t slot = (size_t)XCH_LANES * NHP;
+  L.pub = publish && L.live && L.j < 2 ? L.j * 2 * g.NHP : -1;
+  return L;
+}
 
-  // the band and its halo columns (the column wrap of the plain version)
+// A band's resident part and its halo columns from the state (the column
+// wrap of the plain version), and its part back to the state.
+template <typename T>
+__device__ __forceinline__ void load_band(T* sA, T* sB, T* sAh, T* sBh,
+                                          const T* a, const T* b,
+                                          const T* a_hs, const T* b_hs,
+                                          int c0, int Wb, int SA, int SH,
+                                          int NHP, int MP) {
   for (int k = threadIdx.x; k < NHP * (Wb + 2 * HALO_MAIN); k += blockDim.x) {
     const int n = k / (Wb + 2 * HALO_MAIN), jj = k - n * (Wb + 2 * HALO_MAIN);
     int col = c0 - HALO_MAIN + jj;
@@ -618,23 +574,117 @@ __device__ __forceinline__ void band_chunk(
     sAh[n * SH + jj] = a_hs[n * MP + col];
     sBh[n * SH + jj] = b_hs[n * MP + col];
   }
-  if constexpr (SPILL) {   // the slab and its halo columns
-    for (int k = threadIdx.x; k < NHP * (Sk + 2 * HALO_MAIN);
-         k += blockDim.x) {
-      const int n = k / (Sk + 2 * HALO_MAIN), jj = k - n * (Sk + 2 * HALO_MAIN);
-      int col = c0 + W - HALO_MAIN + jj;
-      col = col >= MP ? col - MP : col;
-      gA[n * GA + jj] = a[n * MP + col];
-      gB[n * GA + jj] = b[n * MP + col];
-    }
-    for (int k = threadIdx.x; k < NHP * (Sk + 2 * HALO_HALF);
-         k += blockDim.x) {
-      const int n = k / (Sk + 2 * HALO_HALF), jj = k - n * (Sk + 2 * HALO_HALF);
-      int col = c0 + W - HALO_HALF + jj;
-      col = col >= MP ? col - MP : col;
-      gAh[n * GH + jj] = a_hs[n * MP + col];
-      gBh[n * GH + jj] = b_hs[n * MP + col];
-    }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_band(T* a, T* b, T* a_hs, T* b_hs,
+                                           const T* sA, const T* sB,
+                                           const T* sAh, const T* sBh,
+                                           int c0, int Wb, int SA, int SH,
+                                           int NHP, int MP) {
+  for (int k = threadIdx.x; k < NHP * Wb; k += blockDim.x) {
+    const int n = k / Wb, jj = k - n * Wb;
+    const int gi = n * MP + c0 + jj;
+    a[gi] = sA[n * SA + jj + HALO_MAIN];
+    b[gi] = sB[n * SA + jj + HALO_MAIN];
+    a_hs[gi] = sAh[n * SH + jj + HALO_HALF];
+    b_hs[gi] = sBh[n * SH + jj + HALO_HALF];
+  }
+}
+
+// The spill form's body (stepper_stream.cu: spill_chunk): block k of
+// gridDim.x bands holds band [c0, c0 + Wk) for the whole chunk, as the
+// file's notes say, W resident columns and slab the bands' slabs.  Shared
+// memory: a, b with HALO_MAIN columns each side (row stride SA), a_hs, b_hs
+// with HALO_HALF (SH), then XS_STAGE + 1 rows of the xs table, then the
+// slab's row products, SPILL_SUMS values.  xch holds 2 step parities x
+// bands x XCH_LANES x NHP values, part 2 step parities x bands x
+// PART_LANES.  The state arrays carry no __restrict__: they are read at the
+// start and written at the end.
+//
+// A step, in order: phase A, the main half-step on the band and its a, b
+// halo columns (meanwhile the head warp, block 0's last, adds the previous
+// step's partials: finish_step); the row sums; a block barrier; phase B,
+// the half-grid half-step on the band, publishing its edge columns of
+// a_hs, b_hs to xch[i % 2]; ONE grid barrier; the a_hs, b_hs halo from
+// the neighbours (the right one through the slab); a block barrier.  Both
+// buffers are double-buffered by step parity: a band writes parity
+// (i + 1) % 2 in step i + 1 only after the grid barrier of step i, which
+// every reader of that parity's step i - 1 values crossed after reading
+// them (the head reads step i - 1's partials before its block reaches the
+// grid barrier of step i).  The head warp is the last: its row group has
+// as few rows as any, so the adding does not hold up the main half-step.
+template <typename T>
+__device__ __forceinline__ void spill_band_chunk(
+    T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
+    const T* __restrict__ a0, const T* __restrict__ a0_ghost,
+    const T* __restrict__ phi, const T* __restrict__ w_av,
+    const T* __restrict__ w_av_phi, const T* __restrict__ xs, T* obs, T* xch,
+    T* part, const Params<T>& p, const Geometry& g, int W, int n_steps,
+    int parity0, T* slab) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T sums[2][SUM_WARPS][2];
+  __shared__ T pend[4];    // the head's pending step (finish_step)
+  __shared__ int pflags;
+  cg::grid_group grid = cg::this_grid();
+  const int NHP = g.NHP, MP = g.MP;
+  const int band = blockIdx.x, nb = gridDim.x;
+  const int per = MP / nb, rr = MP - per * nb;
+  const int c0 = band * per + min(band, rr);
+  const int Wb = W;
+  const int Sk = per + (band < rr ? 1 : 0) - W;
+  const int Smax = per + (rr > 0 ? 1 : 0) - W;
+  const int SA = W + 2 * HALO_MAIN, SH = W + 2 * HALO_HALF;
+  T* const sA = reinterpret_cast<T*>(smem_raw);
+  T* const sB = sA + NHP * SA;
+  T* const sAh = sB + NHP * SA;
+  T* const sBh = sAh + NHP * SH;
+  T* const sX = sBh + NHP * SH;
+  const int warp = threadIdx.x >> 5;
+  const int cw = W / BAND_ALIGN;
+  // the slab: a, b rows of GA values, a_hs, b_hs rows of GH; the products
+  // of its rows 0 and 1 (ss)
+  const int GA = Smax + 2 * HALO_MAIN, GH = Smax + 2 * HALO_HALF;
+  T* const gA = slab + (size_t)band * NHP * (2 * GA + 2 * GH);
+  T* const gB = gA + NHP * GA;
+  T* const gAh = gB + NHP * GA;
+  T* const gBh = gAh + NHP * GH;
+  T* const ss = sX + (XS_STAGE + 1) * XS_LANES;
+
+  // the band's last two columns are the slab's
+  const Lane<T> L = band_lane<T>(c0, Wb, cw, true, phi, g);
+  Lane<T> Ls;   // the thread's slab column
+  Ls.RW = blockDim.x / Sk;
+  Ls.j = threadIdx.x % Sk;
+  Ls.r0 = threadIdx.x / Sk;
+  Ls.live = (int)threadIdx.x < Ls.RW * Sk;
+  Ls.m = c0 + W + Ls.j;
+  Ls.ghost_col = Ls.m == 0 || Ls.m >= g.M + 2;
+  Ls.edge_col = Ls.live && Ls.m == g.M + 1;
+  Ls.ph = phi[Ls.m];
+  Ls.colf_main = (Ls.m >= 1 && Ls.m <= g.M + 1) ? T(1) : T(0);
+  Ls.colf_half = (Ls.m >= 1 && Ls.m <= g.M) ? T(1) : T(0);
+  Ls.pub = Ls.live && Ls.j >= Sk - 2 ? (2 + Ls.j - (Sk - 2)) * 2 * NHP
+                                     : -1;
+  const int left = band == 0 ? nb - 1 : band - 1;
+  const int right = band + 1 == nb ? 0 : band + 1;
+  const size_t slot = (size_t)XCH_LANES * NHP;
+
+  load_band(sA, sB, sAh, sBh, a, b, a_hs, b_hs, c0, Wb, SA, SH, NHP, MP);
+  // the slab and its halo columns
+  for (int k = threadIdx.x; k < NHP * (Sk + 2 * HALO_MAIN); k += blockDim.x) {
+    const int n = k / (Sk + 2 * HALO_MAIN), jj = k - n * (Sk + 2 * HALO_MAIN);
+    int col = c0 + W - HALO_MAIN + jj;
+    col = col >= MP ? col - MP : col;
+    gA[n * GA + jj] = a[n * MP + col];
+    gB[n * GA + jj] = b[n * MP + col];
+  }
+  for (int k = threadIdx.x; k < NHP * (Sk + 2 * HALO_HALF); k += blockDim.x) {
+    const int n = k / (Sk + 2 * HALO_HALF), jj = k - n * (Sk + 2 * HALO_HALF);
+    int col = c0 + W - HALO_HALF + jj;
+    col = col >= MP ? col - MP : col;
+    gAh[n * GH + jj] = a_hs[n * MP + col];
+    gBh[n * GH + jj] = b_hs[n * MP + col];
   }
   // adds the partials: block 0's last warp; av in its lane 0
   const bool head = band == 0 && warp == (int)(blockDim.x >> 5) - 1;
@@ -648,12 +698,9 @@ __device__ __forceinline__ void band_chunk(
   if (xs[8] > T(0)) {   // the first step's record needs its pre-step sums
     // (step -1's: parity 1)
     row_sums(sums, sA, sB, SA, w_av, w_av_phi, L);
-    if constexpr (SPILL) spill_products(ss, gA, gB, GA, w_av, w_av_phi, Ls);
+    spill_products(ss, gA, gB, GA, w_av, w_av_phi, Ls);
     __syncthreads();
-    if constexpr (SPILL)
-      spill_partials(sums, cw, ss, Sk, part + (size_t)(nb + band) * PART_LANES);
-    else if (threadIdx.x == 0)
-      band_partials(sums, cw, part + (size_t)(nb + band) * PART_LANES);
+    spill_partials(sums, cw, ss, Sk, part + (size_t)(nb + band) * PART_LANES);
     grid.sync();
     if (head) {
       T tot[PART_LANES];
@@ -693,81 +740,355 @@ __device__ __forceinline__ void band_chunk(
       }
       __syncwarp();
     }
-    // the slab's side of the two half-steps (SPILL)
-    SlabPart<T> slab_a, slab_b;
-    const SlabPart<T> *sp_a = nullptr, *sp_b = nullptr;
-    if constexpr (SPILL) {
-      slab_a = {gA, gB, gAh, gBh, GA, GH, nullptr,
-                (p.E_dc + p.E_omega * row[0] + p.B * Ls.ph) * p.dt / T(2),
-                (p.E_dc + p.E_omega * row[1] + p.B * Ls.ph) * p.dt / T(2),
-                Ls.colf_main, &Ls};
-      slab_b = {gAh, gBh, gA, gB, GH, GA,
-                Ls.pub < 0 ? nullptr
-                           : xch + (par * nb + band) * slot + Ls.pub,
-                (p.E_dc + p.E_omega * row[2] + p.B * Ls.ph) * p.dt / T(2),
-                (p.E_dc + p.E_omega * row[3] + p.B * Ls.ph) * p.dt / T(2),
-                Ls.colf_half, &Ls};
-      sp_a = &slab_a;
-      sp_b = &slab_b;
-      halo_cells<T, true>(gA, gB, gAh, gBh, GA, GH, c0 + W, Sk, a0, a0_ghost,
-                          phi, row[0], row[1], gf, p, g);
-    }
+    // the slab's side of the two half-steps
+    const SlabPart<T> slab_a = {
+        gA, gB, gAh, gBh, GA, GH, nullptr,
+        (p.E_dc + p.E_omega * row[0] + p.B * Ls.ph) * p.dt / T(2),
+        (p.E_dc + p.E_omega * row[1] + p.B * Ls.ph) * p.dt / T(2),
+        Ls.colf_main, &Ls};
+    const SlabPart<T> slab_b = {
+        gAh, gBh, gA, gB, GH, GA,
+        Ls.pub < 0 ? nullptr : xch + (par * nb + band) * slot + Ls.pub,
+        (p.E_dc + p.E_omega * row[2] + p.B * Ls.ph) * p.dt / T(2),
+        (p.E_dc + p.E_omega * row[3] + p.B * Ls.ph) * p.dt / T(2),
+        Ls.colf_half, &Ls};
+    halo_cells<T, true>(gA, gB, gAh, gBh, GA, GH, c0 + W, Sk, a0, a0_ghost,
+                        phi, row[0], row[1], gf, p, g);
     halo_cells(sA, sB, sAh, sBh, SA, SH, c0, Wb, a0, a0_ghost, phi, row[0],
                row[1], gf, p, g);
-    band_half_step<T, true, SPILL>(
+    band_half_step<T, true, true>(
         sA, sB, sAh, sBh, SA, HALO_MAIN, SH, HALO_HALF, a0, a0_ghost,
         nullptr, nullptr, nullptr,
         (p.E_dc + p.E_omega * row[0] + p.B * L.ph) * p.dt / T(2),
         (p.E_dc + p.E_omega * row[1] + p.B * L.ph) * p.dt / T(2),
-        L.colf_main, gf, p, g, L, sp_a);
+        L.colf_main, gf, p, g, L, &slab_a);
     if (need) {
       row_sums(sums, sA, sB, SA, w_av, w_av_phi, L);
-      if constexpr (SPILL)
-        spill_products(ss, gA, gB, GA, w_av, w_av_phi, Ls);
+      spill_products(ss, gA, gB, GA, w_av, w_av_phi, Ls);
     }
     __syncthreads();
-    if constexpr (SPILL) {
-      if (need) spill_partials(sums, cw, ss, Sk, part + (par * nb + band) *
-                                                         PART_LANES);
-    } else if (need && threadIdx.x == 0) {
-      band_partials(sums, cw, part + (par * nb + band) * PART_LANES);
-    }
+    if (need)
+      spill_partials(sums, cw, ss, Sk, part + (par * nb + band) * PART_LANES);
 
     // phase B: the half grid against the new a, b; its edge columns out
-    band_half_step<T, false, SPILL>(
+    band_half_step<T, false, true>(
         sAh, sBh, sA, sB, SH, HALO_HALF, SA, HALO_MAIN, a0, a0_ghost, edge_a,
         edge_b, L.pub < 0 ? nullptr : xch + (par * nb + band) * slot + L.pub,
         (p.E_dc + p.E_omega * row[2] + p.B * L.ph) * p.dt / T(2),
         (p.E_dc + p.E_omega * row[3] + p.B * L.ph) * p.dt / T(2),
-        L.colf_half, T(0), p, g, L, sp_b);
+        L.colf_half, T(0), p, g, L, &slab_b);
     grid.sync();
-    fill_halo<T, SPILL>(sAh, sBh, xch + par * nb * slot, left, right, NHP, SH,
-                        Wb, gAh, gBh, GH, Sk);
+    fill_halo<T, true>(sAh, sBh, xch + par * nb * slot, left, right, NHP, SH,
+                       Wb, gAh, gBh, GH, Sk);
     __syncthreads();
   }
   if (head)   // the last step's av and record
     finish_step(r, carry, part + (size_t)((n_steps - 1) & 1) * nb * PART_LANES,
                 nb, pend, pflags, p.dt, obs);
 
-  for (int k = threadIdx.x; k < NHP * Wb; k += blockDim.x) {
-    const int n = k / Wb, jj = k - n * Wb;
-    const int gi = n * MP + c0 + jj;
-    a[gi] = sA[n * SA + jj + HALO_MAIN];
-    b[gi] = sB[n * SA + jj + HALO_MAIN];
-    a_hs[gi] = sAh[n * SH + jj + HALO_HALF];
-    b_hs[gi] = sBh[n * SH + jj + HALO_HALF];
+  store_band(a, b, a_hs, b_hs, sA, sB, sAh, sBh, c0, Wb, SA, SH, NHP, MP);
+  for (int k = threadIdx.x; k < NHP * Sk; k += blockDim.x) {
+    const int n = k / Sk, jj = k - n * Sk;
+    const int gi = n * MP + c0 + W + jj;
+    a[gi] = gA[n * GA + jj + HALO_MAIN];
+    b[gi] = gB[n * GA + jj + HALO_MAIN];
+    a_hs[gi] = gAh[n * GH + jj + HALO_HALF];
+    b_hs[gi] = gBh[n * GH + jj + HALO_HALF];
   }
-  if constexpr (SPILL)
-    for (int k = threadIdx.x; k < NHP * Sk; k += blockDim.x) {
-      const int n = k / Sk, jj = k - n * Sk;
-      const int gi = n * MP + c0 + W + jj;
-      a[gi] = gA[n * GA + jj + HALO_MAIN];
-      b[gi] = gB[n * GA + jj + HALO_MAIN];
-      a_hs[gi] = gAh[n * GH + jj + HALO_HALF];
-      b_hs[gi] = gBh[n * GH + jj + HALO_HALF];
-    }
   if (head0)
     for (int q = 0; q < 8; ++q) av[q] = r[q];
+}
+
+// ---- B1's resident form: the split-phase step --------------------------
+
+// The resident form's grid barrier, split in two on one counter in device
+// memory.  grid_arrive: one thread adds 1, a release at the card's scope
+// (after a block barrier, so that every store its block made before it is
+// seen by whoever sees the count).  grid_poll: one thread reads the
+// counter (an acquire) until every band's g-th arrival is in (target =
+// bands · g; compared by difference, so the count may wrap), and returns
+// whether the first read found the barrier open; the block barrier that
+// follows hands the ordering on to its block.
+__device__ __forceinline__ void grid_arrive(unsigned* ctr) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+               :: "l"(ctr), "r"(1u) : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ bool grid_poll(const unsigned* ctr,
+                                          unsigned target) {
+  unsigned v = load_acquire(ctr);
+  const bool open = (int)(v - target) >= 0;
+  while ((int)(v - target) < 0) v = load_acquire(ctr);
+  return open;
+}
+
+// One half-step on a band's edge cells, one a thread from the block's last
+// thread down (the row groups with the fewest rows): MAIN the main grid on
+// the a, b halo columns -1 and Wb, else the half grid on the band's outer
+// columns 0, 1, Wb - 2 and Wb - 1 (the ones that read what the halo
+// produced), published to pub (the band's exchange slot: edge q at offset
+// q · 2 · NHP, a_hs then b_hs, as fill_halo reads them).  Cell k: edge
+// k / NHP, row k % NHP, by the general cell with its column's terms
+// computed as band_lane and own_cell compute them (halo_cells' for the
+// halo columns): the same bits.  As own_cell's B1: the loads the cell
+// ends with are issued before it, and cell_update's RCP.
+template <typename T, bool MAIN>
+__device__ __forceinline__ void edge_cells(
+    T* dA, T* dB, const T* nA, const T* nB, int Sd, int hd, int Sn, int hn,
+    int c0, int Wb, const T* __restrict__ a0, const T* __restrict__ a0_ghost,
+    const T* __restrict__ phi, T* __restrict__ edge_a,
+    T* __restrict__ edge_b, T* __restrict__ pub, T cos_t, T cos_t_dt, T gf,
+    const Params<T>& p, const Geometry& g) {
+  const int NHP = g.NHP, MP = g.MP;
+  constexpr int EDGES = MAIN ? 2 : 4;
+  for (int k = blockDim.x - 1 - threadIdx.x; k < EDGES * NHP;
+       k += blockDim.x) {
+    const int q = k / NHP, n = k - q * NHP;
+    const int c = MAIN ? (q ? Wb : -1) : (q < 2 ? q : Wb - 4 + q);
+    int col = c0 + c;
+    col = col < 0 ? col + MP : (col >= MP ? col - MP : col);
+    const int gi = n * MP + col;
+    const bool ghost = MAIN && (col == 0 || col >= g.M + 2 || n >= g.N);
+    const bool edge = !MAIN && col == g.M + 1;
+    const T gv = ghost ? __ldg(a0_ghost + gi) : T(0);
+    const T ea = edge ? edge_a[n] : T(0), eb = edge ? edge_b[n] : T(0);
+    const T ph = __ldg(phi + col);
+    const int od = n * Sd + c + hd;
+    T a_src, b_src, a_new, b_new;
+    band_cell<T, false, false, true>(
+        dA, dB, nA, nB, od, n * Sn + c + hn, Sn, n, NHP, g.N, T(0),
+        (p.E_dc + p.E_omega * cos_t + p.B * ph) * p.dt / T(2),
+        (p.E_dc + p.E_omega * cos_t_dt + p.B * ph) * p.dt / T(2),
+        (col >= 1 && col <= (MAIN ? g.M + 1 : g.M)) ? T(1) : T(0),
+        __ldg(a0 + gi), p, a_src, b_src, a_new, b_new);
+    if (MAIN) {
+      a_new = a_new + gf * (ghost ? gv : T(0));
+    } else if (edge) {
+      a_new = ea;
+      b_new = eb;
+      edge_a[n] = a_src;
+      edge_b[n] = b_src;
+    }
+    dA[od] = a_new;
+    dB[od] = b_new;
+    if (!MAIN) {
+      __stcg(pub + q * 2 * NHP + n, a_new);
+      __stcg(pub + q * 2 * NHP + NHP + n, b_new);
+    }
+  }
+}
+
+// B1's resident form's body (stepper.cu: resident_chunk): block k of
+// gridDim.x bands holds band k, [k·W, min((k+1)·W, MP)), for the whole
+// chunk.  Shared memory: a, b with HALO_MAIN columns each side (row stride
+// SA), a_hs, b_hs with HALO_HALF (SH), then XS_STAGE + 1 rows of the xs
+// table.  xch holds 2 step parities x bands x XCH_LANES x NHP values, part
+// PART_SLOTS steps x bands x PART_LANES; sync is the barrier's counter,
+// the count of blocks that have left, and each band's tally (its waits,
+// and those its first read found open) of the chunk.  The state arrays
+// carry no __restrict__: they are read at the start and written at the end.
+//
+// Of the half-grid half-step's cells only the band's four outer columns
+// feed the neighbours; the rest, ~90% of them at W = 32, run while those
+// edges travel.  Step i:
+//   1. phase A: the main half-step on the band (its halo columns by the
+//      block's last threads), from the halo read at the end of step i - 1;
+//      the row sums of the new a, b; a block barrier;
+//   2. phase B's edges (edge_cells), published to xch[i % 2], and the
+//      band's partials to part[i % PART_SLOTS]; a block barrier;
+//   3. the last warp's first lane (the syncer; its row group has as few
+//      rows as any) arrives; the head warp (block 0's next-to-last) adds
+//      step i - 1's partials (finish_step: av and the display-77 record);
+//      every warp runs phase B's interior, columns 2 .. Wb - 3; then the
+//      syncer waits for every band's arrival of step i; a block barrier;
+//   4. the a_hs, b_hs halo from the neighbours' edges in xch[i % 2]; a
+//      block barrier (not after the last step, whose halo no one reads).
+// The wait at the end of a step's interior usually finds the barrier
+// open: the neighbours arrived an interior earlier.  After the last step
+// the head finishes it and the band writes its part of the state back,
+// every band having arrived (a neighbour's halo read it at the chunk's
+// start); the last block out sets the counter back to 0 for the next
+// chunk.  The cells are own_cell's B1 (the ghost values and the carried
+// edge loaded before the arithmetic; no division's slow path at the ghost
+// columns), so that a band with ghost columns or column M+1 is not the one
+// every other band waits for.
+//
+// Why the buffers hold: a band writes xch[i % 2] in step i after the wait
+// for step i - 1, which every band passed only after it had read the
+// values of step i - 2 in that slot (at the end of step i - 2, before its
+// arrival of step i - 1).  The head reads step i - 1's partials after the
+// wait for step i - 1 and after band 0's arrival of step i; that slot,
+// (i - 1) % 3, is written again in step i + 2, after the wait for step
+// i + 1, which band 0's arrival of step i + 1, after the head's read,
+// opens: hence three slots.  Every cell by band_cell's arithmetic in
+// half_step_cell's operand order: the state and edges bit for bit with
+// the plain version; the sums in band order, as the spill form's.
+template <typename T>
+__device__ __forceinline__ void resident_band_chunk(
+    T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
+    const T* __restrict__ a0, const T* __restrict__ a0_ghost,
+    const T* __restrict__ phi, const T* __restrict__ w_av,
+    const T* __restrict__ w_av_phi, const T* __restrict__ xs, T* obs, T* xch,
+    T* part, unsigned* sync, const Params<T>& p, const Geometry& g, int W,
+    int n_steps, int parity0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T sums[2][SUM_WARPS][2];
+  __shared__ T pend[4];    // the head's pending step (finish_step)
+  __shared__ int pflags;
+  const int NHP = g.NHP, MP = g.MP;
+  const int band = blockIdx.x, nb = gridDim.x;
+  const int c0 = band * W, Wb = min(W, MP - c0);
+  const int SA = W + 2 * HALO_MAIN, SH = W + 2 * HALO_HALF;
+  T* const sA = reinterpret_cast<T*>(smem_raw);
+  T* const sB = sA + NHP * SA;
+  T* const sAh = sB + NHP * SA;
+  T* const sBh = sAh + NHP * SH;
+  T* const sX = sBh + NHP * SH;
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int cw = W / BAND_ALIGN;
+  const Lane<T> L = band_lane<T>(c0, Wb, cw, false, phi, g);
+  Lane<T> LB = L;   // phase B's interior
+  LB.live = L.live && L.j >= 2 && L.j < Wb - 2;
+  const int left = band == 0 ? nb - 1 : band - 1;
+  const int right = band + 1 == nb ? 0 : band + 1;
+  const size_t slot = (size_t)XCH_LANES * NHP;
+
+  load_band(sA, sB, sAh, sBh, a, b, a_hs, b_hs, c0, Wb, SA, SH, NHP, MP);
+  // adds the partials: block 0's next-to-last warp; av in its lane 0
+  const bool head = band == 0 && warp == nw - 2;
+  const bool head0 = head && (threadIdx.x & 31) == 0;
+  // arrives and waits: the last warp's first lane
+  const bool syncer = threadIdx.x == blockDim.x - 32;
+  T r[8] = {};
+  T carry[PART_LANES] = {T(0), T(0), T(0), T(0)};   // pre-step sums
+  if (head0)
+    for (int q = 0; q < 8; ++q) r[q] = av[q];
+  // every band's arrivals so far; the syncer's waits and open waits
+  unsigned gen = 0;
+  int waits = 0, open = 0;
+  __syncthreads();
+
+  if (xs[8] > T(0)) {   // the first step's record needs its pre-step sums
+    // (step -1's: slot PART_SLOTS - 1)
+    row_sums(sums, sA, sB, SA, w_av, w_av_phi, L);
+    __syncthreads();
+    ++gen;
+    if (warp == 0) {
+      if (threadIdx.x == 0) {
+        band_partials(sums, cw,
+                      part + (size_t)((PART_SLOTS - 1) * nb + band) *
+                                 PART_LANES);
+        grid_arrive(sync);
+        grid_poll(sync, nb * gen);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    if (head) {
+      T tot[PART_LANES];
+      total_sums(part + (size_t)(PART_SLOTS - 1) * nb * PART_LANES, nb, tot);
+      for (int q = 0; q < PART_LANES; ++q) carry[q] = tot[q];
+    }
+  }
+
+  for (int i = 0; i < n_steps; ++i) {
+    if (i % XS_STAGE == 0) {   // the next XS_STAGE + 1 rows of the table
+      const int rows = min(XS_STAGE + 1, n_steps - i);
+      for (int k = threadIdx.x; k < rows * XS_LANES; k += blockDim.x)
+        sX[k] = xs[(size_t)i * XS_LANES + k];
+      __syncthreads();
+    }
+    const T* row = sX + (i % XS_STAGE) * XS_LANES;
+    const T gf = ((i + parity0 + 1) % 2 == 0) ? T(1) : T(0);
+    const bool do_av = row[6] > T(0);
+    const bool emit = row[8] > T(0);
+    // this step's sums serve its av and the next step's record
+    const bool need = do_av || (i + 1 < n_steps && row[XS_LANES + 8] > T(0));
+
+    // 1. phase A, the row sums
+    edge_cells<T, true>(sA, sB, sAh, sBh, SA, HALO_MAIN, SH, HALO_HALF, c0,
+                        Wb, a0, a0_ghost, phi, nullptr, nullptr, nullptr,
+                        row[0], row[1], gf, p, g);
+    band_half_step<T, true, false, true>(
+        sA, sB, sAh, sBh, SA, HALO_MAIN, SH, HALO_HALF, a0, a0_ghost,
+        nullptr, nullptr, nullptr,
+        (p.E_dc + p.E_omega * row[0] + p.B * L.ph) * p.dt / T(2),
+        (p.E_dc + p.E_omega * row[1] + p.B * L.ph) * p.dt / T(2),
+        L.colf_main, gf, p, g, L);
+    if (need) row_sums(sums, sA, sB, SA, w_av, w_av_phi, L);
+    __syncthreads();
+    // 2. phase B's edges out, the partials
+    edge_cells<T, false>(sAh, sBh, sA, sB, SH, HALO_HALF, SA, HALO_MAIN, c0,
+                         Wb, a0, a0_ghost, phi, edge_a, edge_b,
+                         xch + ((size_t)(i & 1) * nb + band) * slot, row[2],
+                         row[3], T(0), p, g);
+    if (need && threadIdx.x == 0)
+      band_partials(sums, cw, part + ((size_t)(i % PART_SLOTS) * nb + band) *
+                                         PART_LANES);
+    __syncthreads();
+    // 3. the arrival; the head finishes step i - 1; phase B's interior;
+    // the wait
+    ++gen;
+    if (syncer) grid_arrive(sync);
+    if (head) {
+      if (i > 0)
+        finish_step(r, carry,
+                    part + (size_t)((i - 1) % PART_SLOTS) * nb * PART_LANES,
+                    nb, pend, pflags, p.dt, obs);
+      __syncwarp();
+      if (head0) {
+        pend[0] = row[4];
+        pend[1] = row[5];
+        pend[2] = row[7];
+        pend[3] = row[9];
+        pflags = (need ? 1 : 0) | (do_av ? 2 : 0) | (emit ? 4 : 0);
+      }
+      __syncwarp();
+    }
+    band_half_step<T, false, false, true>(
+        sAh, sBh, sA, sB, SH, HALO_HALF, SA, HALO_MAIN, a0, a0_ghost, edge_a,
+        edge_b, nullptr,
+        (p.E_dc + p.E_omega * row[2] + p.B * L.ph) * p.dt / T(2),
+        (p.E_dc + p.E_omega * row[3] + p.B * L.ph) * p.dt / T(2),
+        L.colf_half, T(0), p, g, LB);
+    if (warp == nw - 1) {   // the syncer's warp leaves together
+      if (syncer) {
+        ++waits;
+        open += grid_poll(sync, nb * gen);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    // 4. the halo
+    if (i + 1 < n_steps) {
+      fill_halo(sAh, sBh, xch + (size_t)(i & 1) * nb * slot, left, right,
+                NHP, SH, Wb);
+      __syncthreads();
+    }
+  }
+  if (head)   // the last step's av and record
+    finish_step(r, carry,
+                part + (size_t)((n_steps - 1) % PART_SLOTS) * nb * PART_LANES,
+                nb, pend, pflags, p.dt, obs);
+
+  store_band(a, b, a_hs, b_hs, sA, sB, sAh, sBh, c0, Wb, SA, SH, NHP, MP);
+  if (head0)
+    for (int q = 0; q < 8; ++q) av[q] = r[q];
+  if (syncer) {
+    sync[SYNC_WORDS + 2 * band] = waits;
+    sync[SYNC_WORDS + 2 * band + 1] = open;
+    if (atomicAdd(sync + 1, 1u) == (unsigned)nb - 1) {   // the last out
+      atomicExch(sync, 0u);
+      atomicExch(sync + 1, 0u);
+    }
+  }
 }
 
 }  // namespace slb

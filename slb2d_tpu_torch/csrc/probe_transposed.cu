@@ -23,8 +23,9 @@
 // Two forms, B1's two (perf/transposed_experiment.py picks one by name):
 //
 //   Resident form (t_resident_chunk; slb_transposed_resident_f32): the
-//   counterpart of B1's resident_chunk (band_step.cuh's band_chunk without
-//   av and records) in the (m, n) layout.  ONE cooperative launch per
+//   counterpart of B1's resident_chunk in its in-order step (as
+//   band_step.cuh's spill_band_chunk steps, without the slab, av and
+//   records) in the (m, n) layout.  ONE cooperative launch per
 //   chunk, one block per SM; block k holds the band of rows
 //   [k·R, min((k+1)·R, MP)) of a, b (HALO_MAIN rows on each side) and of
 //   a_hs, b_hs (HALO_HALF rows) in dynamic shared memory for the whole

@@ -23,42 +23,51 @@
 // ops/stepper_cuda.py:resident_plan picks one before anything launches:
 //
 //   Resident form (resident_chunk; slb_resident_chunk_*; its body is
-//   band_chunk in band_step.cuh, which stepper_stream.cu's spill form
-//   shares): ONE cooperative launch per chunk, one block per SM.  Block
-//   k owns the band of columns [k·W, min((k+1)·W, MP)) of all NHP rows of
-//   a, b, a_hs and b_hs in dynamic shared memory, with halo columns: the
-//   state crosses device memory twice per chunk (loaded at its start,
-//   written back at its end).  Row neighbours, the row wrap included, are the band's own rows;
-//   only the m±1 halo crosses bands, and one grid barrier a step carries
-//   it: the band runs the main half-step on its own columns AND on the
+//   resident_band_chunk in band_step.cuh, which shares its cell code with
+//   stepper_stream.cu's spill form): ONE cooperative launch per chunk, one
+//   block per SM.  Block k owns the band of columns [k·W, min((k+1)·W,
+//   MP)) of all NHP rows of a, b, a_hs and b_hs in dynamic shared memory,
+//   with halo columns: the state crosses device memory twice per chunk
+//   (loaded at its start, written back at its end).  Row neighbours, the
+//   row wrap included, are the band's own rows; only the m±1 halo crosses
+//   bands: the band runs the main half-step on its own columns AND on the
 //   one a, b halo column on each side (what its neighbours compute as
 //   their own columns, from the same inputs, so the same bits), which
-//   needs a_hs, b_hs two columns deep; then, after a block barrier, the
-//   half-grid half-step on its own columns, publishing its first two and
-//   last two columns of a_hs, b_hs (8·NHP values) to the exchange buffer
-//   xch; after the grid barrier (cooperative_groups' grid sync) it reads
-//   its neighbours' into its a_hs, b_hs halo (the column wrap of the plain
-//   version: band 0's left neighbour is the last band).  xch is
-//   double-buffered by step parity, so no band overwrites values a slower
-//   neighbour has still to read.  The bands' partial sums of rows 0 and 1
-//   (norm, v_dr, v_y, m_x) go to `part` (also by step parity) after the
-//   main half-step; block 0's last warp adds them during the next step's
-//   main half-step, off the barrier's path, in a fixed order (lane l the
-//   bands l, l+32, ... in order, then a shuffle tree); its lane 0 runs the
-//   av chain with av in registers across the chunk, and writes the
-//   display-77 records: the PRE-step sums of step i
-//   are the post-step sums of step i-1, so one set of partials serves
-//   both.  The sum order differs from av_step's: av and records agree to
-//   rounding, the state and edges bit for bit.  The xs table is staged in
-//   shared memory XS_STAGE rows at a time.
+//   needs a_hs, b_hs two columns deep; then the half-grid half-step on its
+//   own columns, publishing its first two and last two columns of a_hs,
+//   b_hs (8·NHP values) to the exchange buffer xch, from which the
+//   neighbours read their a_hs, b_hs halo (the column wrap of the plain
+//   version: band 0's left neighbour is the last band).  Only the
+//   half-grid half-step's four outer columns feed the neighbours, so a
+//   step is split around a grid barrier of its own, one counter in device
+//   memory (band_step.cuh: resident_band_chunk): the main half-step; the
+//   half-grid half-step's edges, published; the arrival; its interior,
+//   which runs while the edges travel; the wait, usually open by then; the
+//   halo read.  xch is double-buffered by step parity, so no band
+//   overwrites values a slower neighbour has still to read.  The bands'
+//   partial sums of rows 0 and 1 (norm, v_dr, v_y, m_x) go to `part`
+//   (PART_SLOTS steps deep) before the arrival; block 0's next-to-last
+//   warp adds them during the next step's half-grid interior, off the
+//   barrier's path, in a fixed order (lane l the bands l, l+32, ... in
+//   order, then a shuffle tree); its lane 0 runs the av chain with av in
+//   registers across the chunk, and writes the display-77 records: the
+//   PRE-step sums of step i are the post-step sums of step i-1, so one set
+//   of partials serves both.  The sum order differs from av_step's: av
+//   and records agree to rounding, the state and edges bit for bit.  The
+//   xs table is staged in shared memory XS_STAGE rows at a time.
 //   The cell loop: warp lanes on neighbouring columns (shared reads free
 //   of bank conflicts at any row stride), each thread the same column and
-//   rows r0, r0+RW, ... in both half-steps; the column's mu parts and
+//   rows r0, r0+RW, ... in both half-steps (the half-grid one's edge
+//   columns and the main one's halo columns one cell a thread from the
+//   block's last, by the general cell); the column's mu parts and
 //   masks once per half-step, 32-bit offsets, no column wrap inside a
 //   band; rows 2..N-1 without row masks or wraps (their terms are
 //   constants); a0 read through the read-only path (L2), a0_ghost only off
 //   the interior (rows >= N, columns 0 and >= M+2), where the model keeps
-//   it nonzero; elsewhere it is 0 and the ghost fill adds gf·0 as before.
+//   it nonzero, loaded before the cell's arithmetic; elsewhere it is 0 and
+//   the ghost fill adds gf·0 as before; the column mask times 1/xi, not
+//   divided by xi, which at a ghost column (mask 0) took the division's
+//   slow path and held every band to those bands' pace.
 //   Shapes whose band does not fit (f64 at the tall and wide grids) take
 //   the per-half-step form; nothing falls back at run time.
 //
@@ -77,7 +86,8 @@
 // §6); the bytes, the state read once and written once per chunk, are
 // smaller.  The per-half-step form walks the state through L2 every
 // half-step; the resident form removes the walk, and what is left is each
-// SM's cell loop and the two barriers of a step (PERF.md §5).
+// SM's cell loop and what of a step's barrier and halo read its interior
+// cells do not hide (PERF.md §5).
 //
 // Per-step trig and gates come from a device copy of the chunk's xs table
 // (lane order: slb2d_tpu_torch/ops/stepper_cuda.py XS_LANES; lanes 8-9
@@ -216,20 +226,19 @@ int run_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
 
 // ---- the resident form -----------------------------------------------
 
-// The resident form: band_chunk (band_step.cuh) without the spill part,
-// bands of W columns.
+// The resident form: resident_band_chunk (band_step.cuh), bands of W
+// columns.
 template <typename T>
 __global__ void __launch_bounds__(RESIDENT_BLOCK, 1)
     resident_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
                    const T* __restrict__ a0, const T* __restrict__ a0_ghost,
                    const T* __restrict__ phi, const T* __restrict__ w_av,
                    const T* __restrict__ w_av_phi, const T* __restrict__ xs,
-                   T* obs, T* xch, T* part, Params<T> p, Geometry g, int W,
-                   int n_steps, int parity0) {
-  slb::band_chunk<T, false>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
-                                   a0_ghost, phi, w_av, w_av_phi, xs, obs,
-                                   xch, part, p, g, W, n_steps, parity0,
-                                   nullptr);
+                   T* obs, T* xch, T* part, unsigned* sync, Params<T> p,
+                   Geometry g, int W, int n_steps, int parity0) {
+  slb::resident_band_chunk<T>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
+                              a0_ghost, phi, w_av, w_av_phi, xs, obs, xch,
+                              part, sync, p, g, W, n_steps, parity0);
 }
 
 // cudaSuccess, or why bands of W columns cannot hold an (NHP, MP) state:
@@ -273,8 +282,9 @@ template <typename T>
 int run_resident(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
                  const T* a0, const T* a0_ghost, const T* phi,
                  const T* w_av, const T* w_av_phi, const T* params,
-                 const T* xs, T* obs, T* xch, T* part, int N, int M, int NHP,
-                 int MP, int W, int n_steps, int parity0, void* stream) {
+                 const T* xs, T* obs, T* xch, T* part, unsigned* sync, int N,
+                 int M, int NHP, int MP, int W, int n_steps, int parity0,
+                 void* stream) {
   Params<T> p = {params[0], params[1], params[2], params[3],
                  params[4], params[5], params[6], params[7],
                  params[8], params[9], params[10]};
@@ -286,8 +296,8 @@ int run_resident(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
   if (at_once < bands) return NOT_CO_RESIDENT;
   void* args[] = {&a,   &b,        &a_hs,   &b_hs, &edge_a,   &edge_b,
                   &av,  &a0,       &a0_ghost, &phi, &w_av,    &w_av_phi,
-                  &xs,  &obs,      &xch,    &part, &p,        &g,
-                  &W,   &n_steps,  &parity0};
+                  &xs,  &obs,      &xch,    &part, &sync,     &p,
+                  &g,   &W,        &n_steps,  &parity0};
   err = cudaLaunchCooperativeKernel(
       (const void*)resident_chunk<T>, dim3(bands), dim3(resident_threads(W)),
       args, resident_smem_bytes<T>(NHP, W),
@@ -354,10 +364,13 @@ extern "C" int slb_run_chunk_f64(
 
 // The resident form's entry points: the arguments of slb_run_chunk_*
 // without emit (xs lanes 8-9 carry the records) and with the exchange
-// buffer xch (2 x bands x 4 x NHP values) and the partials part (bands x
-// 4), both device scratch, and the band width W.  They enqueue ONE
-// cooperative launch of ceil(MP / W) blocks on `stream`, do not
-// synchronise, and return 0, the cudaError_t of a refused launch
+// buffer xch (2 x bands x XCH_LANES x NHP values), the partials part
+// (PART_SLOTS x bands x PART_LANES) and the barrier's words sync
+// (SYNC_WORDS + 2 x bands unsigned ints, zero before the first launch; the
+// kernel leaves its first SYNC_WORDS zero and each band's waits and open
+// waits after them), all device scratch, and the band width W.  They
+// enqueue ONE cooperative launch of ceil(MP / W) blocks on `stream`, do
+// not synchronise, and return 0, the cudaError_t of a refused launch
 // (cudaErrorInvalidValue for bands that cannot hold the state), or
 // NOT_CO_RESIDENT; a refused launch changes nothing.
 template <typename T>
@@ -365,37 +378,38 @@ int resident_entry(void* a, void* b, void* a_hs, void* b_hs, void* edge_a,
                    void* edge_b, void* av, const void* a0,
                    const void* a0_ghost, const void* phi, const void* w_av,
                    const void* w_av_phi, const void* params, const void* xs,
-                   void* obs, void* xch, void* part, int N, int M, int NHP,
-                   int MP, int W, int n_steps, int parity0, void* stream) {
+                   void* obs, void* xch, void* part, void* sync, int N, int M,
+                   int NHP, int MP, int W, int n_steps, int parity0,
+                   void* stream) {
   return run_resident<T>(
       (T*)a, (T*)b, (T*)a_hs, (T*)b_hs, (T*)edge_a, (T*)edge_b, (T*)av,
       (const T*)a0, (const T*)a0_ghost, (const T*)phi, (const T*)w_av,
       (const T*)w_av_phi, (const T*)params, (const T*)xs, (T*)obs, (T*)xch,
-      (T*)part, N, M, NHP, MP, W, n_steps, parity0, stream);
+      (T*)part, (unsigned*)sync, N, M, NHP, MP, W, n_steps, parity0, stream);
 }
 
 extern "C" int slb_resident_chunk_f32(
     void* a, void* b, void* a_hs, void* b_hs, void* edge_a, void* edge_b,
     void* av, const void* a0, const void* a0_ghost, const void* phi,
     const void* w_av, const void* w_av_phi, const void* params,
-    const void* xs, void* obs, void* xch, void* part, int N, int M, int NHP,
-    int MP, int W, int n_steps, int parity0, void* stream) {
+    const void* xs, void* obs, void* xch, void* part, void* sync, int N,
+    int M, int NHP, int MP, int W, int n_steps, int parity0, void* stream) {
   return resident_entry<float>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
                                a0_ghost, phi, w_av, w_av_phi, params, xs,
-                               obs, xch, part, N, M, NHP, MP, W, n_steps,
-                               parity0, stream);
+                               obs, xch, part, sync, N, M, NHP, MP, W,
+                               n_steps, parity0, stream);
 }
 
 extern "C" int slb_resident_chunk_f64(
     void* a, void* b, void* a_hs, void* b_hs, void* edge_a, void* edge_b,
     void* av, const void* a0, const void* a0_ghost, const void* phi,
     const void* w_av, const void* w_av_phi, const void* params,
-    const void* xs, void* obs, void* xch, void* part, int N, int M, int NHP,
-    int MP, int W, int n_steps, int parity0, void* stream) {
+    const void* xs, void* obs, void* xch, void* part, void* sync, int N,
+    int M, int NHP, int MP, int W, int n_steps, int parity0, void* stream) {
   return resident_entry<double>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
                                 a0_ghost, phi, w_av, w_av_phi, params, xs,
-                                obs, xch, part, N, M, NHP, MP, W, n_steps,
-                                parity0, stream);
+                                obs, xch, part, sync, N, M, NHP, MP, W,
+                                n_steps, parity0, stream);
 }
 
 // resident_info for float or double; returns 0 or the cudaError_t of the

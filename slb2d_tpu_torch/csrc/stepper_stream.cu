@@ -9,8 +9,8 @@
 // (30.7 MB) holds most of such a grid, and its 50 MB L2 the rest.
 //
 // Spill form (spill_chunk; slb_stream_spill_chunk_*): B1's resident band
-// loop (band_step.cuh: band_chunk with its spill part), one cooperative
-// launch per chunk, one block per SM, one grid barrier per step, no halo
+// loop in its in-order step (band_step.cuh: spill_band_chunk, a resident
+// part and a slab a band), one cooperative launch per chunk, one block per SM, one grid barrier per step, no halo
 // recomputed across steps, no replay launch, no round trip of the state.
 // Each block keeps the first R columns of its band in shared memory and
 // the rest (S, 24-25 at N=100 M=20000 in float: 3,200 columns in all) in
@@ -458,9 +458,9 @@ int shard_replay(const T* partials, const T* xs, const T* params, T* av,
 
 // ---- the spill form ----------------------------------------------------
 
-// The spill form: band_chunk (band_step.cuh) with its spill part, one
-// block per band, bands of MP / bands columns (the first MP % bands one
-// more), R of them resident.
+// The spill form: spill_band_chunk (band_step.cuh), one block per band,
+// bands of MP / bands columns (the first MP % bands one more), R of them
+// resident.
 template <typename T>
 __global__ void __launch_bounds__(slb::RESIDENT_BLOCK, 1)
     spill_chunk(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
@@ -469,7 +469,7 @@ __global__ void __launch_bounds__(slb::RESIDENT_BLOCK, 1)
                 const T* __restrict__ w_av_phi, const T* __restrict__ xs,
                 T* obs, T* xch, T* part, Params<T> p, Geometry g, int R,
                 int n_steps, int parity0, T* slab) {
-  slb::band_chunk<T, true>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
+  slb::spill_band_chunk<T>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
                            a0_ghost, phi, w_av, w_av_phi, xs, obs, xch, part,
                            p, g, R, n_steps, parity0, slab);
 }

@@ -78,6 +78,10 @@ RESIDENT_SCRATCH = 64
 # columns of a_hs and b_hs)
 PART_LANES = 4
 XCH_LANES = 8
+# the steps of partials the resident form keeps, and the words of its grid
+# barrier before the bands' tallies (the counter, the blocks that left)
+PART_SLOTS = 3
+SYNC_WORDS = 2
 # the kernel's return code when the card cannot run every band at once
 NOT_CO_RESIDENT = -2
 # an H100 SXM's SMs: the most bands a plan takes where no card is asked
@@ -282,6 +286,9 @@ class Runner:
         # a copy from host memory that waits for the chunk's kernels to end
         with tracing.span("engine.fetch"):
             t = torch.tensor(t_next, dtype=self.dtype, device=dev)
+            if (self.form == "resident" and dev.type == "cuda"
+                    and tracing.active()):
+                self._count_waits()
         return out.replace(t=t)
 
     def _plain(self, state, xs, parity0, emit_idx):
@@ -362,12 +369,12 @@ class Runner:
         m = self.model
         suffix = "_f32" if m.np_dtype == np.float32 else "_f64"
         if self.form == "resident":
-            xch, part = self._resident_scratch(xs_dev.device)
+            xch, part, sync = self._resident_scratch(xs_dev.device)
             rc = getattr(cdll, "slb_resident_chunk" + suffix)(
                 *(t.data_ptr() for t in tensors.values()),
                 self.params.ctypes.data, xs_dev.data_ptr(), obs.data_ptr(),
-                xch.data_ptr(), part.data_ptr(), m.N, m.M, m.NHP, m.MP,
-                self.plan.W, int(n), int(parity0), stream)
+                xch.data_ptr(), part.data_ptr(), sync.data_ptr(), m.N, m.M,
+                m.NHP, m.MP, self.plan.W, int(n), int(parity0), stream)
             return rc, LAUNCHES_PER_CHUNK
         rc = getattr(cdll, "slb_run_chunk" + suffix)(
             *(t.data_ptr() for t in tensors.values()),
@@ -377,17 +384,30 @@ class Runner:
         return rc, LAUNCHES_PER_STEP * n + int(emit.size)
 
     def _resident_scratch(self, dev):
-        """The exchange buffer (2 step parities x bands x XCH_LANES x NHP)
-        and the bands' partial sums (2 x bands x PART_LANES), allocated once
-        per device."""
+        """The exchange buffer (2 step parities x bands x XCH_LANES x NHP),
+        the bands' partial sums (PART_SLOTS x bands x PART_LANES) and the
+        grid barrier's words (SYNC_WORDS, zero between chunks, then each
+        band's waits and open waits of the last chunk), allocated once per
+        device."""
         if self._scratch is None or self._scratch[0].device != dev:
             bands, NHP = self.plan.bands, self.model.NHP
             self._scratch = (
                 torch.empty(2 * bands * XCH_LANES * NHP, dtype=self.dtype,
                             device=dev),
-                torch.empty(2 * bands * PART_LANES, dtype=self.dtype,
+                torch.empty(PART_SLOTS * bands * PART_LANES,
+                            dtype=self.dtype, device=dev),
+                torch.zeros(SYNC_WORDS + 2 * bands, dtype=torch.int32,
                             device=dev))
         return self._scratch
+
+    def _count_waits(self):
+        """Add the last chunk's waits at the resident form's grid barrier
+        (one a band and step) and those whose first read found it open to
+        the counters b1.waits and b1.waits_open: one copy of the bands'
+        tallies, after the chunk has ended."""
+        tally = self._scratch[2][SYNC_WORDS:].cpu().numpy()
+        tracing.count("b1.waits", int(tally[0::2].sum()))
+        tracing.count("b1.waits_open", int(tally[1::2].sum()))
 
     def __call__(self, state, n_steps):
         D = self.model.np_dtype

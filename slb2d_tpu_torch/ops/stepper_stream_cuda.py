@@ -4,7 +4,8 @@ package's stream engine (slb2d_tpu/ops/stepper_stream.py:
 make_stream_runner, kernel B2), in two forms.
 
   * spill: ONE cooperative launch per chunk, one block per SM (csrc/
-    band_step.cuh, B1's resident band loop): each block keeps R columns of
+    band_step.cuh spill_band_chunk, B1's resident band loop in its
+    in-order step, one grid barrier a step): each block keeps R columns of
     its band in shared memory and the rest of the band (S columns) in a
     slab of device memory that stays in L2.  spill_plan sizes it; it holds
     f32 and f64 grids that no B1 resident plan holds, up to an L2 budget

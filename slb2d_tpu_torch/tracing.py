@@ -28,7 +28,11 @@ no copy of it among the device's events, where a reader of device
 activity would take it for work.
 
 Counters are always on: count(name, n) adds to a name such as
-launches.<kernel>.<form> (the kernels' launches) or engine.chunks.
+launches.<kernel>.<form> (the kernels' launches) or engine.chunks.  The
+counters b1.waits and b1.waits_open (B1's resident form: its waits at the
+grid barrier, one a band and step, and those found open) grow only while
+spans are recorded (active()), since reading them costs a copy from the
+card after each chunk.
 """
 
 from __future__ import annotations
@@ -153,6 +157,13 @@ def spanned(name: str, iterable):
         if item is end:
             return
         yield item
+
+
+def active() -> bool:
+    """Whether spans are recorded now (the profiler records, or inside
+    recording()): what a runner checks before it reads a tally that only
+    a traced run reports."""
+    return bool(_recording or _profiler._is_profiler_enabled)
 
 
 def run_id() -> int:

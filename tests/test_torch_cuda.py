@@ -93,6 +93,93 @@ def test_resident_form_matches_per_half_step(card, dtype, grid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["TALL", "WIDE"])
+def test_resident_form_matches_per_half_step_at_the_big_grids(card, grid):
+    """The split-phase step over 203 steps at N=400 M=4000 (128 bands of
+    32 columns, 408 rows) and N=100 M=12000 (bands of 96, the last 32) in
+    f32, where f64 has no resident plan: bit for bit with the per-half-step
+    form."""
+    import chip_smoke
+    chip_smoke.check_resident_vs_per_half_step(getattr(chip_smoke, grid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_resident_form_in_short_chunks(card, dtype):
+    """BASELINE #4 in chunks of 10 steps (the movie's), of 1 and of 45 (not
+    a multiple of the table's 32-row stage), each with display-77 records
+    (the first chunk's first step too, so the pre-step sums cross the grid
+    barrier first): state and edges bit for bit with run_chunk_plain, av
+    and records at chip_smoke.TOL, one launch a chunk."""
+    import chip_smoke
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs = chip_smoke._setup(chip_smoke.BASELINE4, dtype, card)
+    runner = stepper_cuda.make_cuda_runner(c, model, form="resident")
+    kern = stencil.bootstrap_state(c, model)
+    plain = kern.clone()
+    done = 0
+    for n in (10,) * 6 + (1, 45, 1, 10):
+        part = {k: v[done:done + n] for k, v in xs.items()}
+        emit = tuple(sorted({0, n // 2, n - 1}))
+        kern = runner.run_xs(kern, part, done % 2, emit_idx=emit)
+        plain, pobs = stepper_cuda.run_chunk_plain(
+            c, plain, stepper_cuda.pack_xs_dict(part, model.np_dtype),
+            done % 2, emit)
+        torch.cuda.synchronize()
+        done += n
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            assert torch.equal(getattr(kern, f), getattr(plain, f)), (n, f)
+        torch.testing.assert_close(kern.av, plain.av, **chip_smoke.TOL[dtype])
+        obs = torch.from_numpy(runner.take_obs(len(emit)))
+        torch.testing.assert_close(obs, pobs[:, :13].cpu(),
+                                   **chip_smoke.TOL[dtype])
+    assert bool(kern.av[0] > 0) and runner.launches == 10
+
+
+@pytest.mark.cuda
+def test_resident_form_counts_its_waits_only_while_spans_record(card,
+                                                                monkeypatch):
+    """Untraced, a chunk adds no counter and the runner copies nothing from
+    the card (no Tensor.cpu, .numpy, .item or .tolist); while spans
+    record, one copy of the tallies adds b1.waits = steps x bands and
+    b1.waits_open <= b1.waits, and the next chunk starts from a reset
+    counter."""
+    import chip_smoke
+    from slb2d_tpu_torch import tracing
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs = chip_smoke._setup(chip_smoke.BASELINE4, "f32", card)
+    runner = stepper_cuda.make_cuda_runner(c, model, form="resident")
+    state = stencil.bootstrap_state(c, model)
+    copies = []
+    for name in ("cpu", "numpy", "item", "tolist"):
+        orig = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _orig=orig, _name=name, **kw):
+            copies.append(_name)
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    def waits():
+        return {k: v for k, v in tracing.counters().items()
+                if k.startswith("b1.")}
+    before = waits()
+    state = runner.run_xs(state, {k: v[:300] for k, v in xs.items()}, 0)
+    torch.cuda.synchronize()
+    assert copies == [] and waits() == before
+    bands = runner.plan.bands
+    for n in (300, 8):   # steps 300-599, then 600-607: parity 0 each
+        w0 = tracing.counters().get("b1.waits", 0)
+        o0 = tracing.counters().get("b1.waits_open", 0)
+        with tracing.recording():
+            state = runner.run_xs(state, {k: v[:n] for k, v in xs.items()},
+                                  0)
+        waits = tracing.counters()["b1.waits"] - w0
+        opened = tracing.counters()["b1.waits_open"] - o0
+        assert waits == n * bands and 0 <= opened <= waits, (n, waits,
+                                                               opened)
+    assert copies == ["cpu", "numpy"] * 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("W,why", [(512, "cudaError_t"),
                                    (32, "do not all fit")])
 def test_refused_resident_launch_leaves_the_state_untouched(card, W, why):

@@ -18,6 +18,11 @@ run_chunk_plain in the state and the edges (the same per-cell arithmetic;
 the wrap of a band's halo is the plain version's roll), av and the
 display-77 records at the sums' order tolerance, and to the JAX package's
 B1 in interpret mode at tests/test_torch_stepper.py's f32 envelope.
+run_chunk_split is the kernel's step order on the same bands: the main
+half-step, the half-grid half-step's four edge columns published, its
+interior, then the halo from the neighbours' edges, the halo columns
+poisoned from the main half-step to the read; it is held to
+run_chunk_plain likewise.
 """
 
 import dataclasses
@@ -156,6 +161,8 @@ def test_resident_budget_matches_the_kernel_source():
     assert const("MAX_BAND") == sc.MAX_BAND == 512
     assert const("RESIDENT_BLOCK") == sc.RESIDENT_BLOCK == 1024
     assert const("PART_LANES") == sc.PART_LANES == 4
+    assert const("PART_SLOTS") == sc.PART_SLOTS == 3
+    assert const("SYNC_WORDS") == sc.SYNC_WORDS == 2
     assert const("NOT_CO_RESIDENT") == sc.NOT_CO_RESIDENT
     assert "constexpr int SUM_WARPS = MAX_BAND / BAND_ALIGN;" in src
     assert "constexpr int RESIDENT_SCRATCH = 2 * SUM_WARPS * 2;" in src
@@ -285,6 +292,116 @@ def run_chunk_banded(c, state, xs, parity0, emit_idx, plan):
                          step=state.step + xs.shape[0], **out), obs
 
 
+def run_chunk_split(c, state, xs, parity0, emit_idx, plan):
+    """The resident kernel's split-phase step (csrc/band_step.cuh
+    resident_band_chunk) in plain PyTorch: returns (state, obs) as
+    stepper_cuda.run_chunk_plain does.  Step i, each phase over every band
+    before the next phase starts, as if the bands ran at once: (1) the main
+    half-step on the band and its a, b halo columns, from the a_hs, b_hs
+    halo read at the end of step i - 1 (step 0: the one the chunk loaded);
+    (2) the half-grid half-step's edge columns 0, 1, Wb - 2, Wb - 1,
+    published to the exchange slot of step i's parity; (3) its interior,
+    2 .. Wb - 3; (4) the halo from the neighbours' edges in that slot.
+    From (2) to (4) the halo columns are poisoned (NaN): the kernel reads
+    them only in (1).  The sums in band order, as run_chunk_banded adds
+    them."""
+    NHP, MP = state.a.shape
+    M = int(torch.nonzero(c.col_edge[0])[0]) - 1
+    bands = []
+    for k in range(plan.bands):
+        c0 = k * plan.W
+        wb = min(plan.W, MP - c0)
+        main = torch.arange(c0 - 1, c0 + wb + 1) % MP   # a, b
+        half = torch.arange(c0 - 2, c0 + wb + 2) % MP   # a_hs, b_hs
+        band = {f: getattr(state, f)[:, main].clone() for f in ("a", "b")}
+        band.update({f: getattr(state, f)[:, half].clone()
+                     for f in ("a_hs", "b_hs")})
+        band.update(cm=_band_consts(c, main), ch=_band_consts(c, half),
+                    c0=c0, wb=wb)
+        bands.append(band)
+    xch = [None, None]   # by step parity: each band's published edges
+    edge_a, edge_b = state.hs_edge_a.clone(), state.hs_edge_b.clone()
+    av = state.av
+    emit = set(int(i) for i in emit_idx)
+    carry = _sums(bands)
+    records = []
+    step = int(state.step)
+    assert step % 2 == parity0
+
+    def pad(x):   # the a_hs window's outer columns: computed, discarded
+        return torch.nn.functional.pad(x, (1, 1))
+
+    def half_step(band, cols, row):
+        """The half-grid half-step's band-local columns `cols`, with column
+        M+1's stale value and carried edge where it is one of them."""
+        nonlocal edge_a, edge_b
+        ah, bh = ts.apply_half_step(band["cm"], band["a_hs"][:, 1:-1],
+                                    band["b_hs"][:, 1:-1], band["a"],
+                                    band["b"], float(row[2]), float(row[3]),
+                                    main=False, use_reciprocal=True)
+        ah, bh = ah[:, 1:-1], bh[:, 1:-1]
+        assert torch.isfinite(ah[:, cols]).all()
+        j = M + 1 - band["c0"]
+        if j in cols:
+            new_ea = band["a_hs"][:, j + 2].clone()
+            new_eb = band["b_hs"][:, j + 2].clone()
+            ah[:, j], bh[:, j] = edge_a, edge_b
+            edge_a, edge_b = new_ea, new_eb
+        band["a_hs"][:, [j + 2 for j in cols]] = ah[:, cols]
+        band["b_hs"][:, [j + 2 for j in cols]] = bh[:, cols]
+        return ah[:, cols], bh[:, cols]
+
+    for i in range(xs.shape[0]):
+        row = xs[i]
+        ghost_on = (step + 1) % 2 == 0
+        for band in bands:                 # (1)
+            a, b = ts.apply_half_step(band["ch"], pad(band["a"]),
+                                      pad(band["b"]), band["a_hs"],
+                                      band["b_hs"], float(row[0]),
+                                      float(row[1]), main=True,
+                                      use_reciprocal=True)
+            band["a"] = a[:, 1:-1] + (band["cm"].a0_ghost if ghost_on else
+                                      torch.zeros_like(band["cm"].a0_ghost))
+            band["b"] = b[:, 1:-1]
+            wb = band["wb"]
+            for f in ("a_hs", "b_hs"):
+                band[f][:, [0, 1, wb + 2, wb + 3]] = float("nan")
+        tot = _sums(bands)
+        pub = []
+        for band in bands:                 # (2)
+            wb = band["wb"]
+            ah, bh = half_step(band, [0, 1, wb - 2, wb - 1], row)
+            pub.append({"a_hs": ah.clone(), "b_hs": bh.clone()})
+        xch[i % 2] = pub
+        for band in bands:                 # (3)
+            half_step(band, list(range(2, band["wb"] - 2)), row)
+        for k, band in enumerate(bands):   # (4)
+            lft = xch[i % 2][k - 1]
+            rgt = xch[i % 2][(k + 1) % len(bands)]
+            for f in ("a_hs", "b_hs"):
+                band[f][:, :2] = lft[f][:, 2:]
+                band[f][:, -2:] = rgt[f][:, :2]
+        if row[6] > 0:
+            av = ts.av_update_from_sums(c, av, tot[1], tot[2], tot[3],
+                                        float(row[4]), float(row[5]))
+        if i in emit:
+            records.append(torch.cat([carry, torch.tensor(
+                [row[7]], dtype=av.dtype), av]))
+        carry = tot
+        step += 1
+    out = {f: torch.cat([band[f][:, 1:-1] for band in bands], dim=1)
+           for f in ("a", "b")}
+    out.update({f: torch.cat([band[f][:, 2:-2] for band in bands], dim=1)
+                for f in ("a_hs", "b_hs")})
+    obs = None
+    if records:
+        rec = torch.stack(records)
+        obs = torch.zeros((len(records), sc.OBS_LANES), dtype=rec.dtype)
+        obs[:, :rec.shape[1]] = rec
+    return state.replace(hs_edge_a=edge_a, hs_edge_b=edge_b, av=av,
+                         step=state.step + xs.shape[0], **out), obs
+
+
 def _setup(dtype, N=8, M=64, **kw):
     model = TModel(TConfig(**{**CFG, "n_harmonics": N, "g_grid": M, **kw},
                            dtype=dtype))
@@ -330,6 +447,43 @@ def test_banded_version_matches_plain_bit_for_bit(dtype, N, M, sms):
         torch.testing.assert_close(band.av, plain.av, **SUMS_TOL[dtype])
         assert torch.equal(bobs[:, 4], pobs[:, 4])
         torch.testing.assert_close(bobs, pobs, **SUMS_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("N,M,sms", [
+    (8, 64, 132),       # 4 bands of 32, column M+1 = 65 in band 2
+    (8, 200, 3),        # 3 bands of 96, the last 64; M+1 in the last
+    (8, 24, 2),         # 2 bands of 64, M+1 = 25 in band 0
+    (13, 300, 5),       # NHP=16, 4 bands of 96; row N=13 inside the rows
+])
+def test_split_version_matches_plain_bit_for_bit(dtype, N, M, sms):
+    """The resident kernel's split-phase step (the main half-step from the
+    halo of the last step's publish, the half-grid edges published, its
+    interior, the halo read) in three chunks: 31
+    steps, then 1 from parity 1, then 45 (not a multiple of the kernel's
+    32-row table stage), each with display-77 records (its first step's
+    among them) and the averaging window opening in the first: state and
+    edges bit for bit with run_chunk_plain, av and records at the sums'
+    order tolerance.  At N=8 M=64 column M+1 = 65 is band 2's column 1,
+    an edge column: its swap is published; elsewhere it is interior."""
+    model, c, runner = _setup(dtype, N, M, t_start=0.02)
+    plan = sc.resident_plan(model.NHP, model.MP, model.np_dtype, sms)
+    assert plan is not None and plan.bands >= 2
+    xs = _table(runner, 77)
+    state0 = ts.bootstrap_state(c, model)
+    split, plain = state0.clone(), state0.clone()
+    for part, emit, parity in ((xs[:31], (0, 5, 30), 0),
+                               (xs[31:32], (0,), 1),
+                               (xs[32:], (0, 17, 44), 0)):
+        split, sobs = run_chunk_split(c, split, part, parity, emit, plan)
+        plain, pobs = sc.run_chunk_plain(c, plain, part, parity, emit)
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            assert torch.equal(getattr(split, f), getattr(plain, f)), f
+        assert int(split.step) == int(plain.step)
+        assert bool(split.av[0] > 0)
+        torch.testing.assert_close(split.av, plain.av, **SUMS_TOL[dtype])
+        assert torch.equal(sobs[:, 4], pobs[:, 4])
+        torch.testing.assert_close(sobs, pobs, **SUMS_TOL[dtype])
 
 
 @pytest.mark.parametrize("sms", [132, 2])

@@ -1,5 +1,5 @@
 """B2's spill form (ops/stepper_stream_cuda.py spill_plan, csrc/band_step.cuh
-band_chunk with its spill part, csrc/stepper_stream.cu spill_chunk) on the
+spill_band_chunk, csrc/stepper_stream.cu spill_chunk) on the
 CPU: which shapes it holds, the budget it plans with against the kernel
 source's, its decomposition rehearsed, and the routing among B1's and B2's
 forms.
@@ -161,7 +161,7 @@ def test_spill_budget_matches_the_kernel_source():
             "      (MP + bands - 1) / bands - R > MAX_SPILL)" in stream)
     assert ("spill_smem_bytes<T>(NHP, R) + RESIDENT_SCRATCH * sizeof(T) >"
             in stream)
-    # the slab a band owns in band_chunk: a, b rows of Smax + 2 HALO_MAIN,
+    # the slab a band owns in spill_band_chunk: a, b rows of Smax + 2 HALO_MAIN,
     # a_hs, b_hs rows of Smax + 2 HALO_HALF
     assert ("const int GA = Smax + 2 * HALO_MAIN, GH = Smax + 2 * HALO_HALF;"
             in band)

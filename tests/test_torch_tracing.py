@@ -323,6 +323,19 @@ def test_recording_nests_and_ends():
     assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
 
 
+def test_active_while_recording_or_profiling():
+    """active() is what a runner asks before reading a tally that only a
+    traced run reports: off by default, on inside recording() and while
+    torch.profiler records."""
+    assert not tracing.active()
+    with tracing.recording():
+        assert tracing.active()
+    assert not tracing.active()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tracing.active()
+    assert not tracing.active()
+
+
 @pytest.mark.cuda
 def test_card_stamps_match_the_profiler():
     """A display-4 run on B1 under the profiler with CUDA activity: the
