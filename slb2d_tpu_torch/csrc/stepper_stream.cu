@@ -468,10 +468,10 @@ __global__ void __launch_bounds__(slb::RESIDENT_BLOCK, 1)
                 const T* __restrict__ phi, const T* __restrict__ w_av,
                 const T* __restrict__ w_av_phi, const T* __restrict__ xs,
                 T* obs, T* xch, T* part, Params<T> p, Geometry g, int R,
-                int n_steps, int parity0, T* slab) {
+                int n_steps, int parity0, T* slab, long long* tally) {
   slb::spill_band_chunk<T>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
                            a0_ghost, phi, w_av, w_av_phi, xs, obs, xch, part,
-                           p, g, R, n_steps, parity0, slab);
+                           p, g, R, n_steps, parity0, slab, tally);
 }
 
 template <typename T>
@@ -524,8 +524,9 @@ template <typename T>
 int run_spill(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
               const T* a0, const T* a0_ghost, const T* phi, const T* w_av,
               const T* w_av_phi, const T* params, const T* xs, T* obs,
-              T* xch, T* part, T* slab, int N, int M, int NHP, int MP, int R,
-              int bands, int n_steps, int parity0, void* stream) {
+              T* xch, T* part, T* slab, long long* tally, int N, int M,
+              int NHP, int MP, int R, int bands, int n_steps, int parity0,
+              void* stream) {
   Params<T> p = {params[0], params[1], params[2], params[3],
                  params[4], params[5], params[6], params[7],
                  params[8], params[9], params[10]};
@@ -537,7 +538,7 @@ int run_spill(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
   void* args[] = {&a,   &b,       &a_hs,     &b_hs, &edge_a, &edge_b,
                   &av,  &a0,      &a0_ghost, &phi,  &w_av,   &w_av_phi,
                   &xs,  &obs,     &xch,      &part, &p,      &g,
-                  &R,   &n_steps, &parity0,  &slab};
+                  &R,   &n_steps, &parity0,  &slab, &tally};
   err = cudaLaunchCooperativeKernel(
       (const void*)spill_chunk<T>, dim3(bands),
       dim3(slb::resident_threads(R)), args, spill_smem_bytes<T>(NHP, R),
@@ -634,8 +635,11 @@ SLB_SHARD_ENTRIES(slb_stream_shard_tiles_f64, slb_stream_replay_f64, double)
 
 // The spill form's entry points: the arguments of slb_resident_chunk_*
 // (stepper.cu) with the bands' slabs (bands x NHP x (2 (Smax + 2) +
-// 2 (Smax + 4)) values, Smax = ceil(MP / bands) - R; device scratch), the
-// resident columns R of a band and the bands (blocks; at most the SMs).
+// 2 (Smax + 4)) values, Smax = ceil(MP / bands) - R; device scratch) and
+// their tally (SPILL_TALLY x bands int64 words, which each launch
+// overwrites: a band's step-loop cycles and its cycles inside the grid
+// barrier), the resident columns R of a band and the bands (blocks; at
+// most the SMs).
 // They enqueue ONE cooperative launch on `stream`, do not synchronise, and return 0,
 // the cudaError_t of a refused launch (cudaErrorInvalidValue for a plan
 // that cannot hold the state), or NOT_CO_RESIDENT; a refused launch
@@ -645,15 +649,15 @@ SLB_SHARD_ENTRIES(slb_stream_shard_tiles_f64, slb_stream_replay_f64, double)
       void* a, void* b, void* a_hs, void* b_hs, void* edge_a, void* edge_b,  \
       void* av, const void* a0, const void* a0_ghost, const void* phi,       \
       const void* w_av, const void* w_av_phi, const void* params,            \
-      const void* xs, void* obs, void* xch, void* part, void* slab, int N,   \
-      int M, int NHP, int MP, int R, int bands, int n_steps, int parity0,    \
-      void* stream) {                                                        \
+      const void* xs, void* obs, void* xch, void* part, void* slab,          \
+      void* tally, int N, int M, int NHP, int MP, int R, int bands,          \
+      int n_steps, int parity0, void* stream) {                              \
     return run_spill<T>(                                                     \
         (T*)a, (T*)b, (T*)a_hs, (T*)b_hs, (T*)edge_a, (T*)edge_b, (T*)av,    \
         (const T*)a0, (const T*)a0_ghost, (const T*)phi, (const T*)w_av,     \
         (const T*)w_av_phi, (const T*)params, (const T*)xs, (T*)obs,         \
-        (T*)xch, (T*)part, (T*)slab, N, M, NHP, MP, R, bands, n_steps,       \
-        parity0, stream);                                                    \
+        (T*)xch, (T*)part, (T*)slab, (long long*)tally, N, M, NHP, MP, R,    \
+        bands, n_steps, parity0, stream);                                    \
   }
 
 SLB_SPILL_ENTRY(slb_stream_spill_chunk_f32, float)

@@ -50,7 +50,7 @@ _ENTRY_ARGS = {
     "slb_sweep_form_info": [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "slb_stream_chunk": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
                          + [ctypes.c_void_p]),
-    "slb_stream_spill_chunk": ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+    "slb_stream_spill_chunk": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
                                + [ctypes.c_void_p]),
     "slb_stream_shard_tiles": ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 14
                                + [ctypes.c_void_p]),

@@ -286,9 +286,8 @@ class Runner:
         # a copy from host memory that waits for the chunk's kernels to end
         with tracing.span("engine.fetch"):
             t = torch.tensor(t_next, dtype=self.dtype, device=dev)
-            if (self.form == "resident" and dev.type == "cuda"
-                    and tracing.active()):
-                self._count_waits()
+            if dev.type == "cuda" and tracing.active():
+                self._count_tally()
         return out.replace(t=t)
 
     def _plain(self, state, xs, parity0, emit_idx):
@@ -400,11 +399,14 @@ class Runner:
                             device=dev))
         return self._scratch
 
-    def _count_waits(self):
-        """Add the last chunk's waits at the resident form's grid barrier
-        (one a band and step) and those whose first read found it open to
-        the counters b1.waits and b1.waits_open: one copy of the bands'
-        tallies, after the chunk has ended."""
+    def _count_tally(self):
+        """Add the last chunk's in-kernel tally to its counters, while
+        spans record: the resident form's waits at its grid barrier (one a
+        band and step) and those whose first read found it open, to
+        b1.waits and b1.waits_open, in one copy of the bands' tallies after
+        the chunk has ended; the per-half-step form keeps none."""
+        if self.form != "resident":
+            return
         tally = self._scratch[2][SYNC_WORDS:].cpu().numpy()
         tracing.count("b1.waits", int(tally[0::2].sum()))
         tracing.count("b1.waits_open", int(tally[1::2].sum()))

@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import stencil
 from .stepper_cuda import (BAND_ALIGN, HALO_HALF, HALO_MAIN,
                            LAUNCHES_PER_CHUNK, MAX_BAND, OBS_LANES,
@@ -73,6 +74,9 @@ FORMS = ("spill", "tiling")
 # dynamic shared memory that hold its rows 0 and 1's products.
 MAX_SPILL = 128
 SPILL_SUMS = 2 * MAX_SPILL * 2
+# the int64 words of a band's tally: its step loop's cycles, then its
+# cycles inside the grid barrier (StreamRunner._count_tally)
+SPILL_TALLY = 2
 # The most bytes of slabs plus a0 that the spill form is planned with, by
 # item size (the L2 that they share is 50 MB on an H100): the spill form
 # against the engine impl=cuda would take instead, per step in turns on an
@@ -451,7 +455,9 @@ class StreamRunner(Runner):
     def _buffers(self, dev):
         """Device scratch, allocated once per device.  Spill form: the
         exchange buffer (2 step parities x bands x XCH_LANES x NHP), the
-        bands' partial sums (2 x bands x PART_LANES) and the slabs.  Tiling
+        bands' partial sums (2 x bands x PART_LANES), the slabs and the
+        bands' tally (SPILL_TALLY x bands int64, which each launch
+        writes whole).  Tiling
         form: the second buffer set, the scratch (None in shared-memory
         mode), the tile partials and the carry."""
         if self._bufs is None or self._bufs[0].device != dev:
@@ -465,7 +471,9 @@ class StreamRunner(Runner):
                     empty(2 * p.bands * XCH_LANES * NHP),
                     empty(2 * p.bands * PART_LANES),
                     empty(p.spill_bytes // np.dtype(self.model.np_dtype)
-                          .itemsize))
+                          .itemsize),
+                    torch.empty(SPILL_TALLY * p.bands, dtype=torch.int64,
+                                device=dev))
             else:
                 g = self.geom
                 self._bufs = (
@@ -479,13 +487,14 @@ class StreamRunner(Runner):
         m = self.model
         suffix = "_f32" if m.np_dtype == np.float32 else "_f64"
         if self.form == "spill":
-            xch, part, slab = self._buffers(xs_dev.device)
+            xch, part, slab, tally = self._buffers(xs_dev.device)
             p = self.plan
             rc = getattr(cdll, "slb_stream_spill_chunk" + suffix)(
                 *(t.data_ptr() for t in tensors.values()),
                 self.params.ctypes.data, xs_dev.data_ptr(), obs.data_ptr(),
-                xch.data_ptr(), part.data_ptr(), slab.data_ptr(), m.N, m.M,
-                m.NHP, m.MP, p.R, p.bands, int(n), int(parity0), stream)
+                xch.data_ptr(), part.data_ptr(), slab.data_ptr(),
+                tally.data_ptr(), m.N, m.M, m.NHP, m.MP, p.R, p.bands,
+                int(n), int(parity0), stream)
             return rc, LAUNCHES_PER_CHUNK
         g = self.geom
         alt, scratch, partials, carry = self._buffers(xs_dev.device)
@@ -497,6 +506,18 @@ class StreamRunner(Runner):
             partials.data_ptr(), carry.data_ptr(), m.N, m.M, m.NHP,
             m.MP, g.K, g.W, g.H, int(n), int(parity0), stream)
         return rc, LAUNCHES_PER_LAUNCH * -(-n // g.K)
+
+    def _count_tally(self):
+        """Add the last chunk's spill-form tally to the counters, while
+        spans record, in one copy after the chunk has ended:
+        b2.band_cycles, the bands' step-loop cycles summed, and
+        b2.sync_cycles, their cycles inside the grid barrier summed; the
+        tiling form keeps none."""
+        if self.form != "spill":
+            return
+        tally = self._bufs[3].cpu().numpy()
+        tracing.count("b2.band_cycles", int(tally[0::SPILL_TALLY].sum()))
+        tracing.count("b2.sync_cycles", int(tally[1::SPILL_TALLY].sum()))
 
 
 def make_stream_runner(c: stencil.StencilConsts, model, av_enabled=True,

@@ -30,9 +30,11 @@ activity would take it for work.
 Counters are always on: count(name, n) adds to a name such as
 launches.<kernel>.<form> (the kernels' launches) or engine.chunks.  The
 counters b1.waits and b1.waits_open (B1's resident form: its waits at the
-grid barrier, one a band and step, and those found open) grow only while
-spans are recorded (active()), since reading them costs a copy from the
-card after each chunk.
+grid barrier, one a band and step, and those found open), b2.band_cycles
+and b2.sync_cycles (B2's spill form: each band's clock64() cycles of the
+chunk's step loop, and those inside its grid barrier, summed over the
+bands) grow only while spans are recorded (active()), since reading them
+costs a copy from the card after each chunk.
 """
 
 from __future__ import annotations

@@ -463,6 +463,44 @@ def test_spill_form_at_its_own_shape(card):
 
 
 @pytest.mark.cuda
+def test_spill_form_tallies_its_grid_barrier_only_while_spans_record(card):
+    """N=100 M=20000 f32 (the wide.d4 cell's grid): a spill-form chunk of
+    200 steps outside tracing.recording() adds no b2.* counter; the same
+    chunk inside it adds 0 < b2.sync_cycles < b2.band_cycles, each band's
+    tally too; both chunks' states and edges bit for bit with the plain
+    version's."""
+    import chip_smoke
+    from slb2d_tpu_torch import tracing
+    from slb2d_tpu_torch.ops import stencil, stepper_cuda
+    model, c, xs, runner = chip_smoke._stream_runner(chip_smoke.B2_OWN,
+                                                     "f32", form="spill")
+    win = {k: v[:200] for k, v in xs.items()}
+    state0 = stencil.bootstrap_state(c, model)
+    plain, _ = stepper_cuda.run_chunk_plain(
+        c, state0.clone(), stepper_cuda.pack_xs_dict(win, model.np_dtype), 0)
+
+    def b2():
+        return {k: v for k, v in tracing.counters().items()
+                if k.startswith("b2.")}
+    before = b2()
+    untraced = runner.run_xs(state0.clone(), win, 0)
+    torch.cuda.synchronize()
+    assert b2() == before
+    with tracing.recording():
+        traced = runner.run_xs(state0.clone(), win, 0)
+    band = b2()["b2.band_cycles"] - before.get("b2.band_cycles", 0)
+    sync = b2()["b2.sync_cycles"] - before.get("b2.sync_cycles", 0)
+    assert 0 < sync < band, (sync, band)
+    tally = runner._bufs[3].cpu()
+    assert bool((tally[1::2] > 0).all() and (tally[1::2] < tally[0::2]).all())
+    assert int(tally[0::2].sum()) == band and int(tally[1::2].sum()) == sync
+    for out in (untraced, traced):
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            assert torch.equal(getattr(out, f), getattr(plain, f)), f
+    assert runner.launches == 2
+
+
+@pytest.mark.cuda
 def test_refused_spill_launch_leaves_the_state_untouched(card):
     """More bands than the card runs at once (a forced plan of 400 bands
     at N=100 M=20000): the launch is refused before anything runs, the

@@ -564,3 +564,126 @@ def test_stream_forms_main_refuses_the_cpu(argv, rc, monkeypatch, capsys):
     out = capsys.readouterr()
     assert out.out == ""
     assert (perf.NO_CARD if rc == 1 else "no experiment bogus") in out.err
+
+
+# ---- 5. the wide.d4 deployment (benchmark/configs/wide_n100_m20000.json) --
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH = os.path.join(REPO, "benchmark")
+
+
+def _bench_json(*parts):
+    import json
+    with open(os.path.join(BENCH, *parts)) as fh:
+        return json.load(fh)
+
+
+def _reference_solver():
+    """benchmark/reference/solver.py, loaded by path (it imports nothing of
+    the program; the benchmark's directory stays off sys.path)."""
+    import importlib.util
+    import sys
+    name = "slb2d_bench_reference_solver"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(BENCH, "reference", "solver.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod     # its dataclasses look their module up
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def test_wide_config_routes_to_the_spill_form():
+    """The wide.d4 cell's grid (N=100 M=20000 f32) at 132 SMs: no B1
+    resident plan, B2's spill form, 132 bands of 152-153 columns, R=128
+    resident and 24-25 in each band's L2 slab."""
+    args = _bench_json("configs", "wide_n100_m20000.json")["args"]
+    assert args["dtype"] == "f32"
+    NHP, MP = shape_of(args["n-harmonics"], args["g-grid"])
+    assert (NHP, MP) == (104, 20_096)
+    assert sst.engine_choice(NHP, MP, np.float32, sms=132) == (
+        "stream", "spill")
+    assert sc.resident_plan(NHP, MP, np.float32, 132) is None
+    plan = sst.spill_plan(NHP, MP, np.float32, sms=132)
+    assert (plan.bands, plan.R, plan.S) == (132, 128, 25)
+    slabs = [w for _, w in spill_parts(plan, MP)[1::2]]
+    assert set(slabs) == {24, 25} and sum(slabs) == MP - 132 * 128
+
+
+def test_wide_request_through_simulation_matches_the_reference(monkeypatch):
+    """The cell's request (its config's and d4_long's settings, one drawn
+    point) at N=8 M=64, cut to t-max=0.05 at omega=40, through Simulation
+    with impl=stream on the CPU and the spill form's forced small plan (2
+    bands, R=32: the plain version): its display-4 line within 1e-4 of the
+    benchmark's plain reference (relative, absolute below 0.01, as the
+    benchmark's check), and no b2.* counter while spans record."""
+    from slb2d_tpu_torch import config as cfgmod
+    from slb2d_tpu_torch import tracing
+    conf = _bench_json("configs", "wide_n100_m20000.json")
+    mix = _bench_json("traffic", "d4_long.json")
+    real = sst.spill_plan
+
+    def forced(NHP, MP, dtype, sms=sc.SM_COUNT, budget=None, R=None):
+        return real(NHP, MP, dtype, sms=2, R=32)
+    monkeypatch.setattr(sst, "spill_plan", forced)
+    point = {"E_dc": 1.7, "E_omega": 2.2, "B": 0.12}
+    for k, (lo, hi) in mix["draw"].items():
+        assert lo <= point[k] <= hi
+    settings = {**conf["args"], **mix["args"], **point,
+                "n-harmonics": 8, "g-grid": 64, "t-max": 0.05,
+                "omega": 40.0, "impl": "stream", "device": "cpu"}
+    cfg = cfgmod.parse_cmd([f"{k}={v}" for k, v in settings.items()])
+
+    class Sink(list):
+        write = list.append
+
+        def flush(self):
+            pass
+
+        def close(self):
+            pass
+
+    sink = Sink()
+    before = {k for k in tracing.counters() if k.startswith("b2.")}
+    with tracing.recording():
+        sim = Simulation(cfg, out=sink)
+        sim.run()
+    assert sim.engine_tag() == "stream spill"
+    assert {k for k in tracing.counters() if k.startswith("b2.")} == before
+    lines = [ln for ln in "".join(sink).splitlines()
+             if ln.strip() and not ln.startswith("#")]
+    assert len(lines) == 1
+    ref = _reference_solver()
+    got = dict(zip(ref.D4_COLUMNS, map(float, lines[0].split())))
+    want, = ref.run_points(
+        ref.Grid(N=8, M=64, mu=settings["mu"], alpha=settings["alpha"],
+                 phi_y_min=settings["PhiYmin"],
+                 phi_y_max=settings["PhiYmax"], dt=settings["dt"],
+                 t_start=settings["t-max"]),
+        [{"E_dc": 1.7, "E_omega": 2.2, "omega": 40.0, "B": 0.12}])
+    for col in ref.OBSERVABLES:
+        gap = abs(got[col] - want[col]) / max(abs(want[col]), 1e-2)
+        assert gap <= 1e-4, (col, got[col], want[col])
+
+
+def test_spill_tally_matches_the_kernel_source():
+    """The tally spill_band_chunk writes (SPILL_TALLY int64 words a band:
+    its step loop's cycles, then those inside the grid barrier) is the
+    buffer the runner allocates and passes, and the entry point takes it."""
+    band = open(os.path.join(CSRC, "band_step.cuh")).read()
+    stream = open(os.path.join(CSRC, "stepper_stream.cu")).read()
+    assert _const(band, "SPILL_TALLY") == sst.SPILL_TALLY == 2
+    assert "int parity0, T* slab, long long* tally) {" in band
+    assert "long long* const mine = tally + SPILL_TALLY * band;" in band
+    assert "if (stamp) mine[0] = clock64() - mine[0];" in band
+    assert ("atomicAdd(reinterpret_cast<unsigned long long*>(mine + 1),"
+            in band)
+    assert "(T*)slab, (long long*)tally, N, M, NHP, MP, R," in stream
+    assert _build._ENTRY_ARGS["slb_stream_spill_chunk"][:20] == (
+        [_build.ctypes.c_void_p] * 19 + [_build.ctypes.c_int])
+    model, c, _ = _setup("f32")
+    plan = sst.spill_plan(model.NHP, model.MP, np.float32, sms=2, R=32)
+    runner = sst.make_stream_runner(c, model, form="spill", spill=plan)
+    tally = runner._buffers(CPU)[3]
+    assert tally.dtype == torch.int64
+    assert tally.shape == (sst.SPILL_TALLY * plan.bands,)
