@@ -1,10 +1,20 @@
-"""ctypes bridge to the native C++ IO helpers (native/slbio.cpp).
+"""ctypes bridges to the native C++ IO helpers.
 
-Frame emission is millions of printf-formatted lines per frame — genuinely
-hot in movie mode (display 7), so like the reference (whose entire runtime
-is C) the formatter is native.  Falls back to the Python path when the
-shared library has not been built (`make -C native`, or build() below);
-formatter() names the one that writes.
+Two formatters of the hot text are native, like the reference (whose
+entire runtime is C):
+
+- frame emission, millions of printf-formatted rows per frame, genuinely
+  hot in movie mode (display 7): native/slbio.cpp, the library the JAX
+  package loads too (`make -C native`, or build() below); formatter()
+  names the one that writes;
+- the display-77 lines, ~1,600 records of 15 columns in a run at display
+  77, one call per chunk: io/d77fmt.cpp, the port's own
+  (`make -C slb2d_tpu_torch/io`, or build_d77() below, which a card's
+  display-77 run calls as it is set up); d77_formatter() names the one
+  that writes.
+
+Each falls back to its Python path, the same bytes, where its library has
+not been built.
 """
 
 from __future__ import annotations
@@ -64,14 +74,7 @@ def build():
     global _LIB, _TRIED, _BUILD_ERROR
     native = os.path.join(_root(), "native")
     if not os.path.exists(os.path.join(native, "libslbio.so")):
-        try:
-            run = subprocess.run(["make", "-C", native, "libslbio.so"],
-                                 capture_output=True, text=True,
-                                 timeout=300)
-            err = (run.stdout + run.stderr).strip() if run.returncode \
-                else None
-        except (OSError, subprocess.SubprocessError) as e:
-            err = f"{type(e).__name__}: {e}"
+        err = _make(native, "libslbio.so")
         if err is not None:
             _BUILD_ERROR = err.splitlines()[-1] if err else "no output"
             print(f"io/native: make -C native failed; the Python formatter "
@@ -79,6 +82,17 @@ def build():
     if _LIB is None:
         _TRIED = False
     return formatter()
+
+
+def _make(where, target):
+    """`make -C where target`: None where it succeeded, else its output
+    (or the error that kept it from running)."""
+    try:
+        run = subprocess.run(["make", "-C", where, target],
+                             capture_output=True, text=True, timeout=300)
+        return (run.stdout + run.stderr).strip() if run.returncode else None
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"{type(e).__name__}: {e}"
 
 
 def formatter() -> str:
@@ -126,3 +140,87 @@ def count_steps_f32(t0: float, t_max: float, dt: float):
         return None
     return int(lib.slb_count_steps_f32(
         ctypes.c_float(t0), ctypes.c_float(t_max), ctypes.c_float(dt)))
+
+
+# ---- the display-77 formatter (io/d77fmt.cpp, libd77fmt.so beside it) ----
+
+_D77 = None
+_D77_TRIED = False
+_D77_BUILD_ERROR = None
+
+
+def _d77_dir():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _load_d77():
+    global _D77, _D77_TRIED
+    if _D77_TRIED:
+        return _D77
+    _D77_TRIED = True
+    path = os.path.join(_d77_dir(), "libd77fmt.so")
+    if os.path.exists(path):
+        try:
+            lib = ctypes.CDLL(path)
+            lib.slb_format_d77_rows.argtypes = [
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_char_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_longlong]
+            lib.slb_format_d77_rows.restype = ctypes.c_longlong
+            _D77 = lib
+        except (OSError, AttributeError):
+            pass   # unloadable or stale: the Python formatter writes
+    return _D77
+
+
+def build_d77():
+    """Build io/libd77fmt.so with `make -C slb2d_tpu_torch/io` (its
+    Makefile, the one recipe; CXX and CXXFLAGS pass through the
+    environment; the library is gitignored, and renamed into place whole)
+    when it is missing or older than d77fmt.cpp, and load it.  Returns
+    d77_formatter().  A failed build leaves the Python formatter in place:
+    the build's error goes to stderr, and d77_formatter() names it."""
+    global _D77, _D77_TRIED, _D77_BUILD_ERROR
+    here = _d77_dir()
+    lib = os.path.join(here, "libd77fmt.so")
+    if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(
+            os.path.join(here, "d77fmt.cpp")):
+        err = _make(here, "libd77fmt.so")
+        if err is not None:
+            _D77_BUILD_ERROR = err.splitlines()[-1] if err else "no output"
+            print(f"io/native: make -C {here} failed; the Python formatter "
+                  f"writes the display-77 lines:\n{err}", file=sys.stderr)
+    if _D77 is None:
+        _D77_TRIED = False
+    return d77_formatter()
+
+
+def d77_formatter() -> str:
+    """The formatter display-77 lines go through: "native
+    (io/libd77fmt.so)" or "python" (io/writers.py's Python path; after a
+    failed build_d77(), "python (build failed: <its error's last
+    line>)")."""
+    if _load_d77() is not None:
+        return "native (io/libd77fmt.so)"
+    return "python" if _D77_BUILD_ERROR is None else \
+        f"python (build failed: {_D77_BUILD_ERROR})"
+
+
+def format_d77_rows(rows, head: str, *, echo: bool, lines: bool):
+    """The display-77 text of a chunk's records (slb_format_d77_rows):
+    rows (R, 15), each record's line columns; with `echo` its stdout echo
+    (an empty line, then "# t=<t> norm=<norm>"), with `lines` `head` and
+    the row.  None without the library."""
+    lib = _load_d77()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(rows, np.float64)
+    if v.ndim != 2 or v.shape[1] != 15:
+        raise ValueError(f"display-77 rows are (R, 15), not {v.shape}")
+    # a value takes <= 37 chars below 1e15, <= 331 above (twice if echoed)
+    cap = len(v) * (len(head) + 16 * 40 + 88) + 2 * 300 * int(
+        np.count_nonzero(~(np.abs(v) < 1e15))) + 1
+    buf = np.empty(cap, np.uint8)
+    n = lib.slb_format_d77_rows(v.ctypes.data, len(v), head.encode(),
+                                int(echo), int(lines), buf.ctypes.data, cap)
+    return None if n < 0 else buf[:n].tobytes().decode("ascii")

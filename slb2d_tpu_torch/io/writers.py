@@ -17,8 +17,10 @@ import sys
 
 import numpy as np
 
+from .. import tracing
 from ..constants import PI
 from ..ops import observables
+from . import native
 
 f64 = np.float64
 
@@ -102,35 +104,78 @@ def write_display77_line(out, model, a_prev, b_prev, av_data, t, *,
     return norm
 
 
-def write_display77_from_record(out, model, rec, *, quiet=False):
-    """Format one display-77 line from an on-device emission record
-    (ops/stencil.emission_record): [norm_sum, v_dr_sum, v_y_sum, m_x_sum,
-    t, av[0..5]].  Same float32 scaling points as the array-based writer."""
+def write_display77_from_record(out, model, records, *, quiet=False):
+    """Format a chunk's on-device emission records
+    (ops/stencil.emission_record: [norm_sum, v_dr_sum, v_y_sum, m_x_sum,
+    t, av[0..5]], an (R, >= 11) stack) as display-77 lines in one pass:
+    the columns of all R lines at once, rounded where the per-record
+    reference rounds (_d77_columns), then the text by io/d77fmt.cpp's
+    slb_format_d77_rows or, without the library, Python's %-operator, the
+    same bytes either way; one write and one flush of `out`.  Unless
+    `quiet`, each record's "# t= norm=" line goes to stdout before it, in
+    the same stream where `out` is stdout.  Counts io.records and
+    io.records_native (those the native formatter wrote) while spans
+    record.  Returns the R norms."""
+    cols = _d77_columns(model, records)
+    if quiet or out is sys.stdout:
+        text, native_ = _d77_text(cols, echo=not quiet, lines=True)
+    else:
+        echo, _ = _d77_text(cols, echo=True, lines=False)
+        sys.stdout.write(echo)
+        text, native_ = _d77_text(cols, echo=False, lines=True)
+    out.write(text)
+    out.flush()
+    if tracing.active():
+        tracing.count("io.records", len(cols))
+        if native_:
+            tracing.count("io.records_native", len(cols))
+    return cols[:, 6].astype(model.np_dtype)
+
+
+# the echo of a record to stdout and its line's 15 columns
+_D77_ECHO = "\n# t=%.20f norm=%.20f\n"
+_D77_ROW = " ".join(["%.20f"] * 15) + "\n"
+
+
+def _d77_columns(model, records):
+    """(R, 15) float64: the columns of the display-77 lines of `records`
+    (R, >= 11), each rounded in the model's np_dtype at the points where
+    the per-record writer of the reference rounds it (f32 or f64)."""
     D = model.np_dtype
-    norm_sum, v_dr, v_y, m_x, t = (D(rec[0]), D(rec[1]), D(rec[2]),
-                                   D(rec[3]), D(rec[4]))
-    av_data = np.asarray(rec[5:11], D)
-    norm = D(f64(norm_sum) * (2 * PI * np.sqrt(f64(model.alpha))))
+    r = np.asarray(records)[:, :11].astype(D)
+    norm_sum, v_dr, v_y, m_x, t = r[:, 0], r[:, 1], r[:, 2], r[:, 3], r[:, 4]
+    d = r[:, 5:11]
     vm, ym, mm = (model.v_dr_multiplier, model.v_y_multiplier,
                   model.m_over_multiplier)
-    d = av_data.copy()
-    d[1] = D(d[1] * vm)
-    d[2] = D(d[2] * ym)
-    d[3] = D(d[3] * mm)
-    d[4] = D(D(d[4] * vm) / t)
-    d[5] = D(D(d[5] * vm) / t)
-    v_dr_i = D(v_dr * vm)
-    if not quiet:
-        print(f"\n# t={f20(t)} norm={f20(norm)}")
-    a_inst = float(np.cos(f64(D(model.omega * t)))) * float(v_dr_i)
-    out.write(HEADER_D77)
-    out.write(" ".join([
-        f20(model.E_dc), f20(model.E_omega), f20(model.omega), f20(model.mu),
-        f20(v_dr_i), f20(d[4]), f20(norm), f20(D(v_y * ym)),
-        f20(D(m_x * mm)), f20(d[1]), f20(d[2]), f20(d[3]),
-        f20(a_inst), f20(t), f20(d[4])]) + "\n")
-    out.flush()
-    return norm
+    with np.errstate(all="ignore"):      # a diverged run's nan and inf
+        norm = (norm_sum.astype(f64)
+                * (2 * PI * np.sqrt(f64(model.alpha)))).astype(D)
+        d1, d2, d3 = d[:, 1] * vm, d[:, 2] * ym, d[:, 3] * mm
+        d4 = (d[:, 4] * vm) / t
+        v_dr_i = v_dr * vm
+        # A_inst = cos(omega*t)*v_dr_inst evaluated in double (:444)
+        a_inst = np.cos((model.omega * t).astype(f64)) * v_dr_i.astype(f64)
+        cols = np.empty((len(r), 15), f64)
+        cols[:, :4] = [f64(model.E_dc), f64(model.E_omega), f64(model.omega),
+                       f64(model.mu)]
+        for k, c in enumerate((v_dr_i, d4, norm, v_y * ym, m_x * mm, d1, d2,
+                               d3, a_inst, t, d4), start=4):
+            cols[:, k] = c
+    return cols
+
+
+def _d77_text(cols, *, echo, lines):
+    """(text, whether the native formatter wrote it) of the records'
+    columns: with `echo` each record's stdout line, with `lines` its
+    header and line."""
+    text = native.format_d77_rows(cols, HEADER_D77, echo=echo, lines=lines)
+    if text is not None:
+        return text, True
+    fmt = (_D77_ECHO if echo else "") + (HEADER_D77 + _D77_ROW if lines
+                                         else "")
+    args = np.concatenate(([cols[:, [13, 6]]] if echo else [])
+                          + ([cols] if lines else []), axis=1)
+    return (fmt * len(cols)) % tuple(args.ravel().tolist()), False
 
 
 def write_display3(out, model, recon, a, b):
@@ -191,12 +236,7 @@ def write_strobe(out, model, recon, strobe_values, a, t, *, norm=None):
 
 
 def _write_xy_rows(out, phi_x, phi_y, F):
-    try:
-        from .native import write_xy_rows_native
-    except ImportError:
-        write_xy_rows_native = None
-    if write_xy_rows_native is not None and write_xy_rows_native(
-            out, phi_x, phi_y, F):
+    if native.write_xy_rows_native(out, phi_x, phi_y, F):
         return
     lines = []
     for i, px in enumerate(phi_x):

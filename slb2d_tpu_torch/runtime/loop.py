@@ -57,7 +57,7 @@ from ..config import SimConfig  # noqa: F401  (public API)
 from ..constants import PI
 from ..models.superlattice import SuperlatticeModel
 from ..ops import frames, observables, stencil
-from ..io import writers
+from ..io import native, writers
 from . import schedule
 from .checkpoint import load_state, save_state
 
@@ -125,6 +125,11 @@ class Simulation:
         else:
             self.out = open(os.devnull, "w")
         self.quiet = cfg.quiet or not self._p0
+        if cfg.display == 77 and self.device.type == "cuda" and self._p0:
+            # the display-77 lines' native formatter (io/d77fmt.cpp), made
+            # where missing by the process that writes them; the others
+            # write to devnull, with it where it is built
+            native.build_d77()
         self.recon = None
         self.frame_number = 1
         self.strobe_values = None
@@ -459,9 +464,8 @@ class Simulation:
                 self.state, chunk, self.steps_done % 2)
             if len(records):
                 with tracing.span("io.write"):
-                    for rec in records:
-                        writers.write_display77_from_record(
-                            self.out, self.model, rec, quiet=self.quiet)
+                    writers.write_display77_from_record(
+                        self.out, self.model, records, quiet=self.quiet)
             self.steps_done += chunk.n_steps
             tracing.count("engine.chunks")
             self._handle_event(chunk)
