@@ -50,8 +50,8 @@
 //   half-steps; B1's per-half-step form without av_step.
 //
 // What bounds it: the same arithmetic as B1's step, 28 adds, multiplies
-// and divisions per live cell of a half-step (chip_smoke.py
-// main_path_flops); the per-half-step form walks 5-6 (MP, NHL) arrays
+// and divisions per live cell of a half-step (the count of
+// benchmark/harness/roofline.py); the per-half-step form walks 5-6 (MP, NHL) arrays
 // through L2 per half-step (~2.1 MB each at BASELINE #4, 23% more than
 // B1's (NHP, MP) arrays) and pays two launches per step; the resident form
 // removes both, and what is left is each SM's cell loop and the grid

@@ -81,9 +81,8 @@
 //   bandwidth, bound it.
 //
 // What bounds the work on the H100: its arithmetic, 28 adds, multiplies
-// and divisions per live cell of a half-step at 33.5 T per second, an
-// H100's f32 rate without FMA (chip_smoke.py main_path_flops, PERF.md
-// §6); the bytes, the state read once and written once per chunk, are
+// and divisions per live cell of a half-step against the data sheet's
+// 67e12 f32 FLOP/s (benchmark/harness/roofline.py, PERF.md §6); the bytes, the state read once and written once per chunk, are
 // smaller.  The per-half-step form walks the state through L2 every
 // half-step; the resident form removes the walk, and what is left is each
 // SM's cell loop and what of a step's barrier and halo read its interior

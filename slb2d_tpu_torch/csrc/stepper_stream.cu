@@ -16,7 +16,7 @@
 // the rest (S, 24-25 at N=100 M=20000 in float: 3,200 columns in all) in
 // a slab of device memory that stays in L2; its spill cells follow its
 // resident rows in each half-step.  What bounds it: the arithmetic, as
-// for B1 (chip_smoke.py main_path_flops); what its design leaves is B1's
+// for B1 (benchmark/harness/roofline.py); what its design leaves is B1's
 // cell loop and fixed cost per step, plus the spill cells, each of which
 // reads its ten values from L1 or L2 instead of shared memory.
 // ops/stepper_stream_cuda.py:spill_plan sizes it (R = 128 at NHP = 104 in
@@ -63,7 +63,7 @@
 // shared memory (8 neighbour loads and 2 stores per cell), with a0, phi and
 // a0_ghost from L2; global traffic is one read of the extended tiles and
 // one write of the centers per K steps.  The least time for the same work
-// is its arithmetic (chip_smoke.py main_path_flops, as for stepper.cu);
+// is its arithmetic (benchmark/harness/roofline.py, as for stepper.cu);
 // the halo columns (WT/W more cells) are this kernel's overhead.  Measured
 // in float on an H100 80GB HBM3 at 700 W (PERF.md): 25.2 us per step at
 // N=100 M=12000 against 30.6 for stepper.cu, ~8% of the operation bound,

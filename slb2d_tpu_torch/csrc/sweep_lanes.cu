@@ -96,8 +96,8 @@
 // plain version.
 //
 // What bounds it on the H100: the least time for the same work is its
-// arithmetic, as for the stacked sweep kernel (chip_smoke.py
-// main_path_flops).  The streaming form walks a chunk's state through L2
+// arithmetic, as for the stacked sweep kernel
+// (benchmark/harness/roofline.py).  The streaming form walks a chunk's state through L2
 // twice a step in two launches, each short of a full wave of blocks at 16
 // points.  The cluster form removes the walk, the launches and the
 // per-thread trig; what bounds it is each SM's work on its R*MP cells

@@ -101,8 +101,8 @@
 //
 // What bounds it on the H100: the least time for the work is its
 // arithmetic, 28 adds, multiplies and divisions per live cell of a
-// half-step at 33.5 T per second, an H100's f32 rate without FMA
-// (chip_smoke.py main_path_flops, PERF.md §6).  The streaming form is
+// half-step against the data sheet's 67e12 f32 FLOP/s
+// (benchmark/harness/roofline.py, PERF.md §6).  The streaming form is
 // bound by one SM's walk of its point through L2 per step (4% of that at
 // 64 and 256 points).  The cluster form removes the walk; what bounds it
 // is each SM's work on its R·MP cells (the arithmetic with the IEEE

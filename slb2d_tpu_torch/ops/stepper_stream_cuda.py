@@ -216,10 +216,10 @@ def engine_choice(NHP: int, MP: int, dtype, sms: int = SM_COUNT):
     in f32 the resident plan ends at MP = 132 x 128 = 16,896 columns (bands
     of at most 128 columns in 227 KB); the spill plan holds from there up
     to its L2 budget.  Measured per step on an H100 80GB HBM3 at 700 W, in
-    turns (chip_smoke.py's routing phase and python -m
-    slb2d_tpu_torch.perf.stream_forms; PERF.md §6): B1's resident form
-    faster than the tiling form at N=100 M=4000, N=100 M=12000 and N=400
-    M=4000 in f32 (by 1.5x, 1.5x and 2.5x); the spill form faster than
+    turns (python -m slb2d_tpu_torch.perf.stream_forms; PERF.md §6):
+    B1's resident form faster than the tiling form at N=100 M=4000,
+    N=100 M=12000 and N=400 M=4000 in f32 (by 1.5x, 1.5x and 2.5x); the
+    spill form faster than
     the tiling form and B1's per-half-step form in f32 at N=100
     M=20000-28000, N=200 M=12000 and N=400 M=6000 (by 1.2-1.8x), and than
     the per-half-step form in f64 at N=100 M=9000, 12000 and 14750 (1.8x,

@@ -80,9 +80,8 @@ TRIG_SCRATCH = 16
 NO_ACTIVE_CLUSTER = -1
 # Clusters of each size of the cluster form that run at once on an H100
 # 80GB HBM3 (one 1024-thread block per SM, whatever its shared memory):
-# cudaOccupancyMaxActiveClusters as chip_smoke.py's phase 16 prints it
-# ("lanes sizes"; PERF.md §6).  A CPU runner records the plan of this
-# card; a CUDA runner asks its own.
+# cudaOccupancyMaxActiveClusters (PERF.md §6).  A CPU runner records the
+# plan of this card; a CUDA runner asks its own.
 H100_ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
                         8: 15}
 

@@ -29,8 +29,7 @@ frames, take the kernel too.  The JAX package sends them to its vmapped
 engine (slb2d_tpu/parallel/sweep.py:385-430); on an H100 80GB HBM3 at
 700 W the kernel path (its cluster form) ran bench.py's 64-point omega
 sweep in 0.225 s and the 16x16 paper map in 0.797 s end to end, against
-at least 23.3 s and 19.5 s for the batched engine (chip_smoke.py phase
-10, PERF.md §6).
+at least 23.3 s and 19.5 s for the batched engine (PERF.md §6).
 ``impl=cuda`` never falls back to the batched engine: a CPU device
 raises.
 

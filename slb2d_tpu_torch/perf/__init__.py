@@ -2,18 +2,20 @@
 probe, each a hand-written CUDA kernel (csrc/probe_*.cu) beside its plain
 PyTorch version:
 
-  vpu_roofline           P1, the float32 elementwise ceiling: the rate
-                         chip_smoke.py divides every operation bound by
+  vpu_roofline           P1, the float32 elementwise ceiling that the
+                         FP32 pipes sustain (PERF.md §6)
   roll_cost_experiment   P2, what a neighbour read costs: resident in
                          shared memory, or one launch per pass
   transposed_experiment  P3, B1's step in the transposed (m, n) layout
 
-and one module of measurements on the port's own kernels:
+and two modules of measurements on the port's own kernels:
 
   stream_forms           B2's spill and tiling forms against each other
                          and B1's per-half-step form: the measurements
                          behind the spill plan's L2 budget, the tiling
                          form's width and impl=cuda's routing
+  vs_parent              B1's resident form and B2's spill form against
+                         the same forms in another checkout, in turns
 
 Each runs as ``python -m slb2d_tpu_torch.perf.<name>`` on a card; its
 main() refuses the CPU.  The functions take ``device=`` (and smaller
@@ -49,6 +51,15 @@ def time_ms(fn, device, reps=3):
     stop.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(stop) / reps
+
+
+def device_us(evt):
+    """A torch.profiler event's device time in µs (the attribute was
+    renamed across torch releases)."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
 
 
 def have_card() -> bool:

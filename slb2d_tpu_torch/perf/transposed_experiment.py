@@ -425,9 +425,10 @@ def run(device, n_harmonics=100, g_grid=4000, NHL=NHL, K=K, timed=3):
                 b1_us_per_step_per_half_step=mean["B1 per-half-step"])
 
 
-# the resident forms where the cells cost next to nothing (chip_smoke.py's
-# BARRIER): N=7 M=4000, NHP=8, MP=4096; P3 at NHL=8 (256 threads a block)
-# and at NHL=32 (1024, B1's block there), 128 bands of 32 rows
+# the resident forms where the cells cost next to nothing (PERF.md §6,
+# B1's fixed cost a step): N=7 M=4000, NHP=8, MP=4096; P3 at NHL=8 (256
+# threads a block) and at NHL=32 (1024, B1's block there), 128 bands of 32
+# rows
 FIXED = dict(n_harmonics=7, g_grid=4000)
 FIXED_NHLS = (8, 32)
 
@@ -500,7 +501,7 @@ def kernel_us(device, n_harmonics=100, g_grid=4000, NHL=NHL, steps=200):
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from ..profile_step import _device_us
+    from . import device_us
     model, c, tc, state0, xs = setup(device, n_harmonics, g_grid, NHL, steps)
     fns = _runners(tc, c, model, xs)
     states = {k: (transpose_state(state0, NHL) if k.startswith("P3")
@@ -516,8 +517,8 @@ def kernel_us(device, n_harmonics=100, g_grid=4000, NHL=NHL, steps=200):
     for e in prof.key_averages():
         m = re.search(r"(t_resident_chunk|t_half_step|half_step|av_step|"
                       r"resident_chunk)(<[^>]*>)?", e.key)
-        if m and e.count and _device_us(e) > 0:
-            out[m.group(1) + (m.group(2) or "")] = _device_us(e) / e.count
+        if m and e.count and device_us(e) > 0:
+            out[m.group(1) + (m.group(2) or "")] = device_us(e) / e.count
     return out
 
 

@@ -17,8 +17,8 @@ prints a line per pair, the fastest of each variant with its share of the
 data sheet's rate and of the FP32 pipes' rate at the highest SM clock
 nvidia-smi sampled during the run, the SASS instruction counts of each
 kernel (the whole function and its turn loop), and one JSON line.  It
-needs a card (main() refuses the CPU).  chip_smoke.py times the pair in
-CHOSEN.
+needs a card (main() refuses the CPU).  CHOSEN holds the fastest pair
+of each variant on an H100 (PERF.md §6).
 
 ``chain`` runs the kernel on a CUDA tensor and the plain version,
 ``chain_plain``, on a CPU one; nothing falls back.

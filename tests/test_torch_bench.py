@@ -13,6 +13,7 @@ import sys
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch import bench
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

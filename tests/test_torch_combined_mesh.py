@@ -30,7 +30,7 @@ from slb2d_tpu_torch.parallel import mesh as tmesh
 from slb2d_tpu_torch.parallel.spatial import M_FIELDS
 from slb2d_tpu_torch.runtime.loop import Simulation
 
-from chip_smoke import held_tensors
+from torch_support import held_tensors
 
 CPU = torch.device("cpu")
 BASE = dict(display=4, E_dc=1.0, E_omega=2.0, omega=150.0, mu=1.0,
@@ -41,14 +41,6 @@ TOL = {"f64": dict(rtol=1e-12, atol=1e-14), "f32": dict(rtol=2e-4,
                                                          atol=2e-5)}
 STATE = ("state_a", "state_b", "state_a_hs", "state_b_hs",
          "state_hs_edge_a", "state_hs_edge_b", "state_t", "state_step")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def mesh(sweep, space):

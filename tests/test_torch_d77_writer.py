@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.io import writers as jwriters
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.runtime.loop import Simulation as JSimulation
 
@@ -47,17 +48,6 @@ STROBE = dict(omega=400.0, n_harmonics=8, g_grid=24, t_start=0.02)
 # the per-display configurations the shared runs take
 SHAPES = {3: dict(TINY, t_start=0.5), 7: dict(TINY, t_start=0.2),
           8: dict(TINY, t_start=0.3), 9: STROBE}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU runs step tensors of a few thousand elements, which
-    intra-op threads do not speed up; beside the suite's other workers
-    those threads only spin against them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _files(d, prefix):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
 from slb2d_tpu.ops import stencil as js

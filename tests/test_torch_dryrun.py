@@ -13,6 +13,7 @@ import torch
 
 import jax
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch import dryrun
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,6 +13,7 @@ import io
 import numpy as np
 import pytest
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu import config as jcfg
 from slb2d_tpu.io import writers as jwriters
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel

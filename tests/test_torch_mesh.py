@@ -10,6 +10,7 @@ import torch
 
 import jax
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.parallel import mesh as jmesh
 
 from slb2d_tpu_torch import parallel

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch.config import SimConfig
 from slb2d_tpu_torch.parallel import ParameterSweep, make_mesh
 from slb2d_tpu_torch.runtime.loop import Simulation
@@ -54,7 +55,7 @@ WORKER = r'''
 import io, json, os, sys
 rank, port, outdir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 import numpy as np, torch
-torch.set_num_threads(1)
+import torch_support  # one torch thread
 from slb2d_tpu_torch.parallel.mesh import init_distributed, make_mesh
 assert init_distributed("127.0.0.1:" + port, 2, rank, backend="gloo")
 from slb2d_tpu_torch.config import SimConfig
@@ -81,6 +82,10 @@ res = ParameterSweep(SimConfig(**COMBINED), {"E_dc": np.array(E_DCS)},
                                     devices=[CPU]), space_axis="space").run()
 with open(f"combined.{rank}.json", "w") as fh:
     json.dump({k: np.asarray(v).tolist() for k, v in res.items()}, fh)
+# both ranks past their last collective before gloo's threads go: a rank
+# that exits while its peer still holds the connection can abort at exit
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 print("worker", rank, "done", flush=True)
 '''
 
@@ -103,7 +108,8 @@ def two_process_runs(tmp_path_factory):
     out.mkdir()
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
-    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo, os.path.join(repo, "tests"), env.get("PYTHONPATH", "")])
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(i), port, str(out)], env=env,
@@ -127,8 +133,6 @@ def _one_process(d, shards, mesh=None):
     os.makedirs(d, exist_ok=True)
     cwd = os.getcwd()
     os.chdir(d)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     try:
         for name, kw in RUNS.items():
             sim = Simulation(SimConfig(**COMMON, **kw, shards=shards,
@@ -137,7 +141,6 @@ def _one_process(d, shards, mesh=None):
             repl = REPL.get(name)
             sim.run(repl_stream=None if repl is None else io.StringIO(repl))
     finally:
-        torch.set_num_threads(n)
         os.chdir(cwd)
     return d
 
@@ -172,16 +175,10 @@ def test_two_process_combined_sweep_matches_one_process(two_process_runs):
     tables = [json.load(open(two_process_runs / f"combined.{i}.json"))
               for i in range(2)]
     assert tables[0] == tables[1]
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        ref = ParameterSweep(SimConfig(**COMBINED),
-                             {"E_dc": np.array(E_DCS)},
-                             mesh=make_mesh((1, 2), ("sweep", "space"),
-                                            devices=[CPU] * 2),
-                             space_axis="space").run()
-    finally:
-        torch.set_num_threads(n)
+    ref = ParameterSweep(SimConfig(**COMBINED), {"E_dc": np.array(E_DCS)},
+                         mesh=make_mesh((1, 2), ("sweep", "space"),
+                                        devices=[CPU] * 2),
+                         space_axis="space").run()
     for k, v in ref.items():
         np.testing.assert_array_equal(np.asarray(tables[0][k]),
                                       np.asarray(v), err_msg=k)

@@ -10,6 +10,7 @@ import shutil
 
 import pytest
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch.io import native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

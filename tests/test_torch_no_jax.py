@@ -5,6 +5,7 @@ import pkgutil
 import subprocess
 import sys
 
+import torch_support  # noqa: F401  (one torch thread)
 import slb2d_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +36,7 @@ def test_port_imports_no_jax():
               "slb2d_tpu_torch.perf.vpu_roofline",
               "slb2d_tpu_torch.perf.roll_cost_experiment",
               "slb2d_tpu_torch.perf.transposed_experiment",
+              "slb2d_tpu_torch.perf.vs_parent",
               "slb2d_tpu_torch.parallel.mesh",
               "slb2d_tpu_torch.parallel.collectives",
               "slb2d_tpu_torch.parallel.spatial",

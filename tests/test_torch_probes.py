@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch import cli as tcli
 from slb2d_tpu_torch import perf
 from slb2d_tpu_torch import sweep_cli as tsweep_cli
@@ -376,6 +377,34 @@ def test_probe_main_refuses_the_cpu(mod, monkeypatch, capsys):
     assert mod.main([]) == 1
     out = capsys.readouterr()
     assert out.out == "" and perf.NO_CARD in out.err
+
+
+def test_vs_parent_main_refuses_the_cpu_and_a_missing_checkout(
+        monkeypatch, capsys):
+    """perf.vs_parent's main() exits 2 without a checkout to compare with
+    and 1 without a card, and runs nothing."""
+    from slb2d_tpu_torch.perf import vs_parent
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(vs_parent, "compare",
+                        lambda *a, **k: pytest.fail("ran"))
+    assert vs_parent.main([]) == 2
+    assert vs_parent.main([os.path.join(ROOT, "tests")]) == 2
+    assert "usage" in capsys.readouterr().err
+    assert vs_parent.main([ROOT]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and perf.NO_CARD in out.err
+
+
+def test_device_us_reads_either_attribute():
+    class New:
+        device_time_total = 12.5
+
+    class Old:
+        cuda_time_total = 3.0
+
+    assert perf.device_us(New()) == 12.5
+    assert perf.device_us(Old()) == 3.0
+    assert perf.device_us(object()) == 0.0
 
 
 # ---- profile-dir= (the CLIs under torch.profiler) -----------------------

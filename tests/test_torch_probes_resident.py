@@ -14,7 +14,7 @@ registers, V elements a lane; roll_windows below is their scheme (lanes of
 V, the shuffle from the lane to the left, a T-element halo refreshed every
 `every` passes), held bit for bit to roll_plain and to the JAX probes in
 interpret mode.  The plans are held to the kernel sources' budgets.  The
-kernels themselves run on a card (tests/test_torch_cuda.py, chip_smoke.py).
+kernels themselves run on a card (tests/test_torch_cuda.py).
 """
 
 import dataclasses
@@ -29,6 +29,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch.ops import stencil as ts
 from slb2d_tpu_torch.perf import roll_cost_experiment as rce
 from slb2d_tpu_torch.perf import transposed_experiment as te

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.runtime.loop import Simulation as JSimulation
 
@@ -45,17 +46,6 @@ SESSIONS = {
     "d77": ("repl_d77_f64.txt.gz", 77, 0.3, "E_dc 1.6 0.2\nexit\n",
             5e-9, 1e-12),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU runs step tensors of a few thousand elements, which
-    intra-op threads do not speed up; beside the suite's other workers
-    those threads only spin against them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def run_session(tmp_path, session, impl=None, jax=False):

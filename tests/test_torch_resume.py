@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.runtime.loop import Simulation as JSimulation
 
@@ -34,17 +35,6 @@ D4 = dict(display=4, n_harmonics=8, g_grid=24, omega=10.0, t_start=0.5)
 # display 9 over 101 periods of T ~0.0157 (~1,600 steps)
 D9 = dict(display=9, n_harmonics=8, g_grid=24, omega=400.0, t_start=0.02)
 T9 = float(np.float32(2 * np.pi / 400))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU runs step tensors of a few thousand elements, which
-    intra-op threads do not speed up; beside the suite's other workers
-    those threads only spin against them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port(d, impl, cut=None, **kw):

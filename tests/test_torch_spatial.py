@@ -19,6 +19,7 @@ import torch
 
 import jax
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
 from slb2d_tpu.ops import stencil as js
@@ -42,14 +43,6 @@ CPU = torch.device("cpu")
 N_STEPS = 40
 TOL = {"f64": dict(rtol=1e-12, atol=1e-14), "f32": dict(rtol=1e-3,
                                                         atol=1e-5)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def layout(S, MP):

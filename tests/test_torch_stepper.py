@@ -10,13 +10,14 @@ the plain version the exact division; ulp-level differences compounded
 over 160 steps).  The hs-edge carries are exact copies: bit for bit.
 
 The CUDA kernel itself is held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
 from slb2d_tpu.ops import stencil as js

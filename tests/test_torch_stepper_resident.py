@@ -13,7 +13,7 @@ the plan's bands as (NHP, Wb + 2) and (NHP, Wb + 4) tensors, each
 half-step applied to every band with stencil.apply_half_step (the
 reciprocal form), the av sums added band by band.  It stays a test-side
 rehearsal; the kernel itself is held against run_chunk_plain on a card by
-tests/test_torch_cuda.py and chip_smoke.py.  Here it is held bit for bit to
+tests/test_torch_cuda.py.  Here it is held bit for bit to
 run_chunk_plain in the state and the edges (the same per-cell arithmetic;
 the wrap of a band's halo is the plain version's roll), av and the
 display-77 records at the sums' order tolerance, and to the JAX package's
@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
 from slb2d_tpu.ops import stencil as js
@@ -52,7 +53,7 @@ CFG = dict(display=4, E_dc=1.0, E_omega=2.0, omega=10.0, mu=1.0,
            alpha=0.9495, n_harmonics=8, phi_y_min=-10.0, phi_y_max=10.0,
            B=0.1, t_start=0.1, g_grid=64, dt=1e-3, quiet=True)
 # av and records: the band order of the sums against one sum over the
-# row, chip_smoke.py's TOL
+# row, tests/torch_support.py's TOL
 SUMS_TOL = {"f32": dict(rtol=1e-4, atol=1e-7),
             "f64": dict(rtol=1e-12, atol=1e-14)}
 # against the JAX package's kernel: tests/test_torch_stepper.py's envelope

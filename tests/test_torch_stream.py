@@ -13,7 +13,7 @@ tiles' sum order), edges bit for bit; f64 against the JAX XLA scan at rtol
 the reference goldens at tests/test_golden.py's tolerances.
 
 The CUDA kernel itself is held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -22,6 +22,7 @@ import torch
 
 import jax
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
 from slb2d_tpu.ops import stencil as js

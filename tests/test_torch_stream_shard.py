@@ -18,8 +18,8 @@ sharded engine, would need rtol 1.8e-4, 3.1e-3 and 5.8e-5).  Against the
 port's unsharded tiling form the state and edges bit for bit (a tile's
 centre after K steps depends only on the cells within 2K <= H columns,
 however the grid is cut), av and the records at B2's TOL (the tiles'
-sums added in another order).  The CUDA kernel is held against this plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py phase 26."""
+sums added in another order).  The CUDA kernel is held against this plain
+version on a card by tests/test_torch_cuda.py."""
 
 import glob
 import io
@@ -31,6 +31,7 @@ import torch
 
 import jax
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
 from slb2d_tpu.ops import stencil as js
@@ -59,14 +60,6 @@ CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=5e-7)
 # the runner against JAX's sharded runner (see the module docstring)
 TOL_JAX = dict(rtol=2e-5, atol=1e-8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def layout(S, MP):

@@ -17,10 +17,10 @@ below is that decomposition in plain PyTorch, each part a (NHP, w + 2) and
 reciprocal form), the sums added part by part in band order.  It is held
 bit for bit to run_chunk_plain (B1's plain version, the spill form's) in
 the state and the edges, av and the display-77 records at the sums' order
-tolerance (chip_smoke.py's TOL), and to the JAX package's B2 in interpret
-mode at tests/test_torch_stream.py's f32 tolerance.  The kernel itself is
-held against run_chunk_plain on a card by tests/test_torch_cuda.py and
-chip_smoke.py.
+tolerance (tests/torch_support.py's TOL), and to the JAX package's B2 in
+interpret mode at tests/test_torch_stream.py's f32 tolerance.  The kernel
+itself is held against run_chunk_plain on a card by
+tests/test_torch_cuda.py.
 """
 
 import os
@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.models.superlattice import SuperlatticeModel as JModel
 from slb2d_tpu.ops import stencil as js

@@ -23,7 +23,7 @@ interpret mode).  Tolerances:
     patterns within the port, and the CLI's header: exact.
 
 The CUDA kernel itself is held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py.
 """
 
 import dataclasses
@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu import sweep_cli as jcli
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.ops import stencil as js

@@ -10,7 +10,7 @@ every cluster size, to the JAX stacked runner (impl=pallas in interpret
 mode) at tests/test_torch_sweep.py's f32 envelope (rtol 1e-4, atol 1e-7:
 XLA contracts multiply-adds on the CPU and the port does not).  The CUDA
 forms themselves are held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py.
 """
 
 import functools
@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.ops.sweep_stack import SweepStackRunner as JRunner
 from slb2d_tpu.parallel.sweep import ParameterSweep as JSweep

@@ -26,7 +26,7 @@ Tolerances:
     against one launch: exact.
 
 The CUDA kernel itself is held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py.
 """
 
 import functools
@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.ops.sweep_pallas import run_sweep_pallas
 from slb2d_tpu.parallel.sweep import ParameterSweep as JSweep

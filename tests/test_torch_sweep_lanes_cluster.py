@@ -12,7 +12,7 @@ with the plain version's own arithmetic (stencil.apply_half_step and
 lane_rows_step) slab by slab and point by point, and held bit for bit
 (value for value: torch.equal) to run_lanes_plain.  The CUDA forms
 themselves are held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py.
 """
 
 import dataclasses
@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch.config import SimConfig as TConfig
 from slb2d_tpu_torch.models.superlattice import SuperlatticeModel
 from slb2d_tpu_torch.ops import _build, stencil

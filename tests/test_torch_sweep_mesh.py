@@ -19,6 +19,7 @@ import torch
 
 import jax
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.parallel import ParameterSweep as JSweep
 from slb2d_tpu.parallel import make_mesh as jax_mesh
@@ -34,14 +35,6 @@ BASE = dict(display=4, E_dc=1.0, E_omega=2.0, omega=10.0, mu=1.0,
 CPU = torch.device("cpu")
 # the bit-for-bit runs: 260 steps (omega=30)
 SHORT = dict(BASE, omega=30.0, t_start=0.05)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def mesh(S):

@@ -24,7 +24,7 @@ Tolerances:
     frame files written from the same arrays: exact.
 
 The CUDA kernel itself is held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py.
 """
 
 import functools
@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu import sweep_cli as jcli
 from slb2d_tpu.config import SimConfig as JConfig
 from slb2d_tpu.ops.sweep_stack import SweepStackRunner as JRunner

@@ -23,6 +23,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_support  # noqa: F401  (one torch thread)
 from slb2d_tpu_torch import tracing
 from slb2d_tpu_torch.bench import movie_timing
 from slb2d_tpu_torch.config import SimConfig, parse_cmd
@@ -55,13 +56,10 @@ STAMP_MEDIAN_US = 10
 
 @pytest.fixture(autouse=True)
 def fresh():
-    """Every test starts with no span or counter, on one torch thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """Every test starts with no span or counter."""
     tracing.reset()
     yield
     tracing.reset()
-    torch.set_num_threads(n)
 
 
 def _d4_run():
