@@ -35,17 +35,21 @@ def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
-class SuperlatticeModel:
-    """Precomputed grids, masks and scalars for one parameter set.
+def grid_key(cfg: SimConfig) -> tuple:
+    """What a ModelGrid depends on: the grid's sizes and phi_y range, mu,
+    alpha and the dtype.  Configs with one key share their grid part."""
+    return (int(cfg.n_harmonics), int(cfg.g_grid), float(cfg.phi_y_min),
+            float(cfg.phi_y_max), float(cfg.mu), float(cfg.alpha), cfg.dtype)
 
-    All mutable physics parameters (E_dc, E_omega, omega, mu, alpha, B) are
-    snapshot here; the interactive parameter server rebuilds the model (the
-    state arrays survive, matching reference src/boltzmann_c_solver.c:270-281).
-    """
 
-    @tracing.traced("model.build")
+class ModelGrid:
+    """A model's grid part: every array and Bessel-derived value that
+    depends on grid_key(cfg) alone (the phi_y grid, a0 and its ghost copy,
+    the stencil masks, the observable weights and multipliers).  A sweep
+    builds one for each distinct key among its points; its models hold
+    references to it."""
+
     def __init__(self, cfg: SimConfig):
-        self.cfg = cfg
         self.f64 = cfg.dtype == "f64"
         self.np_dtype = np.float64 if self.f64 else np.float32
 
@@ -61,24 +65,11 @@ class SuperlatticeModel:
         self.MP = round_up(self.MS, 128)
 
         # ---- parameters as the reference stores them (ffloat) ----
-        self.E_dc = f(cfg.E_dc)
-        self.E_omega = f(cfg.E_omega)
-        self.omega = f(cfg.omega)
         self.mu = f(cfg.mu)
         self.alpha = f(cfg.alpha)
-        self.B = f(cfg.B)
-        self.dt = f(cfg.dt)
-
-        # ---- derived scalars (src/boltzmann_c_solver.c:87-113) ----
-        # T = 2*PI/omega in double, stored to ffloat
-        self.T = f(2 * PI / float(self.omega)) if float(self.omega) > 0 else f(0)
         self.dPhi = f((f(cfg.phi_y_max) - f(cfg.phi_y_min)) / self.M)
         self.phi_y_min = f(cfg.phi_y_min)
         self.phi_y_max = f(cfg.phi_y_max)
-        self.nu = f(1 + self.dt / 2)
-        self.nu2 = f(self.nu * self.nu)
-        self.nu_tilde = f(1 - self.dt / 2)
-        self.bdt = f(self.B * self.dt / (4 * self.dPhi))
 
         # ---- phi_y grid over padded m axis (phi_y(m), :69) ----
         m_idx = np.arange(self.MP, dtype=self.np_dtype)
@@ -153,6 +144,46 @@ class SuperlatticeModel:
         self.v_y_multiplier = self.np_dtype(4 * PI * i0 / i1)
         self.m_over_multiplier = self.np_dtype(PI * alpha64 * np.sqrt(alpha64))
 
+
+class SuperlatticeModel:
+    """Precomputed grids, masks and scalars for one parameter set: its
+    ModelGrid's attributes (references to its arrays) and the drive's
+    scalars.
+
+    All mutable physics parameters (E_dc, E_omega, omega, mu, alpha, B) are
+    snapshot here; the interactive parameter server rebuilds the model (the
+    state arrays survive, matching reference src/boltzmann_c_solver.c:270-281).
+    """
+
+    def __init__(self, cfg: SimConfig, grid: ModelGrid | None = None):
+        """grid: cfg's ModelGrid, where the caller has one (point_models);
+        without it the model builds its own, in a model.build span."""
+        if grid is None:
+            with tracing.span("model.build"):
+                self._build(cfg, ModelGrid(cfg))
+        else:
+            self._build(cfg, grid)
+
+    def _build(self, cfg, grid):
+        self.__dict__.update(grid.__dict__)
+        self.cfg = cfg
+        f = self.np_dtype                           # storage rounding
+
+        # ---- parameters as the reference stores them (ffloat) ----
+        self.E_dc = f(cfg.E_dc)
+        self.E_omega = f(cfg.E_omega)
+        self.omega = f(cfg.omega)
+        self.B = f(cfg.B)
+        self.dt = f(cfg.dt)
+
+        # ---- derived scalars (src/boltzmann_c_solver.c:87-113) ----
+        # T = 2*PI/omega in double, stored to ffloat
+        self.T = f(2 * PI / float(self.omega)) if float(self.omega) > 0 else f(0)
+        self.nu = f(1 + self.dt / 2)
+        self.nu2 = f(self.nu * self.nu)
+        self.nu_tilde = f(1 - self.dt / 2)
+        self.bdt = f(self.B * self.dt / (4 * self.dPhi))
+
     # -- convenience -------------------------------------------------------
 
     def zeros_state_arrays(self):
@@ -170,3 +201,22 @@ class SuperlatticeModel:
             dt=self.dt, nu=self.nu, nu2=self.nu2, nu_tilde=self.nu_tilde,
             bdt=self.bdt,
         )
+
+
+def point_models(cfgs) -> list:
+    """A model for each config, the configs of one grid_key sharing one
+    ModelGrid (built at the key's first config).  Counts model.points
+    and model.grids_shared (the models whose grid an earlier config
+    built) while spans record."""
+    grids = {}
+    models = []
+    for cfg in cfgs:
+        key = grid_key(cfg)
+        grid = grids.get(key)
+        if grid is None:
+            grid = grids[key] = ModelGrid(cfg)
+        models.append(SuperlatticeModel(cfg, grid))
+    if tracing.active():
+        tracing.count("model.points", len(models))
+        tracing.count("model.grids_shared", len(models) - len(grids))
+    return models

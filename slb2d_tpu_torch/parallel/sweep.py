@@ -69,7 +69,7 @@ import torch
 from .. import tracing
 from ..config import SimConfig, torch_device
 from ..constants import PI
-from ..models.superlattice import SuperlatticeModel
+from ..models.superlattice import point_models
 from ..ops import stencil
 from ..ops.stencil import CAP_KEYS, capture_sums
 from ..runtime.schedule import count_steps
@@ -246,11 +246,13 @@ class ParameterSweep:
         """The per-point models, the shared step count (the longest point's
         loop trip count); returns each point's averaging window end, t_max
         = D(t_start + T_b)."""
-        # scalar derivations are cheap; a0 differs only when mu/alpha vary
-        self.models = []
-        for i in range(self.B):
-            kw = {k: float(v[i]) for k, v in self.params.items()}
-            self.models.append(SuperlatticeModel(cfg.replace(**kw)))
+        cfgs = [cfg.replace(**{k: float(v[i])
+                               for k, v in self.params.items()})
+                for i in range(self.B)]
+        # one grid part (a0, masks, weights) a distinct grid_key: a0
+        # differs only where mu/alpha vary
+        with tracing.span("model.build"):
+            self.models = point_models(cfgs)
         m0 = self.base = self.models[0]
         D = m0.np_dtype
         t_end = np.asarray([D(D(cfg.t_start) + m.T) for m in self.models])

@@ -34,7 +34,10 @@ grid barrier, one a band and step, and those found open), b2.band_cycles
 and b2.sync_cycles (B2's spill form: each band's clock64() cycles of the
 chunk's step loop, and those inside its grid barrier, summed over the
 bands) grow only while spans are recorded (active()), since reading them
-costs a copy from the card after each chunk.
+costs a copy from the card after each chunk; so do model.points and
+model.grids_shared (a sweep's point models, and those that took a grid
+part an earlier point of the sweep built: models/superlattice.py
+point_models).
 """
 
 from __future__ import annotations

@@ -291,6 +291,15 @@ def test_omega_kernel_matches_plain(card, shape, dtype, start):
 
 
 @pytest.mark.cuda
+def test_shared_grids_match_standalone_models(card):
+    """The per-omega sweep of 16 omegas x 4 E_dc on B3's cluster form,
+    its points sharing one grid part, against the same sweep with a
+    standalone model a point: the per-point table, the batched consts,
+    the initial states and the results bit for bit."""
+    assert ts.check_shared_grids_vs_standalone("omega16x4") == 1
+
+
+@pytest.mark.cuda
 def test_omega_runner_validates_before_launch(card):
     sweep, runner = ts._sweep_setup("omega_ragged", "f32")
     assert runner.per_omega

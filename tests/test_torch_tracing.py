@@ -232,9 +232,12 @@ def test_sweep_gives_its_spans():
         while s.parent is not None:
             s = by_id[s.parent]
             yield s.name
+    # one model.build span covers the sweep's point models: their one
+    # shared grid part and each point's scalars
     models = [s for s in spans if s.name == "model.build"]
-    assert len(models) == sweep.B == 3
+    assert sweep.B == 3 and len(models) == 1
     assert all("sweep.init" in ancestors(s) for s in models)
+    assert tracing.counters()["model.points"] == 3
     names = [s.name for s in spans]
     for name in ("sweep.points", "sweep.consts", "sweep.states",
                  "engine.chunk", "sweep.finalize", "engine.fetch",
@@ -253,8 +256,16 @@ def test_sweep_blocks_join_the_sweeps_run():
                                               devices=[CPU] * 2))
         sweep.run()
     spans = tracing.spans()
+    by_id = {s.id: s for s in spans}
     assert sum(s.name == "sweep.init" for s in spans) == 3
-    assert sum(s.name == "model.build" for s in spans) == 4 + 4
+    # the whole sweep's 4 point models, then each block's 2: one
+    # model.build span a sweep, each inside its sweep.init
+    models = [s for s in spans if s.name == "model.build"]
+    assert len(models) == 1 + 2
+    assert all(by_id[s.parent].name == "sweep.points" and
+               by_id[by_id[s.parent].parent].name == "sweep.init"
+               for s in models)
+    assert tracing.counters()["model.points"] == 4 + 4
     assert {s.run for s in spans} == {sweep.run_id}
 
 

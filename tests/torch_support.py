@@ -589,6 +589,40 @@ def check_cluster_vs_streaming(shape):
             assert torch.equal(gcap[k], rcap[k]), f"{shape}: frames {k}"
 
 
+def check_shared_grids_vs_standalone(shape):
+    """A sweep whose point models share one grid part a distinct grid key
+    against the same sweep with a standalone SuperlatticeModel a point,
+    f32 on B3: its per-point parameter table, the batched consts, the
+    initial states and the sweep's results bit for bit.  Returns the
+    number of distinct grid parts the sharing sweep built."""
+    from slb2d_tpu_torch.parallel import sweep as sweepmod
+    kw, params = sweep_grid(shape)
+    cfg = SimConfig(display=4, dtype="f32", impl="cuda", quiet=True, **kw)
+    dev = torch.device(DEVICE)
+    shared = sweepmod.ParameterSweep(cfg, params, device=dev)
+    saved = sweepmod.point_models
+    sweepmod.point_models = lambda cfgs: [SuperlatticeModel(c)
+                                          for c in cfgs]
+    try:
+        alone = sweepmod.ParameterSweep(cfg, params, device=dev)
+    finally:
+        sweepmod.point_models = saved
+    assert len({id(m.a0) for m in alone.models}) == alone.B
+    assert shared.engine == alone.engine == "cuda"
+    for f in dataclasses.fields(shared.consts):
+        assert torch.equal(getattr(shared.consts, f.name),
+                           getattr(alone.consts, f.name)), f.name
+    assert torch.equal(ssc.SweepStackRunner(shared).pp,
+                       ssc.SweepStackRunner(alone).pp)
+    same_state(shared._initial_states(), alone._initial_states(),
+               f"{shape} initial states", stencil.FIELDS)
+    got, want = shared.run(), alone.run()
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    return len({id(m.a0) for m in shared.models})
+
+
 def expected_av_counts(sweep):
     """Each point's averaging-step count from the host schedule alone: the
     loop t of every step by sequential accumulation in the sweep's dtype,
