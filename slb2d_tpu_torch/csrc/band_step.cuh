@@ -96,6 +96,9 @@ constexpr int SPILL_SUMS = 2 * MAX_SPILL * 2;
 // the int64 words of a band's tally in the spill form (spill_band_chunk):
 // its step loop's cycles, then its cycles inside the grid barrier
 constexpr int SPILL_TALLY = 2;
+// the int64 words of a band's cycle tally in B1's resident form
+// (resident_band_chunk): its step loop's cycles, then its exposed cycles
+constexpr int B1_TALLY = 2;
 
 template <typename T>
 size_t resident_smem_bytes(int NHP, int W) {
@@ -841,6 +844,22 @@ __device__ __forceinline__ void grid_arrive(unsigned* ctr) {
                :: "l"(ctr), "r"(1u) : "memory");
 }
 
+// whether this thread is B1's resident form's head (block 0's next-to-last
+// warp: resident_band_chunk), from %tid.x and %ctaid.x read anew, so that
+// no predicate for it stays live across the step loop
+__device__ __forceinline__ bool head_now() {
+  unsigned t, b;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b == 0 && (t >> 5) == (blockDim.x >> 5) - 2;
+}
+
+// adds v to a tally word by a reduction the thread does not wait for
+__device__ __forceinline__ void tally_add(long long* word, long long v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(word),
+            static_cast<unsigned long long>(v));
+}
+
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
@@ -919,8 +938,9 @@ __device__ __forceinline__ void edge_cells(
 // table.  xch holds 2 step parities x bands x XCH_LANES x NHP values, part
 // PART_SLOTS steps x bands x PART_LANES; sync is the barrier's counter,
 // the count of blocks that have left, and each band's tally (its waits,
-// and those its first read found open) of the chunk.  The state arrays
-// carry no __restrict__: they are read at the start and written at the end.
+// and those its first read found open) of the chunk; tally holds each
+// band's B1_TALLY int64 words of cycles (below).  The state arrays carry no
+// __restrict__: they are read at the start and written at the end.
 //
 // Of the half-grid half-step's cells only the band's four outer columns
 // feed the neighbours; the rest, ~90% of them at W = 32, run while those
@@ -957,14 +977,33 @@ __device__ __forceinline__ void edge_cells(
 // opens: hence three slots.  Every cell by band_cell's arithmetic in
 // half_step_cell's operand order: the state and edges bit for bit with
 // the plain version; the sums in band order, as the spill form's.
+//
+// The cycle tally: the syncer reads clock64() at the step loop's start and
+// end and, each step, where phase B's edges begin (after phase A's block
+// barrier), just after its arrival, just before its wait (its interior
+// rows done) and after the halo read's block barrier (the wait's, after
+// the last step).  Its band's B1_TALLY words hold, after the chunk, the
+// cycles of the whole step loop, then the exposed cycles summed over the
+// chunk's steps: (arrival - edges' start) + (halo's end - wait's start),
+// the part of a step in which the band computes no interior cell.  As in
+// spill_band_chunk, the first word keeps the loop's start stamp until the
+// loop ends, and no sum stays in a register across the loop; nor does a
+// stamp across a phase: each stamp goes to the second word at once, the
+// earlier of a pair negated, by a reduction the thread does not wait for.
+// The stamps read no shared memory and add no barrier.  The kernel runs at
+// its 64 registers, and the stamps' addresses and tests pushed a value
+// held across the loop into local memory (the head's test, then a loop
+// bound: 8 bytes a thread), so the loop holds two values fewer than it
+// did: the head's test is read anew where it is used (head_now), and the
+// syncer's waits, one a step, are n_steps.
 template <typename T>
 __device__ __forceinline__ void resident_band_chunk(
     T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
     const T* __restrict__ a0, const T* __restrict__ a0_ghost,
     const T* __restrict__ phi, const T* __restrict__ w_av,
     const T* __restrict__ w_av_phi, const T* __restrict__ xs, T* obs, T* xch,
-    T* part, unsigned* sync, const Params<T>& p, const Geometry& g, int W,
-    int n_steps, int parity0) {
+    T* part, unsigned* sync, long long* tally, const Params<T>& p,
+    const Geometry& g, int W, int n_steps, int parity0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T sums[2][SUM_WARPS][2];
   __shared__ T pend[4];    // the head's pending step (finish_step)
@@ -988,7 +1027,8 @@ __device__ __forceinline__ void resident_band_chunk(
   const size_t slot = (size_t)XCH_LANES * NHP;
 
   load_band(sA, sB, sAh, sBh, a, b, a_hs, b_hs, c0, Wb, SA, SH, NHP, MP);
-  // adds the partials: block 0's next-to-last warp; av in its lane 0
+  // adds the partials: block 0's next-to-last warp; av in its lane 0 (from
+  // the step loop on, head_now())
   const bool head = band == 0 && warp == nw - 2;
   const bool head0 = head && (threadIdx.x & 31) == 0;
   // arrives and waits: the last warp's first lane
@@ -997,9 +1037,10 @@ __device__ __forceinline__ void resident_band_chunk(
   T carry[PART_LANES] = {T(0), T(0), T(0), T(0)};   // pre-step sums
   if (head0)
     for (int q = 0; q < 8; ++q) r[q] = av[q];
-  // every band's arrivals so far; the syncer's waits and open waits
+  // every band's arrivals so far; the syncer's open waits (it waits once a
+  // step)
   unsigned gen = 0;
-  int waits = 0, open = 0;
+  int open = 0;
   __syncthreads();
 
   if (xs[8] > T(0)) {   // the first step's record needs its pre-step sums
@@ -1025,6 +1066,12 @@ __device__ __forceinline__ void resident_band_chunk(
     }
   }
 
+  // the tally's stamps (the syncer)
+  long long* const mine = tally + B1_TALLY * band;
+  if (syncer) {
+    mine[1] = 0;
+    mine[0] = clock64();
+  }
   for (int i = 0; i < n_steps; ++i) {
     if (i % XS_STAGE == 0) {   // the next XS_STAGE + 1 rows of the table
       const int rows = min(XS_STAGE + 1, n_steps - i);
@@ -1051,6 +1098,7 @@ __device__ __forceinline__ void resident_band_chunk(
         L.colf_main, gf, p, g, L);
     if (need) row_sums(sums, sA, sB, SA, w_av, w_av_phi, L);
     __syncthreads();
+    if (syncer) tally_add(mine + 1, -clock64());
     // 2. phase B's edges out, the partials
     edge_cells<T, false>(sAh, sBh, sA, sB, SH, HALO_HALF, SA, HALO_MAIN, c0,
                          Wb, a0, a0_ghost, phi, edge_a, edge_b,
@@ -1063,14 +1111,17 @@ __device__ __forceinline__ void resident_band_chunk(
     // 3. the arrival; the head finishes step i - 1; phase B's interior;
     // the wait
     ++gen;
-    if (syncer) grid_arrive(sync);
-    if (head) {
+    if (syncer) {
+      grid_arrive(sync);
+      tally_add(mine + 1, clock64());
+    }
+    if (head_now()) {
       if (i > 0)
         finish_step(r, carry,
                     part + (size_t)((i - 1) % PART_SLOTS) * nb * PART_LANES,
                     nb, pend, pflags, p.dt, obs);
       __syncwarp();
-      if (head0) {
+      if ((threadIdx.x & 31) == 0) {
         pend[0] = row[4];
         pend[1] = row[5];
         pend[2] = row[7];
@@ -1087,7 +1138,7 @@ __device__ __forceinline__ void resident_band_chunk(
         L.colf_half, T(0), p, g, LB);
     if (warp == nw - 1) {   // the syncer's warp leaves together
       if (syncer) {
-        ++waits;
+        tally_add(mine + 1, -clock64());
         open += grid_poll(sync, nb * gen);
       }
       __syncwarp();
@@ -1099,17 +1150,19 @@ __device__ __forceinline__ void resident_band_chunk(
                 NHP, SH, Wb);
       __syncthreads();
     }
+    if (syncer) tally_add(mine + 1, clock64());
   }
-  if (head)   // the last step's av and record
+  if (syncer) mine[0] = clock64() - mine[0];
+  if (head_now())   // the last step's av and record
     finish_step(r, carry,
                 part + (size_t)((n_steps - 1) % PART_SLOTS) * nb * PART_LANES,
                 nb, pend, pflags, p.dt, obs);
 
   store_band(a, b, a_hs, b_hs, sA, sB, sAh, sBh, c0, Wb, SA, SH, NHP, MP);
-  if (head0)
+  if (head_now() && (threadIdx.x & 31) == 0)
     for (int q = 0; q < 8; ++q) av[q] = r[q];
   if (syncer) {
-    sync[SYNC_WORDS + 2 * band] = waits;
+    sync[SYNC_WORDS + 2 * band] = n_steps;
     sync[SYNC_WORDS + 2 * band + 1] = open;
     if (atomicAdd(sync + 1, 1u) == (unsigned)nb - 1) {   // the last out
       atomicExch(sync, 0u);

@@ -233,11 +233,12 @@ __global__ void __launch_bounds__(RESIDENT_BLOCK, 1)
                    const T* __restrict__ a0, const T* __restrict__ a0_ghost,
                    const T* __restrict__ phi, const T* __restrict__ w_av,
                    const T* __restrict__ w_av_phi, const T* __restrict__ xs,
-                   T* obs, T* xch, T* part, unsigned* sync, Params<T> p,
-                   Geometry g, int W, int n_steps, int parity0) {
+                   T* obs, T* xch, T* part, unsigned* sync,
+                   long long* tally, Params<T> p, Geometry g, int W,
+                   int n_steps, int parity0) {
   slb::resident_band_chunk<T>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
                               a0_ghost, phi, w_av, w_av_phi, xs, obs, xch,
-                              part, sync, p, g, W, n_steps, parity0);
+                              part, sync, tally, p, g, W, n_steps, parity0);
 }
 
 // cudaSuccess, or why bands of W columns cannot hold an (NHP, MP) state:
@@ -281,9 +282,9 @@ template <typename T>
 int run_resident(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
                  const T* a0, const T* a0_ghost, const T* phi,
                  const T* w_av, const T* w_av_phi, const T* params,
-                 const T* xs, T* obs, T* xch, T* part, unsigned* sync, int N,
-                 int M, int NHP, int MP, int W, int n_steps, int parity0,
-                 void* stream) {
+                 const T* xs, T* obs, T* xch, T* part, unsigned* sync,
+                 long long* tally, int N, int M, int NHP, int MP, int W,
+                 int n_steps, int parity0, void* stream) {
   Params<T> p = {params[0], params[1], params[2], params[3],
                  params[4], params[5], params[6], params[7],
                  params[8], params[9], params[10]};
@@ -295,8 +296,8 @@ int run_resident(T* a, T* b, T* a_hs, T* b_hs, T* edge_a, T* edge_b, T* av,
   if (at_once < bands) return NOT_CO_RESIDENT;
   void* args[] = {&a,   &b,        &a_hs,   &b_hs, &edge_a,   &edge_b,
                   &av,  &a0,       &a0_ghost, &phi, &w_av,    &w_av_phi,
-                  &xs,  &obs,      &xch,    &part, &sync,     &p,
-                  &g,   &W,        &n_steps,  &parity0};
+                  &xs,  &obs,      &xch,    &part, &sync,     &tally,
+                  &p,   &g,        &W,      &n_steps, &parity0};
   err = cudaLaunchCooperativeKernel(
       (const void*)resident_chunk<T>, dim3(bands), dim3(resident_threads(W)),
       args, resident_smem_bytes<T>(NHP, W),
@@ -367,7 +368,9 @@ extern "C" int slb_run_chunk_f64(
 // (PART_SLOTS x bands x PART_LANES) and the barrier's words sync
 // (SYNC_WORDS + 2 x bands unsigned ints, zero before the first launch; the
 // kernel leaves its first SYNC_WORDS zero and each band's waits and open
-// waits after them), all device scratch, and the band width W.  They
+// waits after them) and the bands' cycle tally (B1_TALLY x bands int64
+// words, which each launch overwrites: a band's step-loop cycles and its
+// exposed cycles), all device scratch, and the band width W.  They
 // enqueue ONE cooperative launch of ceil(MP / W) blocks on `stream`, do
 // not synchronise, and return 0, the cudaError_t of a refused launch
 // (cudaErrorInvalidValue for bands that cannot hold the state), or
@@ -377,38 +380,41 @@ int resident_entry(void* a, void* b, void* a_hs, void* b_hs, void* edge_a,
                    void* edge_b, void* av, const void* a0,
                    const void* a0_ghost, const void* phi, const void* w_av,
                    const void* w_av_phi, const void* params, const void* xs,
-                   void* obs, void* xch, void* part, void* sync, int N, int M,
-                   int NHP, int MP, int W, int n_steps, int parity0,
-                   void* stream) {
+                   void* obs, void* xch, void* part, void* sync, void* tally,
+                   int N, int M, int NHP, int MP, int W, int n_steps,
+                   int parity0, void* stream) {
   return run_resident<T>(
       (T*)a, (T*)b, (T*)a_hs, (T*)b_hs, (T*)edge_a, (T*)edge_b, (T*)av,
       (const T*)a0, (const T*)a0_ghost, (const T*)phi, (const T*)w_av,
       (const T*)w_av_phi, (const T*)params, (const T*)xs, (T*)obs, (T*)xch,
-      (T*)part, (unsigned*)sync, N, M, NHP, MP, W, n_steps, parity0, stream);
+      (T*)part, (unsigned*)sync, (long long*)tally, N, M, NHP, MP, W, n_steps,
+      parity0, stream);
 }
 
 extern "C" int slb_resident_chunk_f32(
     void* a, void* b, void* a_hs, void* b_hs, void* edge_a, void* edge_b,
     void* av, const void* a0, const void* a0_ghost, const void* phi,
     const void* w_av, const void* w_av_phi, const void* params,
-    const void* xs, void* obs, void* xch, void* part, void* sync, int N,
-    int M, int NHP, int MP, int W, int n_steps, int parity0, void* stream) {
+    const void* xs, void* obs, void* xch, void* part, void* sync,
+    void* tally, int N, int M, int NHP, int MP, int W, int n_steps,
+    int parity0, void* stream) {
   return resident_entry<float>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
                                a0_ghost, phi, w_av, w_av_phi, params, xs,
-                               obs, xch, part, sync, N, M, NHP, MP, W,
-                               n_steps, parity0, stream);
+                               obs, xch, part, sync, tally, N, M, NHP, MP,
+                               W, n_steps, parity0, stream);
 }
 
 extern "C" int slb_resident_chunk_f64(
     void* a, void* b, void* a_hs, void* b_hs, void* edge_a, void* edge_b,
     void* av, const void* a0, const void* a0_ghost, const void* phi,
     const void* w_av, const void* w_av_phi, const void* params,
-    const void* xs, void* obs, void* xch, void* part, void* sync, int N,
-    int M, int NHP, int MP, int W, int n_steps, int parity0, void* stream) {
+    const void* xs, void* obs, void* xch, void* part, void* sync,
+    void* tally, int N, int M, int NHP, int MP, int W, int n_steps,
+    int parity0, void* stream) {
   return resident_entry<double>(a, b, a_hs, b_hs, edge_a, edge_b, av, a0,
                                 a0_ghost, phi, w_av, w_av_phi, params, xs,
-                                obs, xch, part, sync, N, M, NHP, MP, W,
-                                n_steps, parity0, stream);
+                                obs, xch, part, sync, tally, N, M, NHP,
+                                MP, W, n_steps, parity0, stream);
 }
 
 // resident_info for float or double; returns 0 or the cudaError_t of the

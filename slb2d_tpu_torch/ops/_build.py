@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _ENTRY_ARGS = {
     "slb_run_chunk": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p]),
-    "slb_resident_chunk": ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
+    "slb_resident_chunk": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p]),
     "slb_resident_info": [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "slb_sweep_chunk": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9

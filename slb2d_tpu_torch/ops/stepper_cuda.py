@@ -82,6 +82,9 @@ XCH_LANES = 8
 # barrier before the bands' tallies (the counter, the blocks that left)
 PART_SLOTS = 3
 SYNC_WORDS = 2
+# the int64 words of a band's cycle tally in the resident form: its step
+# loop's cycles, then its exposed cycles (Runner._count_tally)
+B1_TALLY = 2
 # the kernel's return code when the card cannot run every band at once
 NOT_CO_RESIDENT = -2
 # an H100 SXM's SMs: the most bands a plan takes where no card is asked
@@ -368,12 +371,14 @@ class Runner:
         m = self.model
         suffix = "_f32" if m.np_dtype == np.float32 else "_f64"
         if self.form == "resident":
-            xch, part, sync = self._resident_scratch(xs_dev.device)
+            xch, part, sync, tally, _ = self._resident_scratch(
+                xs_dev.device)
             rc = getattr(cdll, "slb_resident_chunk" + suffix)(
                 *(t.data_ptr() for t in tensors.values()),
                 self.params.ctypes.data, xs_dev.data_ptr(), obs.data_ptr(),
-                xch.data_ptr(), part.data_ptr(), sync.data_ptr(), m.N, m.M,
-                m.NHP, m.MP, self.plan.W, int(n), int(parity0), stream)
+                xch.data_ptr(), part.data_ptr(), sync.data_ptr(),
+                tally.data_ptr(), m.N, m.M, m.NHP, m.MP, self.plan.W, int(n),
+                int(parity0), stream)
             return rc, LAUNCHES_PER_CHUNK
         rc = getattr(cdll, "slb_run_chunk" + suffix)(
             *(t.data_ptr() for t in tensors.values()),
@@ -383,33 +388,46 @@ class Runner:
         return rc, LAUNCHES_PER_STEP * n + int(emit.size)
 
     def _resident_scratch(self, dev):
-        """The exchange buffer (2 step parities x bands x XCH_LANES x NHP),
-        the bands' partial sums (PART_SLOTS x bands x PART_LANES) and the
-        grid barrier's words (SYNC_WORDS, zero between chunks, then each
-        band's waits and open waits of the last chunk), allocated once per
-        device."""
+        """(xch, part, sync, tally, words), allocated once per device: the
+        exchange buffer (2 step parities x bands x XCH_LANES x NHP), the
+        bands' partial sums (PART_SLOTS x bands x PART_LANES), the grid
+        barrier's int32 words (SYNC_WORDS, zero between chunks, then each
+        band's waits and open waits of the last chunk) and the bands' cycle
+        tally (B1_TALLY int64 words a band, which each launch writes
+        whole), the last two views of one zeroed int64 buffer, `words`, so
+        that one copy reads both."""
         if self._scratch is None or self._scratch[0].device != dev:
             bands, NHP = self.plan.bands, self.model.NHP
+            head = -(-(SYNC_WORDS + 2 * bands) // 2)
+            words = torch.zeros(head + B1_TALLY * bands, dtype=torch.int64,
+                                device=dev)
             self._scratch = (
                 torch.empty(2 * bands * XCH_LANES * NHP, dtype=self.dtype,
                             device=dev),
                 torch.empty(PART_SLOTS * bands * PART_LANES,
                             dtype=self.dtype, device=dev),
-                torch.zeros(SYNC_WORDS + 2 * bands, dtype=torch.int32,
-                            device=dev))
+                words[:head].view(torch.int32), words[head:], words)
         return self._scratch
 
     def _count_tally(self):
-        """Add the last chunk's in-kernel tally to its counters, while
-        spans record: the resident form's waits at its grid barrier (one a
-        band and step) and those whose first read found it open, to
-        b1.waits and b1.waits_open, in one copy of the bands' tallies after
-        the chunk has ended; the per-half-step form keeps none."""
+        """Add the last chunk's in-kernel tallies to their counters, while
+        spans record, in one copy after the chunk has ended: the resident
+        form's waits at its grid barrier (one a band and step) and those
+        whose first read found it open, to b1.waits and b1.waits_open; its
+        bands' step-loop cycles and exposed cycles, summed, to
+        b1.band_cycles and b1.exposed_cycles.  The per-half-step form keeps
+        none."""
         if self.form != "resident":
             return
-        tally = self._scratch[2][SYNC_WORDS:].cpu().numpy()
-        tracing.count("b1.waits", int(tally[0::2].sum()))
-        tracing.count("b1.waits_open", int(tally[1::2].sum()))
+        words = self._scratch[4].cpu().numpy()
+        bands = self.plan.bands
+        head = len(words) - B1_TALLY * bands
+        waits = words[:head].view(np.int32)[SYNC_WORDS:SYNC_WORDS + 2 * bands]
+        cycles = words[head:]
+        tracing.count("b1.waits", int(waits[0::2].sum()))
+        tracing.count("b1.waits_open", int(waits[1::2].sum()))
+        tracing.count("b1.band_cycles", int(cycles[0::B1_TALLY].sum()))
+        tracing.count("b1.exposed_cycles", int(cycles[1::B1_TALLY].sum()))
 
     def __call__(self, state, n_steps):
         D = self.model.np_dtype

@@ -30,11 +30,15 @@ activity would take it for work.
 Counters are always on: count(name, n) adds to a name such as
 launches.<kernel>.<form> (the kernels' launches) or engine.chunks.  The
 counters b1.waits and b1.waits_open (B1's resident form: its waits at the
-grid barrier, one a band and step, and those found open), b2.band_cycles
-and b2.sync_cycles (B2's spill form: each band's clock64() cycles of the
-chunk's step loop, and those inside its grid barrier, summed over the
-bands) grow only while spans are recorded (active()), since reading them
-costs a copy from the card after each chunk; so do model.points and
+grid barrier, one a band and step, and those found open), b1.band_cycles
+and b1.exposed_cycles (B1's resident form: each band's clock64() cycles of
+the chunk's step loop, and those of its steps' exposed part, phase B's
+edges and the arrival, the wait and the halo read with their block
+barriers, summed over the bands), b2.band_cycles and b2.sync_cycles (B2's
+spill form: each band's clock64() cycles of the chunk's step loop, and
+those inside its grid barrier, summed over the bands) grow only while
+spans are recorded (active()), since reading them costs a copy from the
+card after each chunk; so do model.points and
 model.grids_shared (a sweep's point models, and those that took a grid
 part an earlier point of the sweep built: models/superlattice.py
 point_models).

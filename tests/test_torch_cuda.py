@@ -206,6 +206,49 @@ def test_resident_form_counts_its_waits_only_while_spans_record(card,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["TALL", "BASELINE4"])
+def test_resident_form_tallies_its_exposed_cycles_only_while_spans_record(
+        card, shape):
+    """N=400 M=4000 (the tall.d4 cell's grid) and N=100 M=4000 f32: a
+    resident chunk of 200 steps outside tracing.recording() adds no
+    b1.band_cycles or b1.exposed_cycles; the same chunk inside it adds
+    each band's tally, 0 < exposed < loop cycles in every band; both
+    chunks' states and edges bit for bit with the plain version's; the
+    kernel keeps 64 registers and no local memory."""
+    from slb2d_tpu_torch import tracing
+    model, c, xs = ts._setup(getattr(ts, shape), "f32", card)
+    runner = stepper_cuda.make_cuda_runner(c, model, form="resident")
+    info = stepper_cuda.form_info(np.float32, runner.plan.W, model.NHP,
+                                  model.MP)
+    assert (info["registers"], info["local_bytes"]) == (64, 0), info
+    win = {k: v[:200] for k, v in xs.items()}
+    state0 = stencil.bootstrap_state(c, model)
+    plain, _ = stepper_cuda.run_chunk_plain(
+        c, state0.clone(), stepper_cuda.pack_xs_dict(win, model.np_dtype), 0)
+    names = ("b1.band_cycles", "b1.exposed_cycles")
+
+    def cycles():
+        return [tracing.counters().get(k, 0) for k in names]
+    before = cycles()
+    untraced = runner.run_xs(state0.clone(), win, 0)
+    torch.cuda.synchronize()
+    assert cycles() == before
+    with tracing.recording():
+        traced = runner.run_xs(state0.clone(), win, 0)
+    band, exposed = (a - b for a, b in zip(cycles(), before))
+    tally = runner._scratch[3].cpu()
+    assert tally.numel() == stepper_cuda.B1_TALLY * runner.plan.bands
+    loop, part = tally[0::2], tally[1::2]
+    assert bool((part > 0).all() and (part < loop).all()), (part, loop)
+    assert int(loop.sum()) == band and int(part.sum()) == exposed
+    assert 0 < exposed < band
+    for out in (untraced, traced):
+        for f in ("a", "b", "a_hs", "b_hs", "hs_edge_a", "hs_edge_b"):
+            assert torch.equal(getattr(out, f), getattr(plain, f)), f
+    assert runner.launches == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("W,why", [(512, "cudaError_t"),
                                    (32, "do not all fit")])
 def test_refused_resident_launch_leaves_the_state_untouched(card, W, why):

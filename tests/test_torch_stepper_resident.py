@@ -592,3 +592,177 @@ def test_engine_tag_names_the_b1_form():
     assert sim.engine_tag() == "stream tiling"
     sim.engine, sim._runner = "torch", None
     assert sim.engine_tag() == "torch"
+
+
+# ---- 4. the tall.d4 cell's grid and the resident form's cycle tally ----
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "benchmark")
+CSRC = os.path.join(os.path.dirname(sc.__file__), "..", "csrc")
+
+
+def _bench_json(*parts):
+    import json
+    with open(os.path.join(BENCH, *parts)) as fh:
+        return json.load(fh)
+
+
+def _reference_solver():
+    """benchmark/reference/solver.py, loaded by path (it imports nothing of
+    the program; the benchmark's directory stays off sys.path)."""
+    import importlib.util
+    import sys
+    name = "slb2d_bench_reference_solver"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(BENCH, "reference", "solver.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod     # its dataclasses look their module up
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def test_tall_config_takes_the_fullest_resident_plan():
+    """The tall.d4 cell's grid (N=400 M=4000 f32) at 132 SMs: B1's resident
+    form, 128 bands of 32 columns, 229,800 bytes and 1,024 threads a
+    block, the most shared memory of any plan the benchmark's cells run."""
+    args = _bench_json("configs", "tall_n400_m4000.json")["args"]
+    assert args["dtype"] == "f32"
+    NHP, MP = shape_of(args["n-harmonics"], args["g-grid"])
+    assert (NHP, MP) == (408, 4096)
+    plan = sc.resident_plan(NHP, MP, np.float32, 132)
+    assert plan == sc.ResidentPlan(W=32, bands=128, smem_bytes=229_800,
+                                   threads=1024)
+    assert plan.smem_bytes + sc.RESIDENT_SCRATCH * 4 <= sc.SMEM_LIMIT
+    assert sst.engine_choice(NHP, MP, np.float32, sms=132) == (
+        "cuda-b1", "resident")
+    hires = _bench_json("configs", "hires_n100_m4000.json")["args"]
+    other = sc.resident_plan(*shape_of(hires["n-harmonics"],
+                                       hires["g-grid"]), np.float32, 132)
+    assert other.smem_bytes < plan.smem_bytes
+
+
+def test_b1_tally_matches_the_kernel_source():
+    """The cycle tally resident_band_chunk writes (B1_TALLY int64 words a
+    band: its step loop's cycles, then its exposed cycles) is the buffer
+    the runner allocates and passes, and the entry point takes it."""
+    band = open(os.path.join(CSRC, "band_step.cuh")).read()
+    stepper = open(os.path.join(CSRC, "stepper.cu")).read()
+    assert int(re.search(r"constexpr int B1_TALLY = (\d+);",
+                         band).group(1)) == sc.B1_TALLY == 2
+    assert "T* part, unsigned* sync, long long* tally, const Params<T>& p," \
+        in band
+    assert "long long* const mine = tally + B1_TALLY * band;" in band
+    assert "if (syncer) mine[0] = clock64() - mine[0];" in band
+    # each step: the edges' start and the wait's start negated, the
+    # arrival and the halo's end, by reductions
+    assert band.count("tally_add(mine + 1, -clock64());") == 2
+    assert band.count("tally_add(mine + 1, clock64());") == 2
+    # the two values the loop no longer holds, so that it spills nothing:
+    # the head's test (read anew) and the syncer's waits (one a step)
+    assert band.count("if (head_now()") == 3
+    assert "sync[SYNC_WORDS + 2 * band] = n_steps;" in band
+    assert "(T*)part, (unsigned*)sync, (long long*)tally, N, M, NHP, MP, W," \
+        in stepper
+    assert "part, sync, tally, p, g, W, n_steps, parity0);" in stepper
+    assert _build._ENTRY_ARGS["slb_resident_chunk"][:20] == (
+        [_build.ctypes.c_void_p] * 19 + [_build.ctypes.c_int])
+    model, c, runner = _setup("f32", N=60, M=24)
+    xch, part, sync, tally, words = runner._resident_scratch(CPU)
+    bands = runner.plan.bands
+    assert sync.dtype == torch.int32 and tally.dtype == torch.int64
+    assert sync.numel() >= sc.SYNC_WORDS + 2 * bands
+    assert tally.shape == (sc.B1_TALLY * bands,)
+    assert words.dtype == torch.int64 and not bool(words.any())
+    assert sync.data_ptr() == words.data_ptr()
+    assert tally.data_ptr() == words.data_ptr() + 8 * (words.numel()
+                                                       - tally.numel())
+
+
+@pytest.mark.parametrize("sms,bands", [(132, 4), (2, 2)])
+def test_count_tally_reads_the_waits_and_the_cycles_in_one_copy(sms, bands):
+    """Runner._count_tally on hand-made words: b1.waits and b1.waits_open
+    from the int32 waits after SYNC_WORDS, b1.band_cycles and
+    b1.exposed_cycles from the int64 cycle tally, one copy of one buffer;
+    N=60 M=24 (MP=128) in 4 bands of 32 at 132 SMs and in 2 of 64 at 2."""
+    from slb2d_tpu_torch import tracing
+    model = TModel(TConfig(**{**CFG, "n_harmonics": 60, "g_grid": 24}))
+    runner = sc.Runner(ts.consts_from_model(model, CPU), model)
+    runner.plan = sc.resident_plan(model.NHP, model.MP, np.float32, sms)
+    assert runner.plan.bands == bands
+    _, _, sync, tally, _ = runner._resident_scratch(CPU)
+    for k in range(bands):
+        sync[sc.SYNC_WORDS + 2 * k] = 100 + k
+        sync[sc.SYNC_WORDS + 2 * k + 1] = 40 + k
+        tally[2 * k] = 10**12 + 1000 * k
+        tally[2 * k + 1] = 3 * 10**11 + k
+    names = ("b1.waits", "b1.waits_open", "b1.band_cycles",
+             "b1.exposed_cycles")
+    before = [tracing.counters().get(n, 0) for n in names]
+    runner._count_tally()
+    got = [tracing.counters().get(n, 0) - b for n, b in zip(names, before)]
+    ks = range(bands)
+    assert got == [sum(100 + k for k in ks), sum(40 + k for k in ks),
+                   sum(10**12 + 1000 * k for k in ks),
+                   sum(3 * 10**11 + k for k in ks)]
+
+
+def test_tall_request_through_simulation_matches_the_reference(monkeypatch):
+    """The cell's request (its config's and d4_long's settings, one drawn
+    point) at a tiny tall grid, N=60 M=24 (NHP=64, above the band's 32
+    columns of its 4 bands), cut to t-max=0.2 at omega=40 (about 360
+    steps), through
+    Simulation on B1's runner on the CPU (its resident form's plan, the
+    plain version): its display-4 line within 1e-4 of the benchmark's
+    plain reference (relative, absolute below 0.01, as the benchmark's
+    check), and no b1.band_cycles or b1.exposed_cycles while spans
+    record."""
+    from slb2d_tpu_torch import config as cfgmod
+    from slb2d_tpu_torch import tracing
+    conf = _bench_json("configs", "tall_n400_m4000.json")
+    mix = _bench_json("traffic", "d4_long.json")
+    # impl=cuda and auto run on a card only; here B1's runner on the CPU
+    # tensors runs its plain version
+    monkeypatch.setattr(Simulation, "_select_engine",
+                        lambda self: "cuda-b1")
+    point = {"E_dc": 2.3, "E_omega": 1.4, "B": 0.21}
+    for k, (lo, hi) in mix["draw"].items():
+        assert lo <= point[k] <= hi
+    settings = {**conf["args"], **mix["args"], **point,
+                "n-harmonics": 60, "g-grid": 24, "t-max": 0.2,
+                "omega": 40.0, "device": "cpu"}
+    assert settings["impl"] == "auto"
+    cfg = cfgmod.parse_cmd([f"{k}={v}" for k, v in settings.items()])
+
+    class Sink(list):
+        write = list.append
+
+        def flush(self):
+            pass
+
+        def close(self):
+            pass
+
+    sink = Sink()
+    names = ("b1.band_cycles", "b1.exposed_cycles")
+    before = {k: tracing.counters().get(k) for k in names}
+    with tracing.recording():
+        sim = Simulation(cfg, out=sink)
+        sim.run()
+    assert sim.engine_tag() == "cuda-b1 resident"
+    assert sim.model.NHP > sim._runner.plan.W
+    assert {k: tracing.counters().get(k) for k in names} == before
+    lines = [ln for ln in "".join(sink).splitlines()
+             if ln.strip() and not ln.startswith("#")]
+    assert len(lines) == 1
+    ref = _reference_solver()
+    got = dict(zip(ref.D4_COLUMNS, map(float, lines[0].split())))
+    want, = ref.run_points(
+        ref.Grid(N=60, M=24, mu=settings["mu"], alpha=settings["alpha"],
+                 phi_y_min=settings["PhiYmin"],
+                 phi_y_max=settings["PhiYmax"], dt=settings["dt"],
+                 t_start=settings["t-max"]),
+        [{"E_dc": 2.3, "E_omega": 1.4, "omega": 40.0, "B": 0.21}])
+    for col in ref.OBSERVABLES:
+        gap = abs(got[col] - want[col]) / max(abs(want[col]), 1e-2)
+        assert gap <= 1e-4, (col, got[col], want[col])

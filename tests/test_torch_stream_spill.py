@@ -45,6 +45,7 @@ from slb2d_tpu_torch.ops import stepper_stream_cuda as sst
 from slb2d_tpu_torch.runtime.loop import Simulation
 
 from tests.test_torch_stepper_resident import (CFG, SUMS_TOL, _band_consts,
+                                               _bench_json, _reference_solver,
                                                _setup, _table, shape_of)
 
 CPU = torch.device("cpu")
@@ -568,31 +569,6 @@ def test_stream_forms_main_refuses_the_cpu(argv, rc, monkeypatch, capsys):
 
 
 # ---- 5. the wide.d4 deployment (benchmark/configs/wide_n100_m20000.json) --
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BENCH = os.path.join(REPO, "benchmark")
-
-
-def _bench_json(*parts):
-    import json
-    with open(os.path.join(BENCH, *parts)) as fh:
-        return json.load(fh)
-
-
-def _reference_solver():
-    """benchmark/reference/solver.py, loaded by path (it imports nothing of
-    the program; the benchmark's directory stays off sys.path)."""
-    import importlib.util
-    import sys
-    name = "slb2d_bench_reference_solver"
-    if name not in sys.modules:
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(BENCH, "reference", "solver.py"))
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod     # its dataclasses look their module up
-        spec.loader.exec_module(mod)
-    return sys.modules[name]
-
 
 def test_wide_config_routes_to_the_spill_form():
     """The wide.d4 cell's grid (N=100 M=20000 f32) at 132 SMs: no B1
