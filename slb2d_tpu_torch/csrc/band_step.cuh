@@ -144,8 +144,8 @@ __device__ __forceinline__ T band_ld(const T* p, int i) {
 // terms are constants, n±1 never wrap and nf (= n) comes from the caller;
 // else every term as half_step_cell computes it, the row wrap included.
 // The same operands in the same order as half_step_cell, so the same bits.
-// GL: the part is the slab.  RCP: cell_update's.
-template <typename T, bool INTERIOR, bool GL = false, bool RCP = false>
+// GL: the part is the slab.
+template <typename T, bool INTERIOR, bool GL = false>
 __device__ __forceinline__ void band_cell(
     const T* __restrict__ dA, const T* __restrict__ dB,
     const T* __restrict__ nA, const T* __restrict__ nB, int od, int on,
@@ -173,9 +173,9 @@ __device__ __forceinline__ void band_cell(
                   band_ld<T, GL>(nA, on + dn - 1);
   a_src = band_ld<T, GL>(dA, od);
   b_src = band_ld<T, GL>(dB, od);
-  slb::cell_update<T, RCP>(a_src, b_src, dmb_p, dmb_m, dma_p, dma_m, a0v,
-                           nf * cp_t, nf * cp_t1, nu_a, nu_b, n_ge2, w_n,
-                           colf, p, a_new, b_new);
+  slb::cell_update(a_src, b_src, dmb_p, dmb_m, dma_p, dma_m, a0v,
+                   nf * cp_t, nf * cp_t1, nu_a, nu_b, n_ge2, w_n, colf, p,
+                   a_new, b_new);
 }
 
 // The thread's cell in row n: band_cell, then (MAIN) the ghost fill --
@@ -186,8 +186,7 @@ __device__ __forceinline__ void band_cell(
 // neighbour from the other pair, which no thread writes in this phase.
 // GL: the part is the slab.  B1 (B1's resident form): the loads the cell
 // ends with (the ghost value, the carried edge) are issued before the
-// cell, so that their latency runs under its arithmetic, and the cell
-// takes cell_update's RCP.
+// cell, so that their latency runs under its arithmetic.
 template <typename T, bool MAIN, bool INTERIOR, bool GL = false,
           bool B1 = false>
 __device__ __forceinline__ void own_cell(
@@ -207,9 +206,9 @@ __device__ __forceinline__ void own_cell(
     }
   }
   T a_src, b_src, a_new, b_new;
-  band_cell<T, INTERIOR, GL, B1>(dA, dB, nA, nB, od, on, Sn, n, g.NHP, g.N,
-                                 nf, cp_t, cp_t1, colf, __ldg(a0 + gi), p,
-                                 a_src, b_src, a_new, b_new);
+  band_cell<T, INTERIOR, GL>(dA, dB, nA, nB, od, on, Sn, n, g.NHP, g.N, nf,
+                             cp_t, cp_t1, colf, __ldg(a0 + gi), p, a_src,
+                             b_src, a_new, b_new);
   if (MAIN) {
     if constexpr (!B1)
       if (ghost) gv = __ldg(a0_ghost + gi);
@@ -884,7 +883,7 @@ __device__ __forceinline__ bool grid_poll(const unsigned* ctr,
 // k / NHP, row k % NHP, by the general cell with its column's terms
 // computed as band_lane and own_cell compute them (halo_cells' for the
 // halo columns): the same bits.  As own_cell's B1: the loads the cell
-// ends with are issued before it, and cell_update's RCP.
+// ends with are issued before it.
 template <typename T, bool MAIN>
 __device__ __forceinline__ void edge_cells(
     T* dA, T* dB, const T* nA, const T* nB, int Sd, int hd, int Sn, int hn,
@@ -908,7 +907,7 @@ __device__ __forceinline__ void edge_cells(
     const T ph = __ldg(phi + col);
     const int od = n * Sd + c + hd;
     T a_src, b_src, a_new, b_new;
-    band_cell<T, false, false, true>(
+    band_cell<T, false>(
         dA, dB, nA, nB, od, n * Sn + c + hn, Sn, n, NHP, g.N, T(0),
         (p.E_dc + p.E_omega * cos_t + p.B * ph) * p.dt / T(2),
         (p.E_dc + p.E_omega * cos_t_dt + p.B * ph) * p.dt / T(2),
@@ -963,9 +962,8 @@ __device__ __forceinline__ void edge_cells(
 // every band having arrived (a neighbour's halo read it at the chunk's
 // start); the last block out sets the counter back to 0 for the next
 // chunk.  The cells are own_cell's B1 (the ghost values and the carried
-// edge loaded before the arithmetic; no division's slow path at the ghost
-// columns), so that a band with ghost columns or column M+1 is not the one
-// every other band waits for.
+// edge loaded before the arithmetic), so that a band with ghost columns or
+// column M+1 is not the one every other band waits for.
 //
 // Why the buffers hold: a band writes xch[i % 2] in step i after the wait
 // for step i - 1, which every band passed only after it had read the

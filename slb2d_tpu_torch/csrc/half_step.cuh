@@ -73,7 +73,7 @@ __device__ __forceinline__ void half_step_cell(
   const T hv = b_src * p.nu_tilde + a_src * mu_t +
                p.bdt * (w_n * dma_m - dma_p);
   const T xi = p.nu2 + mu_t1 * mu_t1;
-  const T inv_xi = colf / xi;
+  const T inv_xi = colf * (T(1) / xi);  // cell_update's product
   T a_new = (gv * nu_a - hv * mu_t1) * inv_xi;
   T b_new = (gv * mu_t1 + hv * nu_b) * inv_xi;
 
@@ -96,11 +96,8 @@ __device__ __forceinline__ void half_step_cell(
 // the row and column factors come from the caller, which may hoist them
 // (stepper_stream.cu computes each column's mu part once per half-step
 // and multiplies it by the row's n as half_step_cell does).  Returns the
-// values before the ghost fill and the edge swap.  RCP: colf times the
-// rounded reciprocal of xi, the same bits as colf / xi for colf 0 or 1 (xi
-// is positive and normal), without the division's slow path, which 0 / xi
-// takes at every ghost column (B1's resident form).
-template <typename T, bool RCP = false>
+// values before the ghost fill and the edge swap.
+template <typename T>
 __device__ __forceinline__ void cell_update(
     T a_src, T b_src, T dmb_p, T dmb_m, T dma_p, T dma_m, T a0v, T mu_t,
     T mu_t1, T nu_a, T nu_b, T n_ge2, T w_n, T colf, const Params<T>& p,
@@ -110,7 +107,14 @@ __device__ __forceinline__ void cell_update(
   const T hv = b_src * p.nu_tilde + a_src * mu_t +
                p.bdt * (w_n * dma_m - dma_p);
   const T xi = p.nu2 + mu_t1 * mu_t1;
-  const T inv_xi = RCP ? colf * (T(1) / xi) : colf / xi;
+  // colf times the rounded reciprocal of xi, not the quotient of the two:
+  // colf is 0 or 1 and xi = nu2 + mu_t1^2 is positive and normal, so
+  // colf · rn(1 / xi) is rn(1 / xi) or +0, the same bits as the rounded
+  // quotient, in f32 and f64 (the plain version divides).  The quotient
+  // 0 ÷ xi takes the division's slow path, at every ghost column, and the
+  // warps or bands that hold those columns would set the pace of the
+  // barrier every other one waits at.
+  const T inv_xi = colf * (T(1) / xi);
   a_new = (gv * nu_a - hv * mu_t1) * inv_xi;
   b_new = (gv * mu_t1 + hv * nu_b) * inv_xi;
 }

@@ -65,9 +65,7 @@
 //   constants); a0 read through the read-only path (L2), a0_ghost only off
 //   the interior (rows >= N, columns 0 and >= M+2), where the model keeps
 //   it nonzero, loaded before the cell's arithmetic; elsewhere it is 0 and
-//   the ghost fill adds gf·0 as before; the column mask times 1/xi, not
-//   divided by xi, which at a ghost column (mask 0) took the division's
-//   slow path and held every band to those bands' pace.
+//   the ghost fill adds gf·0 as before.
 //   Shapes whose band does not fit (f64 at the tall and wide grids) take
 //   the per-half-step form; nothing falls back at run time.
 //

@@ -14,8 +14,9 @@ and two modules of measurements on the port's own kernels:
                          and B1's per-half-step form: the measurements
                          behind the spill plan's L2 budget, the tiling
                          form's width and impl=cuda's routing
-  vs_parent              B1's resident form and B2's spill form against
-                         the same forms in another checkout, in turns
+  vs_parent              B1's resident form, B2's spill form and B3's
+                         cluster form against the same forms in another
+                         checkout, in turns
 
 Each runs as ``python -m slb2d_tpu_torch.perf.<name>`` on a card; its
 main() refuses the CPU.  The functions take ``device=`` (and smaller

@@ -443,20 +443,35 @@ def test_refused_cluster_launch_raises_before_any_state_changes(card,
     assert runner.launches == 0 and tracing.counters() == counts
 
 
+# B3's registers and local bytes a thread at N=40 M=500 as nvcc builds
+# them for sm_90a, by (dtype, per omega, form)
+SWEEP_FORMS = {("float32", False, "cluster"): (64, 0),
+               ("float32", False, "streaming"): (54, 0),
+               ("float32", True, "cluster"): (64, 32),
+               ("float32", True, "streaming"): (64, 0),
+               ("float64", False, "cluster"): (64, 48),
+               ("float64", False, "streaming"): (64, 0),
+               ("float64", True, "cluster"): (64, 112),
+               ("float64", True, "streaming"): (64, 48)}
+
+
 @pytest.mark.cuda
 def test_form_info_at_the_sweep_shape(card):
     """What the plan's forms take at N=40 M=500: the shared memory the
-    plan computed, at most 64 registers a thread (1024 threads a block),
-    and at least one cluster on the card."""
+    plan computed, the registers and local bytes a thread of SWEEP_FORMS
+    (1024 threads a block), and at least one cluster on the card."""
     for D in (np.float32, np.float64):
         cs, smem = ssc.cluster_plan(48, 512, D)
         for per_omega in (False, True):
             info = ssc.form_info(D, per_omega, cs, 48, 512)
             assert info["smem_bytes"] == smem
-            assert 0 < info["registers"] <= 64
             assert info["active_clusters"] >= 1
             stream = ssc.form_info(D, per_omega, 0, 48, 512)
             assert stream["smem_bytes"] == 0 and stream["active_clusters"] > 0
+            for form, got in (("cluster", info), ("streaming", stream)):
+                key = (np.dtype(D).name, per_omega, form)
+                assert (got["registers"], got["local_bytes"]) == \
+                    SWEEP_FORMS[key], (key, got)
 
 
 @pytest.mark.cuda
@@ -589,15 +604,62 @@ def test_refused_spill_launch_leaves_the_state_untouched(card):
 @pytest.mark.cuda
 def test_spill_form_info_at_its_shape(card):
     """What the spill form takes at its plan: the shared memory the plan
-    computed, at most 64 registers a thread (1024 threads a block), every
-    band's block on the card at once."""
+    computed, 64 registers and 128 local bytes a thread as nvcc builds it
+    for sm_90a (1024 threads a block), every band's block on the card at
+    once."""
     plan = sst.spill_plan(104, 20096, np.float32,
                           stepper_cuda.card_sms(card))
     info = sst.spill_form_info(np.float32, plan, 104, 20096)
     assert info["smem_bytes"] == plan.smem_bytes
     assert info["threads"] == plan.threads == 1024
-    assert 0 < info["registers"] <= 64
+    assert (info["registers"], info["local_bytes"]) == (64, 128), info
     assert info["blocks_at_once"] >= plan.bands
+
+
+# Every form's cell (csrc/half_step.cuh: colf times the reciprocal of xi)
+# against its plain version, which divides, at grids whose ghost columns
+# (colf 0) fill several warps, tiles or bands: N=13 M=300 (MP=384, columns
+# 302-383 ghosts; B2's spill form on a forced plan of 2 bands with R=64,
+# the ghosts in band 1's resident part and slab) for B2's spill and
+# tiling forms and B1's per-half-step form, and the ragged grids' points
+# at N=40 M=300 for B3's cluster and streaming forms and B4.  B2's spill
+# form at its own shape and B3's at N=40 M=500 keep their cases above.
+DIVISION_CASES = [(form, dtype) for form in (
+    "spill", "tiling", "per-half-step", "cluster shared", "cluster omega",
+    "streaming shared", "streaming omega") for dtype in ("f32", "f64")] + [
+    ("lanes", "f32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,dtype", DIVISION_CASES)
+def test_cell_matches_plain_where_ghost_columns_fill_warps(card, form,
+                                                           dtype):
+    """Each form against its plain version (which divides) where the
+    ghost columns, whose colf is 0, fill whole warps: state and edges bit
+    for bit, as each form's own check holds them."""
+    if form == "spill":
+        _, runner = ts.check_spill_vs_plain(ts.GHOST300, dtype,
+                                            forced=(2, 64))
+        assert runner.form == "spill" and runner.plan.bands == 2
+    elif form == "tiling":
+        ts.check_stream_vs_plain(ts.GHOST300, dtype)
+    elif form == "per-half-step":
+        _, runner = ts.check_kernel_vs_plain(ts.GHOST300, dtype,
+                                             n_steps=200, form=form)
+        assert runner.form == form
+    elif form == "lanes":
+        runner = ts.check_lanes_vs_plain("omega_ragged300")
+        assert runner.form == "cluster"
+    else:
+        kind, mode = form.split()
+        cs = None if kind == "cluster" else 0
+        if mode == "shared":
+            _, runner = ts.check_sweep_kernel_vs_plain(
+                "ragged300", dtype, n_steps=60, cluster_size=cs)
+        else:
+            *_, runner = ts.check_omega_kernel_vs_plain(
+                "omega_ragged300", dtype, cluster_size=cs)
+        assert runner.form == kind
 
 
 @pytest.mark.cuda

@@ -129,6 +129,12 @@ LANES3_PARAMS = {"E_dc": [0.5, 1.25, 2.0], "E_omega": [2.0, 2.0, 0.0]}
 WIDE8 = dict(t_start=0.1, **BASELINE4)
 OMEGA_WIDE8 = dict(t_start=0.01, **BASELINE4)
 GRID40 = dict(n_harmonics=40, g_grid=500)
+# the ragged grids' points at N=40 M=300 (NHP=48, MP=384), whose 82 ghost
+# columns 302-383 fill three warps of a row
+GRID300 = dict(n_harmonics=40, g_grid=300)
+# a single run's grid whose ghost columns 302-383 (MP=384) fill three
+# warps of a row, several tiles, and band 1 of a 2-band spill plan
+GHOST300 = dict(n_harmonics=13, g_grid=300)
 
 
 def allclose(got, ref, rtol, atol, what):
@@ -417,9 +423,9 @@ def sweep_grid(shape):
         params = {"E_dc": np.linspace(0.3, 2.0, 6),
                   **{k: np.asarray(v) for k, v in RAGGED_PARAMS.items()}}
         return {**PHYS, **SWEEP_RAGGED}, params
-    if shape in ("ragged40", "omega_ragged40"):
-        kw, params = sweep_grid(shape[:-2])
-        return {**kw, **GRID40}, params
+    if shape.endswith(("ragged40", "ragged300")):
+        kw, params = sweep_grid(shape.rstrip("0123456789"))
+        return {**kw, **(GRID40 if shape.endswith("40") else GRID300)}, params
     if shape == "omega_ragged":
         return ({**PHYS, **OMEGA_RAGGED},
                 {k: np.asarray(v) for k, v in OMEGA_RAGGED_PARAMS.items()})
@@ -505,7 +511,7 @@ def check_sweep_kernel_vs_plain(shape, dtype, n_steps=300,
         torch.cuda.synchronize()
         err = max(err, _sweep_chunk_checks(runner, kern, plain, launches0,
                                            n, what, TOL[dtype]))
-    if shape in ("ragged", "ragged40"):
+    if shape in ("ragged", "ragged40", "ragged300"):
         assert bool((~runner.egate).any()), "no dc-only point"
     return err, runner
 
@@ -556,7 +562,7 @@ def check_omega_kernel_vs_plain(shape, dtype, n_steps=None, start=0,
     if start + n_steps == sweep.n_steps:
         assert bool(torch.all(kcap["norm"] != 0)), \
             f"{what}: a point's loop-exit capture never fired"
-    if shape in ("omega_ragged", "omega_ragged40"):
+    if shape in ("omega_ragged", "omega_ragged40", "omega_ragged300"):
         assert bool((~runner.egate).any()), "no dc-only point"
     return err, cap_err, int(fired.sum()), runner
 
